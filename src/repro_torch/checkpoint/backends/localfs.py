@@ -1,0 +1,113 @@
+"""LocalFSBackend — the POSIX object tree, in the JAX package's layout:
+
+    <dir>/ab/abcdef...123.chunk     # two-hex-char fan-out, one file/object
+
+``atomic_write`` is the tmp+rename(+fsync) protocol the manifest store
+uses as well.
+"""
+from __future__ import annotations
+
+import os
+import threading
+from pathlib import Path
+from typing import Iterator, Optional
+
+from repro_torch.checkpoint.backends.base import (Data, StorageBackend,
+                                                  data_len, data_parts)
+
+
+def _fsync_dir(path: Path) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def atomic_write(path: Path, data: Data, *, fsync: bool = True) -> None:
+    """Write ``data`` (one buffer or several, back to back) to a unique tmp
+    file and rename it over ``path``."""
+    tmp = path.with_suffix(
+        path.suffix + f".tmp-{os.getpid():x}-{threading.get_ident():x}")
+    tmp.parent.mkdir(parents=True, exist_ok=True)
+    with open(tmp, "wb") as f:
+        for part in data_parts(data):
+            f.write(part)
+        if fsync:
+            f.flush()
+            os.fsync(f.fileno())
+    os.replace(tmp, path)
+    if fsync:
+        _fsync_dir(path.parent)
+
+
+class LocalFSBackend(StorageBackend):
+    name = "local"
+
+    def __init__(self, root: Path | str):
+        self.root = Path(root)
+
+    def _path(self, key: str) -> Path:
+        return self.root / key[:2] / f"{key}.chunk"
+
+    def read_into(self, key: str, alloc) -> memoryview:
+        p = self._path(key)
+        with open(p, "rb") as f:
+            n = os.fstat(f.fileno()).st_size
+            buf = memoryview(alloc(n)).cast("B")
+            got = 0
+            while got < n:
+                k = f.readinto(buf[got:])
+                if not k:
+                    raise OSError(f"short read of {p}")
+                got += k
+        return buf
+
+    def write(self, key: str, data: Data) -> int:
+        # Objects are published by rename without fsync (the JAX package's
+        # default); the manifest written last is fsynced.
+        atomic_write(self._path(key), data, fsync=False)
+        return data_len(data)
+
+    def has(self, key: str) -> bool:
+        return self._path(key).is_file()
+
+    def size(self, key: str) -> int:
+        return self._path(key).stat().st_size
+
+    def delete(self, key: str) -> int:
+        p = self._path(key)
+        try:
+            freed = p.stat().st_size
+            p.unlink()
+        except FileNotFoundError:
+            return 0
+        try:
+            p.parent.rmdir()  # prune empty fan-out dirs opportunistically
+        except OSError:
+            pass
+        return freed
+
+    def keys(self) -> Iterator[str]:
+        if self.root.is_dir():
+            for f in sorted(self.root.glob("*/*.chunk")):
+                yield f.stem
+
+    def sweep_tmp(self) -> int:
+        """Crash-leftover ``*.tmp-*`` files of other processes (a tmp file
+        with our own pid may be a live write)."""
+        freed = 0
+        own = f"{os.getpid():x}-"
+        if self.root.is_dir():
+            for tmp in self.root.glob("*/*.tmp-*"):
+                if tmp.name.rsplit(".tmp-", 1)[-1].startswith(own):
+                    continue
+                try:
+                    freed += tmp.stat().st_size
+                    tmp.unlink()
+                except FileNotFoundError:
+                    continue
+        return freed
+
+    def path_of(self, key: str) -> Optional[Path]:
+        return self._path(key)

@@ -1,0 +1,334 @@
+"""Content-addressed chunk store with cross-step dedup and block-sparse
+deltas — the fingerprint-pipeline half of the JAX package's store.
+
+On-disk layout (identical to the JAX package's ``local`` backend):
+
+    root/
+      objects/ab/abcdef...123.chunk   # one file per distinct content digest
+      manifests/manifest-00000100.json
+      LATEST
+
+An object is a msgpack envelope.  Objects written by ``write_fp`` are
+addressed by the blake2b of their fingerprint table (carried in the
+envelope under ``"fp"``) and hold either a ``full`` chunk payload or a
+``block_delta`` (BD02) of the dirty blocks against a full base object.
+Lifetimes are refcounted from the committed manifests; ``gc_objects``
+deletes objects no manifest references.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import Counter
+from pathlib import Path
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
+
+from repro_torch.checkpoint import _msgpack, workers
+from repro_torch.checkpoint import fingerprint as fputil
+from repro_torch.checkpoint.backends import LocalFSBackend
+from repro_torch.checkpoint.serial import ChunkCorruption
+
+OBJECT_VERSION = workers.OBJECT_VERSION
+# Force a full rebase after this many consecutive deltas of one unit, so
+# one full base never underpins a unit's whole retention window.
+REBASE_EVERY = 4
+
+
+def _ref_stored(fmt: str) -> str:
+    return "full" if fmt == "full" else "delta"
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkRef:
+    step: int
+    unit: str
+    kind: str           # "weights" | "opt"
+    relpath: str
+    nbytes: int         # size of the object file on disk
+    digest: str = ""
+    stored: str = "full"            # "full" | "delta"
+    delta_base: Optional[str] = None  # digest of the full base, if delta
+
+    def to_json(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @staticmethod
+    def from_json(d: Dict[str, Any]) -> "ChunkRef":
+        if d.get("spec") is not None:
+            raise ValueError("shard objects are not ported to repro_torch "
+                             "yet")
+        d = {k: v for k, v in d.items() if k != "spec"}
+        return ChunkRef(**d)
+
+
+class ChunkStore:
+    """The store under ``root`` (the ``local`` backend, codec none)."""
+
+    codec = "none"
+
+    def __init__(self, root: Path | str):
+        self.root = Path(root)
+        self.backend = LocalFSBackend(self.root / "objects")
+        self._refcounts: Counter = Counter()
+        # digest -> {"stored", "base", "codec", "nbytes"}
+        self._info: Dict[str, Dict[str, Any]] = {}
+        # (unit, kind) -> consecutive deltas written since the last full
+        self._delta_runs: Dict[Tuple[str, str], int] = {}
+        # digest -> unpacked fingerprint table
+        self._fp_tables: Dict[str, list] = {}
+        # Monotonic host seconds by stage (callers take differences):
+        # framing + crc32 of writes, file writes, file reads, and decoding
+        # + crc32 checks of reads.
+        self.seconds = {"encode": 0.0, "write_io": 0.0, "read_io": 0.0,
+                        "decode": 0.0}
+        self.stats: Dict[str, int] = {}
+        self.reset_stats()
+
+    # ---- addressing ----
+    def object_relpath(self, digest: str) -> str:
+        return f"objects/{digest[:2]}/{digest}.chunk"
+
+    def object_path(self, digest: str) -> Path:
+        return self.backend.path_of(digest)
+
+    def has(self, digest: str) -> bool:
+        return self.backend.has(digest)
+
+    def iter_digests(self) -> Iterator[str]:
+        return self.backend.keys()
+
+    def object_size(self, digest: str) -> int:
+        return self.backend.size(digest)
+
+    # ---- stats ----
+    def reset_stats(self) -> None:
+        self.stats = {"written_bytes": 0, "logical_bytes": 0,
+                      "dedup_hits": 0, "delta_chunks": 0, "full_chunks": 0,
+                      "hashed_bytes": 0}
+
+    def _bump(self, **kw: int) -> None:
+        for k, v in kw.items():
+            self.stats[k] += v
+
+    # ---- object io ----
+    def _remember(self, digest: str, env: Dict[str, Any],
+                  nbytes: int) -> None:
+        self._info[digest] = {"stored": env.get("format"),
+                              "base": env.get("base"),
+                              "codec": env.get("codec"), "nbytes": nbytes}
+
+    def read_envelope(self, digest: str,
+                      alloc: Optional[Callable[[int], Any]] = None
+                      ) -> Dict[str, Any]:
+        """Parsed envelope of ``digest``; its bins are views into a buffer
+        from ``alloc(nbytes)`` (a bytearray by default)."""
+        t0 = time.perf_counter()
+        blob = self.backend.read_into(digest, alloc or bytearray)
+        self.seconds["read_io"] += time.perf_counter() - t0
+        env = workers.parse_envelope(blob, digest)
+        self._remember(digest, env, blob.nbytes)
+        return env
+
+    def object_info(self, digest: str) -> Dict[str, Any]:
+        info = self._info.get(digest)
+        if info is None:
+            self.read_envelope(digest)
+            info = self._info[digest]
+        return dict(info)
+
+    def _write_object(self, digest: str, env: Dict[str, Any]) -> int:
+        parts = _msgpack.pack_parts(env)
+        t0 = time.perf_counter()
+        nbytes = self.backend.write(digest, parts)
+        self.seconds["write_io"] += time.perf_counter() - t0
+        self._remember(digest, env, nbytes)
+        return nbytes
+
+    def _dedup_ref(self, step: int, unit: str, kind: str, digest: str, *,
+                   prev_ref: Optional[ChunkRef] = None) -> ChunkRef:
+        """ChunkRef for a dedup hit.  ``prev_ref`` (the unit's previous
+        manifest entry) supplies stored/base/nbytes without reading the
+        object's envelope."""
+        if prev_ref is not None and prev_ref.digest == digest:
+            info = {"stored": prev_ref.stored, "base": prev_ref.delta_base,
+                    "nbytes": prev_ref.nbytes}
+            self._info.setdefault(digest, dict(info))
+        else:
+            info = self.object_info(digest)
+        self._bump(dedup_hits=1)
+        return ChunkRef(step=step, unit=unit, kind=kind,
+                        relpath=self.object_relpath(digest),
+                        nbytes=info["nbytes"], digest=digest,
+                        stored=_ref_stored(info["stored"]),
+                        delta_base=info["base"])
+
+    def note_dedup(self, step: int, unit: str, kind: str, digest: str, *,
+                   prev_ref: Optional[ChunkRef] = None,
+                   logical_bytes: int = 0) -> ChunkRef:
+        """Account a saver-detected dedup hit (fingerprints matched on the
+        device, so no payload moved or was hashed)."""
+        self._bump(logical_bytes=logical_bytes)
+        return self._dedup_ref(step, unit, kind, digest, prev_ref=prev_ref)
+
+    def write_fp(self, step: int, unit: str, kind: str,
+                 packet: fputil.FingerprintPacket, *,
+                 prev_ref: Optional[ChunkRef] = None) -> ChunkRef:
+        """Persist a unit from a fingerprint packet: a full object framed
+        straight from the leaves' raw bytes, or a block-sparse delta of the
+        dirty blocks.  The saver made the full-vs-delta decision."""
+        digest = packet.digest
+        self._bump(logical_bytes=packet.logical_bytes,
+                   hashed_bytes=len(packet.table))
+        if self.backend.has(digest):
+            return self._dedup_ref(step, unit, kind, digest,
+                                   prev_ref=prev_ref)
+        t0 = time.perf_counter()
+        table = fputil.unpack_table(packet.table)
+        if packet.full:
+            items = [(l.path, tuple(l.shape), l.dtype,
+                      memoryview(l.data).cast("B")[:l.nbytes])
+                     for l in packet.leaves]
+            env = {"v": OBJECT_VERSION, "format": "full",
+                   "codec": self.codec, "base": None,
+                   "payload": workers.encode_chunk_blob(items, {}),
+                   "fp": packet.table}
+            self.seconds["encode"] += time.perf_counter() - t0
+            nbytes = self._write_object(digest, env)
+            self._delta_runs[(unit, kind)] = 0
+            self._fp_tables[digest] = table
+            self._bump(written_bytes=nbytes, full_chunks=1)
+            return ChunkRef(step=step, unit=unit, kind=kind,
+                            relpath=self.object_relpath(digest),
+                            nbytes=nbytes, digest=digest, stored="full",
+                            delta_base=None)
+        if not packet.base_digest:
+            raise ValueError("a block delta needs a base digest")
+        records = [{"name": l.path, "shape": list(l.shape), "dtype": l.dtype,
+                    "nbytes": l.nbytes, "block": l.block_bytes,
+                    "idx": [] if l.idx is None else list(map(int, l.idx)),
+                    "data": l.data}
+                   for l in packet.leaves if l.idx is None or len(l.idx)]
+        env = {"v": OBJECT_VERSION, "format": "block_delta",
+               "base": packet.base_digest,
+               "payload": workers.block_delta_encode(records),
+               "fp": packet.table}
+        self.seconds["encode"] += time.perf_counter() - t0
+        nbytes = self._write_object(digest, env)
+        self._delta_runs[(unit, kind)] = \
+            self._delta_runs.get((unit, kind), 0) + 1
+        self._fp_tables[digest] = table
+        self._bump(written_bytes=nbytes, delta_chunks=1)
+        return ChunkRef(step=step, unit=unit, kind=kind,
+                        relpath=self.object_relpath(digest), nbytes=nbytes,
+                        digest=digest, stored="delta",
+                        delta_base=packet.base_digest)
+
+    def load_fp_table(self, digest: str) -> Optional[list]:
+        """The fingerprint table of an fp-addressed object (None for a
+        missing, unreadable or canonical-digest object); cached."""
+        tbl = self._fp_tables.get(digest)
+        if tbl is not None:
+            return tbl
+        if not self.has(digest):
+            return None
+        try:
+            env = self.read_envelope(digest)
+        except ChunkCorruption:
+            return None
+        blob = env.get("fp")
+        if blob is None:
+            return None
+        try:
+            tbl = fputil.unpack_table(blob)
+        except ValueError:
+            return None
+        self._fp_tables[digest] = tbl
+        return tbl
+
+    def read_items(self, digest: str,
+                   alloc: Optional[Callable[[int], Any]] = None
+                   ) -> Tuple[workers.Items, Optional[bytes]]:
+        """Decoded ``(items, fp_table_blob)`` of an object, delta bases
+        resolved and verified: per-record crc32, and the table must hash to
+        the digest (fp objects) or the payload must (canonical objects).
+        Recomputing the table from the tensors is the caller's half of the
+        check: the restore does it on the device after placement."""
+        try:
+            env = self.read_envelope(digest, alloc)
+            fmt = env.get("format")
+            fp_blob = env.get("fp")
+            if fp_blob is not None:
+                fp_blob = bytes(fp_blob)
+                if fputil.fp_digest(fp_blob) != digest:
+                    raise ChunkCorruption(
+                        f"fingerprint digest mismatch for {digest}")
+                # The table hashes to the address: the next save's compare
+                # needs no second read of this object.
+                self._fp_tables[digest] = fputil.unpack_table(fp_blob)
+                if fmt == "block_delta":
+                    base_items, _ = self.read_items(env["base"], alloc)
+                t0 = time.perf_counter()
+                if fmt == "full":
+                    _, items = workers.decode_chunk_items(env["payload"])
+                elif fmt == "block_delta":
+                    records = workers.block_delta_decode(env["payload"])
+                    items = workers.patch_items(base_items, records)
+                else:
+                    raise ChunkCorruption(f"unknown object format {fmt!r}")
+                self.seconds["decode"] += time.perf_counter() - t0
+                return items, fp_blob
+            if fmt == "full" and env.get("codec") == "none":
+                payload = env["payload"]
+                if workers.blake2_hex(payload) != digest:
+                    raise ChunkCorruption(f"digest mismatch for {digest}")
+                _, items = workers.decode_chunk_items(payload)
+                return items, None
+        except (ChunkCorruption, workers.CodecUnavailable):
+            raise
+        except (ValueError, KeyError, TypeError) as e:
+            raise ChunkCorruption(f"unreadable object {digest}: {e!r}") \
+                from e
+        raise workers.CodecUnavailable(
+            f"object {digest} ({fmt}, codec {env.get('codec')!r}) uses an "
+            "encoding not ported to repro_torch yet")
+
+    # ---- delta runs ----
+    def delta_run(self, unit: str, kind: str) -> int:
+        return self._delta_runs.get((unit, kind), 0)
+
+    def seed_delta_runs(self, runs: Dict[Tuple[str, str], int]) -> None:
+        self._delta_runs = dict(runs)
+
+    # ---- refcounts / gc ----
+    def set_refcounts(self, counts: Counter) -> None:
+        self._refcounts = Counter(counts)
+
+    def incref(self, digests: Iterable[str]) -> None:
+        for d in digests:
+            self._refcounts[d] += 1
+
+    def decref(self, digests: Iterable[str]) -> None:
+        for d in digests:
+            self._refcounts[d] -= 1
+
+    def refcount(self, digest: str) -> int:
+        return self._refcounts.get(digest, 0)
+
+    def gc_objects(self) -> int:
+        """Delete objects with no remaining references (orphans included)
+        and crash-leftover tmp files; returns bytes freed.  Call only after
+        the current manifest is committed and increffed."""
+        freed = self.backend.sweep_tmp()
+        for digest in list(self.iter_digests()):
+            if self.refcount(digest) > 0:
+                continue
+            reclaimed = self.backend.delete(digest)
+            if reclaimed:
+                freed += reclaimed
+                self._info.pop(digest, None)
+                self._refcounts.pop(digest, None)
+                self._fp_tables.pop(digest, None)
+        return freed
+
+    def close(self) -> None:
+        self.backend.close()

@@ -23,6 +23,10 @@ def pytest_configure(config):
         "process_io: subprocess IO-worker conformance/stress tests "
         "(spawn worker processes and shared-memory segments; see "
         "tests/test_io_workers.py)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device and nvcc (the port's kernels); skips "
+        "without one (see tests/test_torch_cuda.py)")
 
 
 @pytest.fixture(scope="session", autouse=True)
