@@ -14,16 +14,23 @@ envelope under ``"fp"``) and hold either a ``full`` chunk payload or a
 ``block_delta`` (BD02) of the dirty blocks against a full base object.
 Lifetimes are refcounted from the committed manifests; ``gc_objects``
 deletes objects no manifest references.
+
+Writes run on the async writer's threads while the training thread makes
+the next event's decisions, so ``write_fp``, ``note_dedup`` and ``has``
+may be called concurrently: every shared table (stats, stage seconds,
+object info, delta runs, fingerprint tables, refcounts) is updated under
+one lock, and object files are published by atomic rename.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from collections import Counter
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
-from repro_torch.checkpoint import _msgpack, workers
+from repro_torch.checkpoint import _msgpack, faults, workers
 from repro_torch.checkpoint import fingerprint as fputil
 from repro_torch.checkpoint.backends import LocalFSBackend
 from repro_torch.checkpoint.serial import ChunkCorruption
@@ -69,6 +76,7 @@ class ChunkStore:
     def __init__(self, root: Path | str):
         self.root = Path(root)
         self.backend = LocalFSBackend(self.root / "objects")
+        self._lock = threading.RLock()
         self._refcounts: Counter = Counter()
         # digest -> {"stored", "base", "codec", "nbytes"}
         self._info: Dict[str, Dict[str, Any]] = {}
@@ -92,6 +100,8 @@ class ChunkStore:
         return self.backend.path_of(digest)
 
     def has(self, digest: str) -> bool:
+        """Store-wide probe: is an object with this digest on disk?  A
+        stat of its file, safe from any thread."""
         return self.backend.has(digest)
 
     def iter_digests(self) -> Iterator[str]:
@@ -102,20 +112,36 @@ class ChunkStore:
 
     # ---- stats ----
     def reset_stats(self) -> None:
-        self.stats = {"written_bytes": 0, "logical_bytes": 0,
-                      "dedup_hits": 0, "delta_chunks": 0, "full_chunks": 0,
-                      "hashed_bytes": 0}
+        with self._lock:
+            self.stats = {"written_bytes": 0, "logical_bytes": 0,
+                          "dedup_hits": 0, "delta_chunks": 0,
+                          "full_chunks": 0, "hashed_bytes": 0}
 
     def _bump(self, **kw: int) -> None:
-        for k, v in kw.items():
-            self.stats[k] += v
+        with self._lock:
+            for k, v in kw.items():
+                self.stats[k] += v
+
+    def _add_seconds(self, stage: str, dt: float) -> None:
+        with self._lock:
+            self.seconds[stage] += dt
+
+    def seconds_snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self.seconds)
+
+    def stats_snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self.stats)
 
     # ---- object io ----
     def _remember(self, digest: str, env: Dict[str, Any],
                   nbytes: int) -> None:
-        self._info[digest] = {"stored": env.get("format"),
-                              "base": env.get("base"),
-                              "codec": env.get("codec"), "nbytes": nbytes}
+        with self._lock:
+            self._info[digest] = {"stored": env.get("format"),
+                                  "base": env.get("base"),
+                                  "codec": env.get("codec"),
+                                  "nbytes": nbytes}
 
     def read_envelope(self, digest: str,
                       alloc: Optional[Callable[[int], Any]] = None
@@ -124,23 +150,26 @@ class ChunkStore:
         from ``alloc(nbytes)`` (a bytearray by default)."""
         t0 = time.perf_counter()
         blob = self.backend.read_into(digest, alloc or bytearray)
-        self.seconds["read_io"] += time.perf_counter() - t0
+        self._add_seconds("read_io", time.perf_counter() - t0)
         env = workers.parse_envelope(blob, digest)
         self._remember(digest, env, blob.nbytes)
         return env
 
     def object_info(self, digest: str) -> Dict[str, Any]:
-        info = self._info.get(digest)
+        with self._lock:
+            info = self._info.get(digest)
         if info is None:
             self.read_envelope(digest)
-            info = self._info[digest]
+            with self._lock:
+                info = self._info[digest]
         return dict(info)
 
     def _write_object(self, digest: str, env: Dict[str, Any]) -> int:
         parts = _msgpack.pack_parts(env)
+        faults.crash_point("object_write")
         t0 = time.perf_counter()
         nbytes = self.backend.write(digest, parts)
-        self.seconds["write_io"] += time.perf_counter() - t0
+        self._add_seconds("write_io", time.perf_counter() - t0)
         self._remember(digest, env, nbytes)
         return nbytes
 
@@ -152,7 +181,8 @@ class ChunkStore:
         if prev_ref is not None and prev_ref.digest == digest:
             info = {"stored": prev_ref.stored, "base": prev_ref.delta_base,
                     "nbytes": prev_ref.nbytes}
-            self._info.setdefault(digest, dict(info))
+            with self._lock:
+                self._info.setdefault(digest, dict(info))
         else:
             info = self.object_info(digest)
         self._bump(dedup_hits=1)
@@ -192,10 +222,11 @@ class ChunkStore:
                    "codec": self.codec, "base": None,
                    "payload": workers.encode_chunk_blob(items, {}),
                    "fp": packet.table}
-            self.seconds["encode"] += time.perf_counter() - t0
+            self._add_seconds("encode", time.perf_counter() - t0)
             nbytes = self._write_object(digest, env)
-            self._delta_runs[(unit, kind)] = 0
-            self._fp_tables[digest] = table
+            with self._lock:
+                self._delta_runs[(unit, kind)] = 0
+                self._fp_tables[digest] = table
             self._bump(written_bytes=nbytes, full_chunks=1)
             return ChunkRef(step=step, unit=unit, kind=kind,
                             relpath=self.object_relpath(digest),
@@ -212,11 +243,12 @@ class ChunkStore:
                "base": packet.base_digest,
                "payload": workers.block_delta_encode(records),
                "fp": packet.table}
-        self.seconds["encode"] += time.perf_counter() - t0
+        self._add_seconds("encode", time.perf_counter() - t0)
         nbytes = self._write_object(digest, env)
-        self._delta_runs[(unit, kind)] = \
-            self._delta_runs.get((unit, kind), 0) + 1
-        self._fp_tables[digest] = table
+        with self._lock:
+            self._delta_runs[(unit, kind)] = \
+                self._delta_runs.get((unit, kind), 0) + 1
+            self._fp_tables[digest] = table
         self._bump(written_bytes=nbytes, delta_chunks=1)
         return ChunkRef(step=step, unit=unit, kind=kind,
                         relpath=self.object_relpath(digest), nbytes=nbytes,
@@ -226,7 +258,8 @@ class ChunkStore:
     def load_fp_table(self, digest: str) -> Optional[list]:
         """The fingerprint table of an fp-addressed object (None for a
         missing, unreadable or canonical-digest object); cached."""
-        tbl = self._fp_tables.get(digest)
+        with self._lock:
+            tbl = self._fp_tables.get(digest)
         if tbl is not None:
             return tbl
         if not self.has(digest):
@@ -242,7 +275,8 @@ class ChunkStore:
             tbl = fputil.unpack_table(blob)
         except ValueError:
             return None
-        self._fp_tables[digest] = tbl
+        with self._lock:
+            self._fp_tables[digest] = tbl
         return tbl
 
     def read_items(self, digest: str,
@@ -264,7 +298,9 @@ class ChunkStore:
                         f"fingerprint digest mismatch for {digest}")
                 # The table hashes to the address: the next save's compare
                 # needs no second read of this object.
-                self._fp_tables[digest] = fputil.unpack_table(fp_blob)
+                tbl = fputil.unpack_table(fp_blob)
+                with self._lock:
+                    self._fp_tables[digest] = tbl
                 if fmt == "block_delta":
                     base_items, _ = self.read_items(env["base"], alloc)
                 t0 = time.perf_counter()
@@ -275,7 +311,7 @@ class ChunkStore:
                     items = workers.patch_items(base_items, records)
                 else:
                     raise ChunkCorruption(f"unknown object format {fmt!r}")
-                self.seconds["decode"] += time.perf_counter() - t0
+                self._add_seconds("decode", time.perf_counter() - t0)
                 return items, fp_blob
             if fmt == "full" and env.get("codec") == "none":
                 payload = env["payload"]
@@ -294,25 +330,31 @@ class ChunkStore:
 
     # ---- delta runs ----
     def delta_run(self, unit: str, kind: str) -> int:
-        return self._delta_runs.get((unit, kind), 0)
+        with self._lock:
+            return self._delta_runs.get((unit, kind), 0)
 
     def seed_delta_runs(self, runs: Dict[Tuple[str, str], int]) -> None:
-        self._delta_runs = dict(runs)
+        with self._lock:
+            self._delta_runs = dict(runs)
 
     # ---- refcounts / gc ----
     def set_refcounts(self, counts: Counter) -> None:
-        self._refcounts = Counter(counts)
+        with self._lock:
+            self._refcounts = Counter(counts)
 
     def incref(self, digests: Iterable[str]) -> None:
-        for d in digests:
-            self._refcounts[d] += 1
+        with self._lock:
+            for d in digests:
+                self._refcounts[d] += 1
 
     def decref(self, digests: Iterable[str]) -> None:
-        for d in digests:
-            self._refcounts[d] -= 1
+        with self._lock:
+            for d in digests:
+                self._refcounts[d] -= 1
 
     def refcount(self, digest: str) -> int:
-        return self._refcounts.get(digest, 0)
+        with self._lock:
+            return self._refcounts.get(digest, 0)
 
     def gc_objects(self) -> int:
         """Delete objects with no remaining references (orphans included)
@@ -325,9 +367,10 @@ class ChunkStore:
             reclaimed = self.backend.delete(digest)
             if reclaimed:
                 freed += reclaimed
-                self._info.pop(digest, None)
-                self._refcounts.pop(digest, None)
-                self._fp_tables.pop(digest, None)
+                with self._lock:
+                    self._info.pop(digest, None)
+                    self._refcounts.pop(digest, None)
+                    self._fp_tables.pop(digest, None)
         return freed
 
     def close(self) -> None:

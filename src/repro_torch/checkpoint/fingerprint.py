@@ -26,7 +26,7 @@ from repro_torch.kernels.block_fp.ref import DEFAULT_BLOCK_BYTES, LeafFP
 TABLE_VERSION = 1
 
 __all__ = ["DEFAULT_BLOCK_BYTES", "FingerprintPacket", "LeafPayload",
-           "fp_digest", "pack_table", "unpack_table"]
+           "fp_digest", "meta_table", "pack_table", "unpack_table"]
 
 
 def pack_table(leaves: Sequence[LeafFP]) -> bytes:
@@ -56,6 +56,26 @@ def unpack_table(blob) -> List[LeafFP]:
 
 def fp_digest(table_blob) -> str:
     return blake2_hex(table_blob)
+
+
+def meta_table(tree, block_bytes: int = DEFAULT_BLOCK_BYTES
+               ) -> List[LeafFP]:
+    """Structure-only table of a tree of tensors (paths, shapes, dtypes,
+    byte lengths) with zeroed checksums and no device work: enough for
+    ``meta_matches``, so the overlapped saver can plan a delta base before
+    any fingerprint reaches the host.  Never pack or hash one."""
+    from repro_torch.checkpoint.serial import flatten_with_paths
+    from repro_torch.dtypes import dtype_name
+
+    out = []
+    for path, arr in flatten_with_paths(tree):
+        nbytes = arr.numel() * arr.element_size()
+        nb = max(1, -(-nbytes // block_bytes))
+        out.append(LeafFP(path=path, shape=tuple(arr.shape),
+                          dtype=dtype_name(arr.dtype), nbytes=nbytes,
+                          block_bytes=block_bytes,
+                          fp=np.zeros((nb, 2), np.uint32), sumsq=None))
+    return out
 
 
 @dataclasses.dataclass

@@ -1,5 +1,5 @@
 """CheckpointManager — LLMTailor's selective, layer-wise checkpointing in
-the port (synchronous saves on the fingerprint path).
+the port (the fingerprint path).
 
 Save path, per event:
   1. the policy picks this event's layer units (every unit on the first
@@ -12,8 +12,13 @@ Save path, per event:
      - changed: only the dirty blocks are gathered and copied to the host
        (all of the unit's bytes when there is no usable base or too many
        blocks changed), in one batched copy into pinned memory,
-  3. the chunk store writes a block-sparse delta or a full object,
-  4. the manifest commits last: every unit maps to the newest object
+  3. the chunk store writes a block-sparse delta or a full object: on the
+     async writer's threads (``async_save=True``, the default), while the
+     training thread fingerprints and gathers the next unit, or inline
+     (``async_save=False``),
+  4. once every object has landed, the manifest commits last through
+     ``_commit_event``, the one commit seam shared with the overlapped
+     saver (``checkpoint/overlap.py``): every unit maps to the newest object
      holding it (units skipped this event keep their previous refs — the
      implicit Frankenstein merge),
   5. refcounted GC drops manifests beyond ``keep`` and unreferenced
@@ -21,6 +26,11 @@ Save path, per event:
 
 Restore (``restore``) is the planned full-state restore of
 ``repro_torch.checkpoint.restore``.
+
+Crash points (``checkpoint/faults.py``): ``fingerprint`` after a unit's
+device fingerprint pass, ``gather`` after its payload crossed to the host,
+``object_write`` in the store, ``manifest_commit``/``manifest_latest`` in
+the manifest store, ``pool:write`` before each writer task.
 """
 from __future__ import annotations
 
@@ -32,7 +42,10 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.checkpoint import faults
 from repro_torch.checkpoint import fingerprint as fputil
+from repro_torch.checkpoint.async_io import (AsyncWriter, PendingResult,
+                                             TransferPool)
 from repro_torch.checkpoint.chunk_store import (REBASE_EVERY, ChunkRef,
                                                 ChunkStore)
 from repro_torch.checkpoint.restore import RestoreEngine
@@ -48,6 +61,9 @@ log = logging.getLogger("repro_torch.checkpoint")
 PyTree = Any
 
 _TIMINGS = ("fingerprint_seconds", "d2h_seconds", "write_seconds")
+# The port's store has one tier: every commit is durable on local disk.
+_STORAGE = {"durable_tier": "local", "pending_spill": 0,
+            "durable_on": "durable", "backend": "local"}
 # Above this dirty fraction a block-sparse delta stops paying (index
 # overhead plus a near-full payload): write a full object instead.
 MAX_DIRTY_FRAC = 0.5
@@ -93,7 +109,8 @@ def stage_to_host(srcs: Sequence[torch.Tensor]) -> List[memoryview]:
 class CheckpointManager:
     def __init__(self, root: Path | str, registry: LayerRegistry,
                  policy: CheckpointPolicy, *, keep: int = 8,
-                 fp_block_bytes: int = fputil.DEFAULT_BLOCK_BYTES):
+                 fp_block_bytes: int = fputil.DEFAULT_BLOCK_BYTES,
+                 async_save: bool = True, writer_threads: int = 2):
         self.root = Path(root)
         self.registry = registry
         self.policy = policy
@@ -102,18 +119,34 @@ class CheckpointManager:
         self.keep = keep
         self.restorer = RestoreEngine(self.store, self.manifests, registry)
         self.fp_block_bytes = fp_block_bytes
+        self.async_save = async_save
+        # The write lane's queue is bounded: backpressure on the training
+        # thread instead of unbounded staged payloads.
+        self.transfer_pool: Optional[TransferPool] = (
+            TransferPool(writer_threads, max_queue=64) if async_save
+            else None)
+        self.writer: Optional[AsyncWriter] = (
+            AsyncWriter(self.transfer_pool) if async_save else None)
         self._event_index = self._infer_event_index()
         self._rebuild_refcounts()
-        # (unit, kind) -> device fingerprint vector of the content behind
-        # the last committed manifest entry (advanced only after a commit).
+        # (unit, kind) -> fingerprint vector of the content behind the
+        # last committed manifest entry (advanced only after a commit).
         self._fp_refs: Dict[Tuple[str, str], Any] = {}
         self.last_save_stats: Dict[str, Any] = {}
+        self._commit_split: Dict[str, float] = {}
 
     def _infer_event_index(self) -> int:
         m = self.manifests.load()
         if m is not None and "event_index" in m.meta:
             return int(m.meta["event_index"]) + 1
         return len(self.manifests.all_steps())
+
+    def reserve_event_index(self) -> int:
+        """The index the next event will commit under.  The overlapped
+        saver captures it at ``begin`` (the policy keys off the event
+        counter, but the commit lands steps later) and passes it back
+        through ``_commit_event(event_index=...)``."""
+        return self._event_index
 
     def _rebuild_refcounts(self) -> None:
         """Object refcounts and per-unit delta-run lengths, derived from the
@@ -140,12 +173,18 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, state: Dict[str, PyTree], *, step: Optional[int] = None,
              meta: Optional[Dict] = None,
-             units: Optional[Sequence[str]] = None) -> Manifest:
+             drift_scores: Optional[Dict[str, float]] = None,
+             units: Optional[Sequence[str]] = None,
+             durability_barrier: Optional[bool] = None) -> Manifest:
         """Persist one checkpoint event and commit its manifest.  ``units``
-        overrides the policy's selection for this event."""
+        overrides the policy's selection for this event; ``drift_scores``
+        feeds the ``topk_delta`` policy; ``durability_barrier`` is accepted
+        for the JAX manager's signature (one tier: every commit is
+        durable)."""
         t0 = time.perf_counter()
         step = int(state["step"]) if step is None else int(step)
-        ctx = PolicyContext(event_index=self._event_index, step=step)
+        ctx = PolicyContext(event_index=self._event_index, step=step,
+                            drift_scores=drift_scores)
         prev = _usable_prev(self.manifests.load())
         if prev is None:
             selected = self.policy.all_units()
@@ -156,53 +195,78 @@ class CheckpointManager:
         entries: Dict[str, Dict[str, ChunkRef]] = (
             {u: dict(k) for u, k in prev.entries.items()} if prev else {})
         self.store.reset_stats()
-        sec0 = dict(self.store.seconds)
+        sec0 = self.store.seconds_snapshot()
         acc = {"d2h_bytes": 0, "blocks_moved": 0, "blocks_total": 0,
                **{k: 0.0 for k in _TIMINGS}}
+        pending: Dict[Tuple[str, str], PendingResult] = {}
         new_fps: Dict[Tuple[str, str], Any] = {}
         for name in selected:
             for kind in ("weights", "opt"):
                 tree = (self.registry.extract_unit(state["params"], name)
                         if kind == "weights" else
                         self.registry.extract_opt_unit(state["opt"], name))
-                pref = (prev.entries.get(name, {}).get(kind)
-                        if prev is not None else None)
-                ref, cur = self._save_unit_fp(step, name, kind, tree, pref,
+                pref = self._prev_entry(prev, name, kind)
+                res, cur = self._save_unit_fp(step, name, kind, tree, pref,
                                               acc)
                 new_fps[(name, kind)] = cur
-                entries.setdefault(name, {})[kind] = ref
-        manifest = self._commit_event(step=step, entries=entries,
-                                      selected=selected, meta=meta,
-                                      new_fps=new_fps)
+                if isinstance(res, PendingResult):
+                    pending[(name, kind)] = res
+                else:
+                    entries.setdefault(name, {})[kind] = res
+        t_snapshot = time.perf_counter() - t0
+
+        # Every object must land before the manifest commits.
+        t_wb = time.perf_counter()
+        if self.writer is not None:
+            self.writer.drain()
+            for (name, kind), p in pending.items():
+                entries.setdefault(name, {})[kind] = p.result()
+        t_writeback = time.perf_counter() - t_wb
+        manifest, storage = self._commit_event(
+            step=step, entries=entries, selected=selected, meta=meta,
+            new_fps=new_fps, durability_barrier=durability_barrier)
         total = time.perf_counter() - t0
-        bt = acc["blocks_total"]
-        io = dict(self.store.stats)
-        self.last_save_stats = {
-            "step": step,
-            "selected_units": len(selected),
-            "total_units": len(self.registry.units),
-            "seconds": total,
-            **{k: acc[k] for k in _TIMINGS},
-            # host split of write_seconds: framing + crc32, file writes
-            "encode_seconds": self.store.seconds["encode"] - sec0["encode"],
-            "write_io_seconds": (self.store.seconds["write_io"]
-                                 - sec0["write_io"]),
-            "d2h_bytes": acc["d2h_bytes"],
-            "hashed_bytes": io["hashed_bytes"],
-            "dirty_block_frac": acc["blocks_moved"] / bt if bt else 0.0,
-            "logical_bytes": io["logical_bytes"],
-            "written_bytes": io["written_bytes"],
-            "dedup_hits": io["dedup_hits"],
-            "delta_chunks": io["delta_chunks"],
-            "full_chunks": io["full_chunks"],
-        }
+        sec1 = self.store.seconds_snapshot()
+        # The synchronous save blocks the caller end to end: its stall is
+        # the whole event (the overlapped saver is where they diverge).
+        stats = self._event_stats(
+            step=step, selected=selected, d2h_bytes=acc["d2h_bytes"],
+            blocks_moved=acc["blocks_moved"],
+            blocks_total=acc["blocks_total"], storage=storage,
+            timings={"snapshot_seconds": t_snapshot,
+                     "stage_seconds": 0.0,
+                     "writeback_seconds": t_writeback,
+                     "stall_seconds": total,
+                     "total_seconds": total})
+        stats.update({k: acc[k] for k in _TIMINGS})
+        # host split of the object writes (summed over writer threads):
+        # framing + crc32, file writes
+        stats["encode_seconds"] = sec1["encode"] - sec0["encode"]
+        stats["write_io_seconds"] = sec1["write_io"] - sec0["write_io"]
+        stats["save_mode"] = "sync"
+        self.last_save_stats = stats
         return manifest
 
+    def _prev_entry(self, prev: Optional[Manifest], name: str,
+                    kind: str) -> Optional[ChunkRef]:
+        if prev is None:
+            return None
+        return prev.entries.get(name, {}).get(kind)
+
     def _commit_event(self, *, step: int, entries, selected, meta,
-                      new_fps) -> Manifest:
-        storage = {"durable_tier": "local", "pending_spill": 0,
-                   "durable_on": "durable", "backend": "local"}
-        idx = self._event_index
+                      new_fps, event_index: Optional[int] = None,
+                      durability_barrier: Optional[bool] = None
+                      ) -> Tuple[Manifest, Dict[str, Any]]:
+        """Manifest commit + refcount/GC bookkeeping: the single commit
+        seam shared by ``save`` and the overlapped saver, which is what
+        makes them bit-exact peers (only *when* the work ran differs).
+
+        ``event_index`` lets an overlapped event commit under the index
+        reserved when it began; the counter itself only moves forward.
+        ``durability_barrier`` has nothing to wait for on one tier."""
+        del durability_barrier
+        storage = dict(_STORAGE)
+        idx = self._event_index if event_index is None else int(event_index)
         manifest = Manifest(step=step, entries=entries,
                             meta=dict(meta or {}, event_index=idx,
                                       policy=self.policy.name,
@@ -211,24 +275,66 @@ class CheckpointManager:
         # Re-saving a step overwrites its manifest: release the replaced
         # manifest's references or its objects leak until restart.
         replaced = self.manifests.load(step)
+        t0 = time.perf_counter()
         self.manifests.commit(manifest)
+        t1 = time.perf_counter()
         self.store.incref(manifest.referenced_digests().elements())
         if replaced is not None:
             self.store.decref(replaced.referenced_digests().elements())
-        self._event_index = idx + 1
+        self._event_index = max(self._event_index, idx + 1)
         # The commit is durable: only now may the references advance.
         self._fp_refs.update(new_fps)
         self.gc()
-        return manifest
+        # The manifest's fsync waits for the filesystem to write back the
+        # event's objects (published unsynced); GC unlinks unreferenced ones.
+        self._commit_split = {"commit_seconds": t1 - t0,
+                              "gc_seconds": time.perf_counter() - t1}
+        return manifest, storage
+
+    def _event_stats(self, *, step: int, selected, d2h_bytes: int,
+                     blocks_moved: int, blocks_total: int, storage,
+                     timings: Dict[str, float]) -> Dict[str, Any]:
+        """One event's ``last_save_stats``.  ``timings`` is the four-way
+        split: ``snapshot_seconds`` (device fingerprint/gather dispatch and
+        the decisions), ``stage_seconds`` (host staging of the copies),
+        ``writeback_seconds`` (the drain of the writes before the commit)
+        and ``stall_seconds``, the time the caller's step loop blocked;
+        plus the commit's ``commit_seconds`` (manifest write and fsync) and
+        ``gc_seconds``, which are part of the stall."""
+        io = self.store.stats_snapshot()
+        return {
+            "step": step,
+            "selected_units": len(selected),
+            "total_units": len(self.registry.units),
+            "snapshot_bytes": d2h_bytes,
+            **timings,
+            **self._commit_split,
+            "seconds": timings["total_seconds"],
+            "d2h_bytes": d2h_bytes,
+            "hashed_bytes": io["hashed_bytes"],
+            "dirty_block_frac": (blocks_moved / blocks_total
+                                 if blocks_total else 0.0),
+            "logical_bytes": io["logical_bytes"],
+            "written_bytes": io["written_bytes"],
+            "dedup_hits": io["dedup_hits"],
+            "delta_chunks": io["delta_chunks"],
+            "full_chunks": io["full_chunks"],
+            "backend": storage["backend"],
+            "durable_on": storage["durable_on"],
+            "spill_pending": storage["pending_spill"],
+            "io_backend": "thread",
+        }
 
     def _save_unit_fp(self, step: int, name: str, kind: str, tree: Any,
                       pref: Optional[ChunkRef], acc: Dict[str, Any]):
         """Fingerprint save path for one (unit, kind): returns
-        ``(chunk ref, device fingerprint vectors)`` and adds the payload
-        bytes/blocks that crossed device->host to ``acc``."""
+        ``(chunk ref or pending write, device fingerprint vectors)`` and
+        adds the payload bytes/blocks that crossed device->host to
+        ``acc``."""
         bb = self.fp_block_bytes
         t0 = time.perf_counter()
         cur = bfp.fingerprint_tree(tree, block_bytes=bb)
+        faults.crash_point("fingerprint")
         nb_total = sum(l.n_blocks for l in cur)
         logical = sum(l.nbytes for l in cur)
         acc["blocks_total"] += nb_total
@@ -288,9 +394,14 @@ class CheckpointManager:
             packet = fputil.FingerprintPacket(
                 digest=digest, table=tblob, leaves=leaves, full=True,
                 base_digest=None, logical_bytes=logical)
+        # The payload has crossed device->host; nothing is written yet.
+        faults.crash_point("gather")
         t2 = time.perf_counter()
-        ref = self.store.write_fp(step, name, kind, packet, prev_ref=pref)
         acc["d2h_seconds"] += t2 - t1
+        if self.writer is not None:
+            return (self.writer.submit(self.store.write_fp, step, name,
+                                       kind, packet, prev_ref=pref), cur)
+        ref = self.store.write_fp(step, name, kind, packet, prev_ref=pref)
         acc["write_seconds"] += time.perf_counter() - t2
         return ref, cur
 
@@ -340,7 +451,15 @@ class CheckpointManager:
         return self.store.gc_objects()
 
     def close(self) -> None:
-        self.store.close()
+        """Drain and stop the writer (raising a write error it collected)
+        and release the store; the pool's threads stop either way."""
+        try:
+            if self.writer is not None:
+                self.writer.close()
+        finally:
+            self.store.close()
+            if self.transfer_pool is not None:
+                self.transfer_pool.close()
 
     def disk_usage(self) -> Dict[str, int]:
         total = objects = 0

@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional
 
 from repro_torch.checkpoint.backends.localfs import atomic_write
 from repro_torch.checkpoint.chunk_store import ChunkRef
+from repro_torch.checkpoint.faults import crash_point
 from repro_torch.core import jsonutil
 
 
@@ -82,7 +83,11 @@ class ManifestStore:
         return self.root / "manifests" / f"manifest-{step:08d}.json"
 
     def commit(self, manifest: Manifest) -> None:
+        # Crash drills: before the manifest file is written, and between
+        # it and the LATEST pointer (the previous step stays authoritative).
+        crash_point("manifest_commit")
         atomic_write(self.path(manifest.step), manifest.to_json())
+        crash_point("manifest_latest")
         atomic_write(self.root / "LATEST", str(manifest.step).encode())
 
     def latest_step(self) -> Optional[int]:

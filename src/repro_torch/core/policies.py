@@ -1,4 +1,5 @@
-"""Selective checkpoint policies (the paper's strategies).
+"""Selective checkpoint policies (the paper's strategies and the dynamic
+``topk_delta`` one).
 
 A policy is consulted at every checkpoint event (every ``ckpt_interval``
 training steps) and returns the layer-unit names to persist.  Aux units
@@ -100,14 +101,35 @@ class IntervalPolicy(CheckpointPolicy):
                  if i % self.stride == r] + list(self.aux))
 
 
+class TopKDeltaPolicy(CheckpointPolicy):
+    """Dynamic policy: save the ``frac`` most-drifted blocks since their
+    last save, by the ``DeltaTracker`` scores (``core/delta.py``); aux units
+    every event.  Falls back to parity when no scores are available (the
+    first event, or after a resume)."""
+    name = "topk_delta"
+
+    def __init__(self, units, *, frac: float = 0.5):
+        super().__init__(units)
+        self.frac = frac
+        self._fallback = ParityPolicy(units)
+        self._block_order = {b: i for i, b in enumerate(self.blocks)}
+
+    def select(self, ctx: PolicyContext) -> List[str]:
+        if not ctx.drift_scores:
+            return self._fallback.select(ctx)
+        k = max(1, int(len(self.blocks) * self.frac))
+        # Ties break on registry block order, pinned in the sort key: the
+        # selection must not depend on the order drift_scores was built in.
+        ranked = sorted(self.blocks,
+                        key=lambda b: (-ctx.drift_scores.get(b, 0.0),
+                                       self._block_order[b]))
+        return ranked[:k] + list(self.aux)
+
+
 def make_policy(name: str, units: Sequence[LayerUnit],
                 **kw) -> CheckpointPolicy:
-    if name == "topk_delta":
-        raise NotImplementedError(
-            "policy 'topk_delta' is not ported to repro_torch yet (it needs "
-            "the DeltaTracker of core/delta.py)")
     table = {p.name: p for p in (FullPolicy, ParityPolicy, FilteredPolicy,
-                                 IntervalPolicy)}
+                                 IntervalPolicy, TopKDeltaPolicy)}
     if name not in table:
         raise KeyError(f"unknown policy {name!r}; known: {sorted(table)}")
     return table[name](units, **kw)

@@ -40,9 +40,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    """The library's path, keyed by its source, the shared headers of
+    ``csrc/`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 class _Builder:
@@ -100,13 +104,15 @@ class CudaKernel:
     """One C entry point of a kernel library plus its launch count.
 
     ``launches`` goes up by one for every launch the wrapper makes, and
-    nowhere else; callers may reset it to 0 to count one run."""
+    nowhere else (under a lock: saves may run on several threads); callers
+    may reset it to 0 to count one run."""
 
     def __init__(self, lib: str, fn: str, argtypes: list):
         self.lib = lib
         self.fn_name = fn
         self.argtypes = argtypes
         self.launches = 0
+        self._count_lock = threading.Lock()
         self._fn: Optional[ctypes._CFuncPtr] = None
 
     def _entry(self):
@@ -122,4 +128,5 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.fn_name} launch failed: cudaError "
                                f"{err}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1

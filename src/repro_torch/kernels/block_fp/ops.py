@@ -183,6 +183,14 @@ def leaves_match(cur: Sequence[LeafFP], ref: Sequence[LeafFP]) -> bool:
         return False
     if not cur:
         return True
+    if not isinstance(cur[0].fp, torch.Tensor):
+        # host tables on both sides of the compare
+        def flat(fp):
+            if isinstance(fp, torch.Tensor):
+                return fp.cpu().numpy().view(np.uint32).reshape(-1)
+            return np.asarray(fp, np.uint32).reshape(-1)
+        return bool(np.array_equal(np.concatenate([flat(c.fp) for c in cur]),
+                                   np.concatenate([flat(r.fp) for r in ref])))
     dev = cur[0].fp.device
     a = torch.cat([c.fp.reshape(-1) for c in cur])
     host = [r.fp for r in ref if not isinstance(r.fp, torch.Tensor)]

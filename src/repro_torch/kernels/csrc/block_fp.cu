@@ -20,7 +20,8 @@
 // - One launch per unit.  The leaf table (pointer, byte length, dtype code,
 //   first global block) is passed by value in the kernel's parameter space,
 //   so a launch needs no device allocation and no host-to-device copy.
-// - One CTA per block.  A 64 KiB block is 4096 16-byte vectors; 256 threads
+// - One CTA per block (the per-block code is fp_block.cuh, shared with
+//   block_gather.cu).  A 64 KiB block is 4096 16-byte vectors; 256 threads
 //   each issue 16 coalesced 16-byte loads.  A block that is not 16-byte
 //   aligned or not wholly inside the leaf (the ragged tail, e.g. an
 //   odd-length bf16 leaf that ends mid-word) takes a byte path that reads
@@ -30,23 +31,9 @@
 // - The float sum of squares is reduced in a fixed order (per-thread
 //   sequential, then a fixed shuffle/shared-memory tree, no atomics), so an
 //   unchanged unit scores bitwise the same in every run.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fp_block.cuh"
 
 #define FP_MAX_LEAVES 64
-#define FP_THREADS 256
-
-enum FpDtype {
-  FP_F32 = 0,
-  FP_BF16 = 1,
-  FP_F16 = 2,
-  FP_I32 = 3,
-  FP_U8 = 4,
-  FP_I8 = 5,
-  FP_I64 = 6,
-  FP_F64 = 7,
-  FP_I16 = 8,
-};
 
 struct FpLeaf {
   const unsigned char* ptr;
@@ -61,140 +48,6 @@ struct FpTable {
   int n;
 };
 
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits16) {
-  return __uint_as_float(bits16 << 16);
-}
-
-__device__ __forceinline__ float f16_bits_to_float(uint32_t bits16) {
-  unsigned short h = (unsigned short)bits16;
-  float f;
-  asm("cvt.f32.f16 %0, %1;" : "=f"(f) : "h"(h));
-  return f;
-}
-
-// Sum of squares of the elements held in one little-endian 32-bit word
-// (dtypes of itemsize <= 4).
-__device__ __forceinline__ float word_sumsq(uint32_t w, int dtype) {
-  float s = 0.f;
-  switch (dtype) {
-    case FP_F32: {
-      float x = __uint_as_float(w);
-      s = x * x;
-      break;
-    }
-    case FP_I32: {
-      float x = (float)(int32_t)w;
-      s = x * x;
-      break;
-    }
-    case FP_BF16: {
-      float a = bf16_bits_to_float(w & 0xFFFFu);
-      float b = bf16_bits_to_float(w >> 16);
-      s = a * a;
-      s += b * b;
-      break;
-    }
-    case FP_F16: {
-      float a = f16_bits_to_float(w & 0xFFFFu);
-      float b = f16_bits_to_float(w >> 16);
-      s = a * a;
-      s += b * b;
-      break;
-    }
-    case FP_I16: {
-      float a = (float)(int16_t)(w & 0xFFFFu);
-      float b = (float)(int16_t)(w >> 16);
-      s = a * a;
-      s += b * b;
-      break;
-    }
-    case FP_U8: {
-      for (int j = 0; j < 4; ++j) {
-        float a = (float)((w >> (8 * j)) & 0xFFu);
-        s += a * a;
-      }
-      break;
-    }
-    case FP_I8: {
-      for (int j = 0; j < 4; ++j) {
-        float a = (float)(int8_t)((w >> (8 * j)) & 0xFFu);
-        s += a * a;
-      }
-      break;
-    }
-    default:
-      break;
-  }
-  return s;
-}
-
-// Sum of squares of an 8-byte element given as two words (lo, hi).
-__device__ __forceinline__ float dword_sumsq(uint32_t lo, uint32_t hi,
-                                             int dtype) {
-  unsigned long long bits = ((unsigned long long)hi << 32) | lo;
-  float x = 0.f;
-  if (dtype == FP_I64) x = (float)(long long)bits;
-  if (dtype == FP_F64) x = (float)__longlong_as_double((long long)bits);
-  return x * x;
-}
-
-__device__ __forceinline__ float vec_sumsq(uint4 w, int dtype) {
-  if (dtype == FP_I64 || dtype == FP_F64) {
-    float s = dword_sumsq(w.x, w.y, dtype);
-    s += dword_sumsq(w.z, w.w, dtype);
-    return s;
-  }
-  float s = word_sumsq(w.x, dtype);
-  s += word_sumsq(w.y, dtype);
-  s += word_sumsq(w.z, dtype);
-  s += word_sumsq(w.w, dtype);
-  return s;
-}
-
-// Element e of itemsize `isz` at an itemsize-aligned address.
-__device__ __forceinline__ float elem_sq(const unsigned char* p, int dtype) {
-  switch (dtype) {
-    case FP_F32: {
-      float x = *reinterpret_cast<const float*>(p);
-      return x * x;
-    }
-    case FP_I32: {
-      float x = (float)*reinterpret_cast<const int32_t*>(p);
-      return x * x;
-    }
-    case FP_BF16: {
-      float x = bf16_bits_to_float(*reinterpret_cast<const uint16_t*>(p));
-      return x * x;
-    }
-    case FP_F16: {
-      float x = f16_bits_to_float(*reinterpret_cast<const uint16_t*>(p));
-      return x * x;
-    }
-    case FP_I16: {
-      float x = (float)*reinterpret_cast<const int16_t*>(p);
-      return x * x;
-    }
-    case FP_U8: {
-      float x = (float)*p;
-      return x * x;
-    }
-    case FP_I8: {
-      float x = (float)*reinterpret_cast<const int8_t*>(p);
-      return x * x;
-    }
-    case FP_I64: {
-      float x = (float)*reinterpret_cast<const long long*>(p);
-      return x * x;
-    }
-    case FP_F64: {
-      float x = (float)*reinterpret_cast<const double*>(p);
-      return x * x;
-    }
-    default:
-      return 0.f;
-  }
-}
-
 __global__ void __launch_bounds__(FP_THREADS)
 block_fp_kernel(const FpTable tab, long long block_bytes,
                 uint32_t* __restrict__ fp_out, float* __restrict__ ss_out) {
@@ -208,72 +61,14 @@ block_fp_kernel(const FpTable tab, long long block_bytes,
   long long valid = leaf.nbytes - off;
   if (valid > block_bytes) valid = block_bytes;
   if (valid < 0) valid = 0;
-  const unsigned char* base = leaf.ptr + off;
-
-  uint32_t s1 = 0u, s2 = 0u;
-  float ss = 0.f;
-  const bool vec = (block_bytes % 16 == 0) && (valid == block_bytes) &&
-                   ((reinterpret_cast<uintptr_t>(base) & 15u) == 0);
-  if (vec) {
-    const uint4* v = reinterpret_cast<const uint4*>(base);
-    const long long nv = block_bytes / 16;
-    for (long long k = threadIdx.x; k < nv; k += FP_THREADS) {
-      const uint4 w = __ldg(v + k);
-      const uint32_t i1 = (uint32_t)(4 * k) + 1u;
-      s1 += w.x + w.y + w.z + w.w;
-      s2 += w.x * i1 + w.y * (i1 + 1u) + w.z * (i1 + 2u) + w.w * (i1 + 3u);
-      ss += vec_sumsq(w, leaf.dtype);
-    }
-  } else {
-    const long long nw = block_bytes / 4;
-    for (long long k = threadIdx.x; k < nw; k += FP_THREADS) {
-      uint32_t w = 0u;
-      for (int j = 0; j < 4; ++j) {
-        const long long p = 4 * k + j;
-        if (p < valid) w |= (uint32_t)base[p] << (8 * j);
-      }
-      s1 += w;
-      s2 += w * (uint32_t)(k + 1);
-    }
-    const long long ne = valid / leaf.itemsize;
-    for (long long e = threadIdx.x; e < ne; e += FP_THREADS) {
-      ss += elem_sq(base + e * leaf.itemsize, leaf.dtype);
-    }
-  }
-
-  // Fixed-order block reduction: xor-shuffle tree inside each warp, then
-  // warp 0 folds the per-warp partials in lane order.
-  for (int o = 16; o > 0; o >>= 1) {
-    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-    ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  }
-  __shared__ uint32_t w1[FP_THREADS / 32];
-  __shared__ uint32_t w2[FP_THREADS / 32];
-  __shared__ float wss[FP_THREADS / 32];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (lane == 0) {
-    w1[warp] = s1;
-    w2[warp] = s2;
-    wss[warp] = ss;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const bool have = lane < FP_THREADS / 32;
-    s1 = have ? w1[lane] : 0u;
-    s2 = have ? w2[lane] : 0u;
-    ss = have ? wss[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-      ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    }
-    if (lane == 0) {
-      fp_out[2 * gb] = s1;
-      fp_out[2 * gb + 1] = s2;
-      ss_out[gb] = ss;
-    }
+  uint32_t s1, s2;
+  float ss;
+  fp_block(leaf.ptr + off, valid, block_bytes, leaf.dtype, leaf.itemsize,
+           &s1, &s2, &ss);
+  if (threadIdx.x == 0) {
+    fp_out[2 * gb] = s1;
+    fp_out[2 * gb + 1] = s2;
+    ss_out[gb] = ss;
   }
 }
 
