@@ -7,7 +7,7 @@ Needs one CUDA card (an H100: the kernels build for sm_90a) and the CUDA
 toolkit's ``nvcc``; exits non-zero without them.  Phases, any failure of
 which exits non-zero:
 
-1. print the card's name and power limit; build the three CUDA kernels
+1. print the card's name and power limit; build the four CUDA kernels
    from the sources in this checkout (one ``nvcc`` each, concurrently);
 2. hold each kernel against its plain PyTorch version on the card:
    ``block_fp`` over every dtype it takes with ragged tails and a
@@ -19,6 +19,10 @@ which exits non-zero:
    plain version and the host oracle); then ``block_fp`` and
    ``fused_adamw`` at the main path's shapes (a full-width Yi-9B block's
    optimizer unit and its leaves), timed with CUDA events;
+   ``flash_attention`` over causal (Sq == Sk and the top-left Sq < Sk),
+   non-causal, ragged-Sk, G = H, G = 1, bf16/float32, D 64/128 cases and a
+   decode step on a strided cache view, then timed beside its plain
+   version and SDPA at the serve path's prefill and decode shapes;
 3. the main paths, Yi-9B at full width cut to 2 layers, batch 2, seq 1024,
    through ``repro_torch.launch.train.train``, each with the launch
    counts set to 0 just before it and read just after:
@@ -47,8 +51,18 @@ which exits non-zero:
       pinned at 1 and at 2^20 blocks and every state tensor overwritten in
       place on the compute stream right after ``begin``: all three commit
       the same manifests and objects;
-4. print the main paths' step/save/restore times, the kernels line, the
-   card line, and last the ``{"ok": true, "device": ...}`` line; with
+   d. serving, through ``repro_torch.launch.serve.serve``: (store) on b's
+      store before it is removed, a weights-only cold load of step 4 that
+      opens no optimizer object, a hot-swap to LATEST bit-identical to a
+      cold load of it, a hot-swapped and a cold-loaded server generating
+      the same tokens, and a constructed drift of a few 64 KiB blocks that
+      takes the scatter path; (serve) Yi-9B at full width and full depth
+      on random bf16 weights, batch 8, 1024-token prompts, 128 new tokens:
+      every prefill and decode attention launches ``flash_attention`` and
+      one decode step matches the prefill of the longer prompt;
+4. print the main paths' step/save/restore times, the serve line, the
+   kernels line, the card line, and last the ``{"ok": true, "device":
+   ...}`` line; each phase logs its wall time; with
    ``--record PATH``, the full record of every phase also goes to PATH
    (written even when a check fails).
 
@@ -58,6 +72,7 @@ end.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import shutil
@@ -97,16 +112,44 @@ LOSS_TOL = 0.02
 # give the same losses up to the run-to-run noise of the step.
 LATE_LOSS_TOL = 0.05
 MODE_TOL = 1e-3
+# Phase 3d: one decode step against the prefilled cache vs the prefill of
+# the longer prompt, the bound of tests/test_models_consistency.py.
+DECODE_TOL = 0.06
+# A swap of a few 64 KiB blocks moves under 1% of the weights to the card.
+SWAP_H2D_FRAC = 0.01
+PROFILE_STEPS = 4    # decode steps traced for the device's busy time
 STORE_BYTES_NEEDED = 26e9
 CHAIN_ARCH = "llama3.2-3b"   # phase 3c, reduced config
 
+# Serving (phase 3d): Yi-9B at full width and depth on random weights
+SERVE_BATCH = 8
+SERVE_PROMPT = 1024
+SERVE_NEW = 128
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound_ms column.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12     # tensor cores, dense: the least time for attention
 
 SUMSQ_RTOL = 1e-4   # float sums of 16K terms in another order
 ADAM_RTOL = 1e-5    # float32 update, FMA contraction vs separate ops
 ADAM_ATOL = 1e-7
+# flash_attention vs its plain version (the same float32 function, summed in
+# another order).  The small phase-2 cases: bf16 within 2e-2, as the JAX
+# package's kernel tests hold its Pallas kernel; float32 within 2e-5.
+FLASH_BF16_TOL = 2e-2
+FLASH_F32_TOL = 2e-5
+# At the serve path's two shapes, bf16: each element within two bf16 ulps
+# of the plain version's (|d| <= 2**-6 |want| + 1e-5), and at most 1% of
+# the elements off by any rounding.  Two float32 results rounded to bf16
+# differ by one ulp where they straddle a rounding edge, and rarely; a
+# function that rounds p to bf16 before p.v (as SDPA does) is off by tens
+# of ulps on small outputs and on ~40% of the elements, so it fails both.
+FLASH_MAIN_RTOL = 2.0 ** -6
+FLASH_MAIN_ATOL = 1e-5
+FLASH_MAIN_MISMATCH = 0.01
+# SDPA against the plain version is recorded under the same check (a
+# control that should fail it) and held only to this sanity bound.
+SDPA_SANITY_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -473,6 +516,163 @@ def block_gather_at_main_shape(torch, dev, store: Path) -> dict:
             "all_dirty": {"ms": ms1, "bound_ms": bound1, "bound_by": by1}}
 
 
+FLASH_CASES = (
+    # (B, Sq, Sk, H, G, D, causal, dtype name, what)
+    (2, 128, 128, 8, 2, 128, True, "bfloat16", "causal Sq == Sk"),
+    (2, 64, 200, 8, 4, 64, True, "float32", "causal Sq < Sk, top-left"),
+    (2, 96, 160, 4, 2, 128, False, "bfloat16", "non-causal Sq != Sk"),
+    (1, 77, 77, 4, 1, 64, True, "bfloat16", "ragged Sk, G = 1"),
+    (2, 130, 130, 4, 4, 64, True, "float32", "G = H"),
+    (1, 70, 70, 32, 1, 128, True, "float32", "G = 1, 32 heads"),
+    (3, 200, 200, 32, 4, 128, True, "bfloat16", "Yi-9B heads"),
+)
+
+
+def _flash_tol(dtype, torch) -> float:
+    return FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL
+
+
+def check_flash_attention_cases(torch, dev) -> float:
+    """flash_attention against its plain version on the card over the
+    cases above plus a decode step (Sq = 1) on a strided cache view;
+    returns the largest absolute difference."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    worst = 0.0
+    cases = [(b, sq, sk, h, gg, d, causal, getattr(torch, dt), what, None)
+             for b, sq, sk, h, gg, d, causal, dt, what in FLASH_CASES]
+    for dt in (torch.bfloat16, torch.float32):
+        cache = torch.randn(2, 300, 2, 2, 128, generator=g, device=dev).to(dt)
+        cases.append((2, 1, 213, 8, 2, 128, False, dt,
+                      f"decode Sq = 1 on a cache view ({dt})", cache))
+    for b, sq, sk, h, gg, d, causal, dt, what, cache in cases:
+        q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dt)
+        if cache is None:
+            k = torch.randn(b, sk, gg, d, generator=g, device=dev).to(dt)
+            v = torch.randn(b, sk, gg, d, generator=g, device=dev).to(dt)
+        else:
+            k, v = cache[:, :sk, 0], cache[:, :sk, 1]
+            if k.is_contiguous():
+                raise AssertionError("the decode case must be strided")
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tol = _flash_tol(dt, torch)
+        if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+            err = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"flash_attention differs from the plain "
+                                 f"version ({what}): max abs {err}")
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+    log(f"flash_attention: {len(cases)} cases within tolerance "
+        f"(max abs {worst:.3g})")
+    return worst
+
+
+def _main_shape_check(got, want) -> dict:
+    """The serve-shape check of a bf16 attention output against the plain
+    version: max abs difference, the worst element's share of its limit
+    (<= 1 passes) and the share of elements that differ at all."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    limit = FLASH_MAIN_RTOL * w.abs() + FLASH_MAIN_ATOL
+    worst = (diff / limit).max().item()
+    mismatch = (g != w).float().mean().item()
+    return {"max_abs_err": diff.max().item(), "worst_of_limit": worst,
+            "mismatch_share": mismatch,
+            "within": worst <= 1.0 and mismatch <= FLASH_MAIN_MISMATCH}
+
+
+def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
+    """Time the kernel, its plain version and SDPA at the serve path's two
+    shapes: the Yi-9B prefill (batch 8 x 1024 tokens, causal) and a decode
+    step over a 1088-key cache prefix (non-causal, strided view)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+
+    cfg = get_config(ARCH)
+    h, gg, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(8)
+    bf = torch.bfloat16
+    out = {}
+    for name in ("prefill", "decode"):
+        if name == "prefill":
+            sq = sk = SERVE_PROMPT
+            q = torch.randn(SERVE_BATCH, sq, h, d, generator=g, device=dev)
+            k = torch.randn(SERVE_BATCH, sk, gg, d, generator=g, device=dev)
+            v = torch.randn(SERVE_BATCH, sk, gg, d, generator=g, device=dev)
+            q, k, v = q.to(bf), k.to(bf), v.to(bf)
+            causal = True
+        else:
+            sq, sk = 1, SERVE_PROMPT + SERVE_NEW // 2
+            cache = torch.randn(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, 2, gg,
+                                d, generator=g, device=dev).to(bf)
+            q = torch.randn(SERVE_BATCH, 1, h, d, generator=g,
+                            device=dev).to(bf)
+            k, v = cache[:, :sk, 0], cache[:, :sk, 1]
+            causal = False
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.attention_plain(q, k, v, causal=causal)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=True).transpose(1, 2)
+        torch.cuda.synchronize()
+        kchk = _main_shape_check(got, want)
+        lchk = _main_shape_check(lib, want)
+        log(f"flash_attention {name} vs plain: {kchk}; SDPA vs plain: "
+            f"{lchk}")
+        if not kchk["within"]:
+            raise AssertionError(f"flash_attention off the plain version at "
+                                 f"the {name} shape: {kchk}")
+        if not lchk["max_abs_err"] <= SDPA_SANITY_TOL:
+            raise AssertionError(f"SDPA off the plain version at the {name} "
+                                 f"shape: {lchk} (sanity check)")
+        del got, want, lib
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 20,
+                     torch)
+        plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v, causal=causal),
+                           3, torch)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 20, torch)
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        flops = 4 * SERVE_BATCH * h * sq * sk * d
+        if causal and sq == sk:
+            flops //= 2
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "max_abs_err": kchk["max_abs_err"],
+                     "worst_of_limit": kchk["worst_of_limit"],
+                     "mismatch_share": kchk["mismatch_share"],
+                     "sdpa_max_abs_err": lchk["max_abs_err"],
+                     "sdpa_worst_of_limit": lchk["worst_of_limit"],
+                     "sdpa_mismatch_share": lchk["mismatch_share"],
+                     "sdpa_within_limit": lchk["within"],
+                     "bytes": nbytes, "flops": flops,
+                     "shape": f"q ({SERVE_BATCH},{sq},{h},{d}) k/v "
+                              f"({SERVE_BATCH},{sk},{gg},{d}) bf16, "
+                              f"causal={causal}"}
+        log(f"flash_attention {name}: {ms:.4f} ms (bound "
+            f"{out[name]['bound_ms']:.4f}, plain {plain_ms:.3f}, SDPA "
+            f"{library_ms:.4f})")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    pre = out["prefill"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
+            "max_abs_err": max(err, pre["max_abs_err"],
+                               out["decode"]["max_abs_err"]),
+            "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+            "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+            "library_ms": pre["library_ms"], "shape": pre["shape"],
+            "prefill": pre, "decode": out["decode"]}
+
+
 # ------------------------------------------------------------------ phase 3
 def _model(chain: bool = False):
     """The main paths' model, or (``chain``) phase 3c's reduced config."""
@@ -488,10 +688,11 @@ def _model(chain: bool = False):
 def _launch_counts():
     from repro_torch.kernels import block_fp as bfp
     from repro_torch.kernels import block_gather as bg
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_adamw as fadam
 
     return {"block_fp": bfp.KERNEL, "fused_adamw": fadam.KERNEL,
-            "block_gather": bg.KERNEL}
+            "block_gather": bg.KERNEL, "flash_attention": fa.KERNEL}
 
 
 def _zero_counts() -> None:
@@ -838,6 +1039,272 @@ def phase_3c(torch, dev, store: Path) -> dict:
     return {"events": len(events), "objects": len(want[1]), **out}
 
 
+def _release(torch) -> None:
+    """Free what earlier phases left to the cycle collector (a caught
+    SimulatedFailure's traceback holds the failed run's device state) before
+    a phase measures device memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _params_equal(torch, a, b) -> bool:
+    from repro_torch.checkpoint.serial import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    return ([p for p, _ in fa] == [p for p, _ in fb]
+            and all(x.dtype == y.dtype and torch.equal(x, y)
+                    for (_, x), (_, y) in zip(fa, fb)))
+
+
+def _check_serve_launches(launches: dict, want: int) -> None:
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times in the "
+                             f"serve run, want {want}")
+
+
+def phase_3d_serve(torch, dev, out: dict) -> None:
+    """Yi-9B at full width and depth on random bf16 weights through
+    ``repro_torch.launch.serve.serve``: batch 8, 1024-token prompts, 128
+    greedy tokens.  Every prefill and decode attention must launch the
+    kernel (layers x (1 + new tokens)); then one decode step against the
+    prefilled cache must give the logits of prefilling the longer prompt
+    within DECODE_TOL, all finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import build_model
+    from repro_torch.optim import tree_leaves
+
+    cfg = get_config(ARCH, reduced=REDUCED)
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = serve(arch=ARCH, reduced=REDUCED, batch=SERVE_BATCH,
+                prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW, seed=SEED,
+                device=str(dev))
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(math.prod(s.shape) for s in tree_leaves(
+        build_model(cfg).param_specs()))
+    out.update({
+        "config": f"{ARCH} full width, {cfg.num_layers} layers "
+                  f"({n_params} params, random bf16), batch {SERVE_BATCH}, "
+                  f"prompt {SERVE_PROMPT}, {SERVE_NEW} new tokens",
+        "launches": launches, "peak_device_bytes": peak,
+        "allocated_before_bytes": before, "seconds": wall,
+        **{k: res[k] for k in ("prefill_seconds", "decode_seconds",
+                               "decode_tokens_per_s", "sample_tokens",
+                               "tokens_digest")}})
+    log(f"phase 3d serve done in {wall:.1f} s: prefill "
+        f"{res['prefill_seconds']:.3f} s, decode "
+        f"{res['decode_tokens_per_s']:.1f} tokens/s, peak "
+        f"{peak / 1e9:.2f} GB ({before / 1e9:.2f} GB allocated before); "
+        f"launches {launches}")
+    _check_serve_launches(launches, cfg.num_layers * (1 + SERVE_NEW))
+    if not all(0 <= t < cfg.vocab_size for t in res["sample_tokens"]):
+        raise AssertionError(f"tokens out of range: {res['sample_tokens']}")
+    out["decode_vs_prefill"], out["decode_profile"] = _decode_checks(
+        torch, dev, cfg, res["decode_seconds"] / SERVE_NEW)
+
+
+def _decode_checks(torch, dev, cfg, step_seconds: float):
+    """On the serve run's weights and prompts: max |decode-step logits -
+    prefill(T + 1) last logits| (the JAX package's consistency check),
+    and the device's busy time over PROFILE_STEPS more decode steps
+    (``_decode_profile``) beside the serve run's unprofiled step time."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    params = model.init(SEED, dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(SEED)
+    toks = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 1)).astype(
+            np.int32)).to(dev)
+    _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
+                             cache_len=SERVE_PROMPT + 1 + PROFILE_STEPS)
+    ld, _ = model.decode_step(params, cache, {"tokens": toks[:, -1:],
+                                              "pos": SERVE_PROMPT})
+    profile = _decode_profile(torch, model, params, cache, toks[:, -1:],
+                              step_seconds)
+    del cache
+    lf, _ = model.prefill(params, {"tokens": toks})
+    if not (torch.isfinite(ld).all() and torch.isfinite(lf).all()):
+        raise AssertionError("non-finite logits")
+    err = (ld - lf).abs().max().item()
+    log(f"decode vs prefill of the longer prompt: max abs {err:.4g}")
+    del params
+    torch.cuda.empty_cache()
+    if not err < DECODE_TOL:
+        raise AssertionError(f"decode step off the prefill of T + 1 tokens: "
+                             f"{err}")
+    return err, profile
+
+
+def _decode_profile(torch, model, params, cache, tok,
+                    step_seconds: float) -> dict:
+    """Device time of PROFILE_STEPS decode steps traced by torch.profiler
+    (every kernel, copy and fill on the card, summed), per step, and its
+    share of ``step_seconds``, the serve run's unprofiled decode step;
+    ``flash_ms`` is the flash_attention kernels' part.  None where the
+    profiler shows no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(PROFILE_STEPS):
+            model.decode_step(params, cache, {"tokens": tok,
+                                              "pos": SERVE_PROMPT + 1 + i})
+        torch.cuda.synchronize()
+    busy_us = flash_us = 0.0
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        busy_us += us
+        n_kernels += 1
+        if "flash_attention_kernel" in e.name:
+            flash_us += us
+    if busy_us == 0:
+        log("decode profile: the profiler shows no device time "
+            "(not measured)")
+        return {"device_ms_per_step": None, "busy_share": None}
+    ms = busy_us / 1e3 / PROFILE_STEPS
+    out = {"device_ms_per_step": ms,
+           "flash_ms_per_step": flash_us / 1e3 / PROFILE_STEPS,
+           "device_events_per_step": n_kernels / PROFILE_STEPS,
+           "step_ms_unprofiled": step_seconds * 1e3,
+           "busy_share": ms / (step_seconds * 1e3)}
+    log(f"decode profile: {out}")
+    return out
+
+
+def phase_3d_store(torch, dev, store: Path, full_restore_bytes: int,
+                   out: dict) -> None:
+    """Serving from phase 3b's store (the main paths' model, 2 layers):
+    a weights-only cold load of step 4 that opens no optimizer object; a
+    poll to LATEST (8) that must equal a cold weights-only load of 8 bit
+    for bit, and ``serve`` hot-swapped from 4 must generate the tokens of
+    ``serve`` cold-loaded at 8; then a constructed drift of a few 64 KiB
+    blocks of one block unit's weights, saved on top of a full object the
+    server holds, must take the scatter path and stay bit-exact."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.checkpoint.serial import flatten_with_paths
+    from repro_torch.checkpoint.swap import WeightService
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.core.policies import make_policy
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import serve
+
+    _release(torch)
+    model = _model()
+    registry = LayerRegistry(model)
+    names = registry.unit_names()
+    like = steps.state_specs(model)
+    wlike = {"params": like["params"]}
+    mgr = CheckpointManager(store, registry,
+                            make_policy("parity", model.layer_units()),
+                            async_save=False)
+    opt_digests = {r.digest for s in mgr.manifests.all_steps()
+                   for kinds in mgr.manifests.load(s).entries.values()
+                   for k, r in kinds.items() if k == "opt"}
+    opened = []
+    read = mgr.store.read_envelope
+
+    def spy(digest, *a, **kw):
+        opened.append(digest)
+        return read(digest, *a, **kw)
+
+    mgr.store.read_envelope = spy
+    t0 = time.perf_counter()
+    svc = WeightService(mgr, like, device=dev, step=4)
+    cold4 = dict(svc.restore_stats)
+    mgr.store.read_envelope = read
+    weights_bytes = sum(x.numel() * x.element_size()
+                        for _, x in flatten_with_paths(svc.current()))
+    out.update({"cold_load_step4": cold4, "weights_bytes": weights_bytes,
+                "full_restore_bytes_step4": full_restore_bytes})
+    log(f"3d cold weights-only load of step 4: {cold4['seconds']:.3f} s, "
+        f"{cold4['bytes_read']} bytes (full state restore of the same "
+        f"manifest: {full_restore_bytes})")
+    if set(opened) & opt_digests or not opened:
+        raise AssertionError("the weights-only load opened an optimizer "
+                             "object")
+    if not cold4["bytes_read"] < 0.25 * full_restore_bytes:
+        raise AssertionError("the weights-only load read too much")
+
+    swap8 = svc.poll()
+    cold8 = mgr.restore(wlike, device=dev, parts=("params",), step=8)
+    out.update({"swap_4_to_8": swap8,
+                "cold_load_step8": dict(mgr.last_restore_stats)})
+    log(f"3d swap 4 -> 8: {swap8}")
+    if svc.step != 8 or not _params_equal(torch, svc.current(),
+                                          cold8["params"]):
+        raise AssertionError("the swap to 8 is not a cold load of 8")
+    del cold8
+    kw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
+              batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+              new_tokens=SERVE_NEW, from_ckpt=str(store), device=str(dev))
+    hot = serve(from_step=4, hot_swap=True, swap_wait=0.0, **kw)
+    cold = serve(**kw)
+    out["tokens_digest"] = {"hot_swapped": hot["tokens_digest"],
+                            "cold_loaded": cold["tokens_digest"]}
+    if not (hot["served_step"] == cold["served_step"] == 8
+            and hot["tokens_digest"] == cold["tokens_digest"]):
+        raise AssertionError(f"hot-swapped and cold-loaded servers differ: "
+                             f"{hot['served_step']}/{cold['served_step']}, "
+                             f"{out['tokens_digest']}")
+
+    # the constructed case: one block unit drifts everywhere (a full
+    # object the server takes whole), then in a few blocks (a BD02 delta
+    # against that object: the scatter path)
+    unit = names[2]
+    state = mgr.restore(like, device=dev)
+    leaves = [x for _, x in flatten_with_paths(
+        registry.extract_unit(state["params"], unit))]
+    with torch.no_grad():
+        for x in leaves:
+            x.add_(1)
+    mgr.save(state, step=10, units=[unit])
+    swap10 = svc.poll()
+    big = max(leaves, key=lambda x: x.numel()).view(-1)
+    epb = 65536 // big.element_size()
+    poked = [i for i in (0, 5, 9) if i * epb < big.numel()]
+    with torch.no_grad():
+        for i in poked:
+            big[i * epb] += 1
+    mgr.save(state, step=12, units=[unit])
+    del state, leaves, big
+    torch.cuda.empty_cache()
+    swap12 = svc.poll()
+    cold12 = mgr.restore(wlike, device=dev, parts=("params",), step=12)
+    exact = _params_equal(torch, svc.current(), cold12["params"])
+    del cold12
+    mgr.close()
+    out.update({"drifted_unit": unit, "swap_to_10": swap10,
+                "swap_to_12": swap12, "seconds": time.perf_counter() - t0})
+    log(f"3d swap 10 -> 12 ({unit}, {len(poked)} blocks): {swap12}")
+    if not (swap10["units_full"] == 1
+            and swap10["units_skipped"] == len(names) - 1):
+        raise AssertionError(f"swap to 10: {swap10}")
+    if not (swap12["units_scattered"] == 1 and swap12["units_full"] == 0
+            and swap12["units_skipped"] == len(names) - 1
+            and swap12["blocks_applied"] == len(poked)
+            and swap12["h2d_bytes"] < SWAP_H2D_FRAC * weights_bytes):
+        raise AssertionError(f"swap to 12 did not scatter a few blocks: "
+                             f"{swap12}")
+    if not exact:
+        raise AssertionError("the scattered swap is not a cold load of 12")
+
+
 def write_record(record: dict, path) -> None:
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -848,10 +1315,13 @@ def report(record: dict, path) -> None:
     """Fill the kernels' launch counts from the main paths, rewrite the
     record, log the per-event split and print the summary lines."""
     kernels, mp = record["kernels"], record["main_path"]
-    mp_a, mp_b, mp_c = mp["3a"], mp["3b"], mp["3c"]
+    mp_a, mp_b, mp_c, mp_d = mp["3a"], mp["3b"], mp["3c"], mp["3d"]
     for k in kernels:
-        k["launches"] = mp_b["launches"][k["name"]]
-        k["launches_sync_path"] = mp_a["launches"][k["name"]]
+        if k["name"] == "flash_attention":     # the serving path
+            k["launches"] = mp_d["serve"]["launches"][k["name"]]
+        else:                                  # the training paths
+            k["launches"] = mp_b["launches"][k["name"]]
+            k["launches_sync_path"] = mp_a["launches"][k["name"]]
     write_record(record, path)
     a_secs = {e["step"]: e["seconds"] for e in mp_a["save_events"]}
     ctl_secs = {e["step"]: e["seconds"]
@@ -875,8 +1345,19 @@ def report(record: dict, path) -> None:
                                     "launches", "peak_device_bytes",
                                     "save_events", "sync_control_events",
                                     "store_bytes_at_end")},
-        "3c": mp_c}
+        "3c": mp_c,
+        "3d": {k: mp_d["serve"][k] for k in (
+            "prefill_seconds", "decode_tokens_per_s", "peak_device_bytes",
+            "allocated_before_bytes", "launches", "decode_vs_prefill",
+            "decode_profile")}}
     print(json.dumps({"main_path": summary}))
+    st = mp_d["store"]
+    print(json.dumps({"serve": {
+        "cold_load_step4": {k: st["cold_load_step4"][k]
+                            for k in ("seconds", "bytes_read", "h2d_bytes")},
+        "full_restore_bytes_step4": st["full_restore_bytes_step4"],
+        "weights_bytes": st["weights_bytes"],
+        **{k: st[k] for k in ("swap_4_to_8", "swap_to_10", "swap_to_12")}}}))
     print(json.dumps({"kernels": kernels}))
 
 
@@ -897,8 +1378,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t = time.perf_counter()
-    BUILDER.build(["block_fp", "fused_adamw", "block_gather"])
+    t = t_start = time.perf_counter()
+    BUILDER.build(["block_fp", "fused_adamw", "block_gather",
+                   "flash_attention"])
     for name, text in BUILDER.logs.items():
         log(f"--- nvcc {name}.cu ---\n{text.strip()}")
     log(f"kernels built in {time.perf_counter() - t:.1f} s")
@@ -909,6 +1391,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.append(fused_adamw_at_main_shapes(torch, dev))
     torch.cuda.empty_cache()
+    flash_err = check_flash_attention_cases(torch, dev)
+    kernels.append(flash_attention_at_main_shapes(torch, dev, flash_err))
+    log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     store = ROOT / "build" / "chip_smoke_store"
     shutil.rmtree(store, ignore_errors=True)
@@ -919,17 +1404,27 @@ def main() -> int:
         raise RuntimeError(f"only {free / 1e9:.1f} GB free under {store}; "
                            f"the main paths write about 25 GB at a time")
     record = {"card": card, "kernels": kernels,
-              "main_path": {"3a": {}, "3b": {}, "3c": {}}}
+              "main_path": {"3a": {}, "3b": {}, "3c": {},
+                            "3d": {"serve": {}, "store": {}}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
         shutil.rmtree(store / "3a", ignore_errors=True)
         torch.cuda.empty_cache()
+        log(f"phase 3a done at {time.perf_counter() - t_start:.1f} s")
         phase_3b(torch, dev, store / "3b", ref, mp["3b"])
         kernels.append(block_gather_at_main_shape(torch, dev,
                                                   store / "3b" / "run"))
+        log(f"phase 3b done at {time.perf_counter() - t_start:.1f} s")
+        phase_3d_store(torch, dev, store / "3b" / "run",
+                       mp["3b"]["restore_on_resume"]["bytes_read"],
+                       mp["3d"]["store"])
+        log(f"phase 3d (store) done at {time.perf_counter() - t_start:.1f} s")
         shutil.rmtree(store / "3b", ignore_errors=True)
         mp["3c"].update(phase_3c(torch, dev, store / "3c"))
+        log(f"phase 3c done at {time.perf_counter() - t_start:.1f} s")
+        phase_3d_serve(torch, dev, mp["3d"]["serve"])
+        log(f"phase 3d (serve) done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(store, ignore_errors=True)
         write_record(record, args.record)

@@ -33,7 +33,9 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 from repro_torch.checkpoint import _msgpack, faults, workers
 from repro_torch.checkpoint import fingerprint as fputil
 from repro_torch.checkpoint.backends import LocalFSBackend
-from repro_torch.checkpoint.serial import ChunkCorruption
+from repro_torch.checkpoint.serial import (ChunkCorruption,
+                                           unflatten_from_paths)
+from repro_torch.dtypes import from_bytes
 
 OBJECT_VERSION = workers.OBJECT_VERSION
 # Force a full rebase after this many consecutive deltas of one unit, so
@@ -66,6 +68,48 @@ class ChunkRef:
                              "yet")
         d = {k: v for k, v in d.items() if k != "spec"}
         return ChunkRef(**d)
+
+
+class ReadSession:
+    """Read-once memo over one logical read pass (a hot-swap).
+
+    Envelopes and decoded trees are memoized per digest, so a digest two
+    units share, or a full base that several block deltas patch, is read
+    off the disk once.  ``stats`` counts the real object I/O:
+    ``object_reads`` envelope reads and ``bytes_read`` object-file bytes.
+    The crc32 of every record and the table's hash to the address are
+    checked on read; the fingerprint table itself is returned with the tree
+    and held against the placed tensors on the device by the caller
+    (``restore.verify_placed``).  A session is used by one thread.
+    """
+
+    def __init__(self, store: "ChunkStore"):
+        self.store = store
+        self._envelopes: Dict[str, Dict[str, Any]] = {}
+        self._trees: Dict[str, Tuple[Any, Optional[bytes]]] = {}
+        self.stats = {"object_reads": 0, "bytes_read": 0}
+
+    def envelope(self, digest: str) -> Dict[str, Any]:
+        env = self._envelopes.get(digest)
+        if env is None:
+            env = self.store.read_envelope(digest)
+            self.stats["object_reads"] += 1
+            self.stats["bytes_read"] += self.store.object_info(
+                digest)["nbytes"]
+            self._envelopes[digest] = env
+        return env
+
+    def read(self, digest: str) -> Tuple[Any, Optional[bytes]]:
+        """(tree of host tensors, fingerprint table blob) of an object."""
+        hit = self._trees.get(digest)
+        if hit is not None:
+            return hit
+        items, fp_blob = self.store.read_items(digest,
+                                               envelope=self.envelope)
+        tree = unflatten_from_paths({name: from_bytes(raw, shape, dtype)
+                                     for name, shape, dtype, raw in items})
+        self._trees[digest] = (tree, fp_blob)
+        return tree, fp_blob
 
 
 class ChunkStore:
@@ -280,15 +324,20 @@ class ChunkStore:
         return tbl
 
     def read_items(self, digest: str,
-                   alloc: Optional[Callable[[int], Any]] = None
+                   alloc: Optional[Callable[[int], Any]] = None, *,
+                   envelope: Optional[Callable[[str], Dict[str, Any]]] = None
                    ) -> Tuple[workers.Items, Optional[bytes]]:
         """Decoded ``(items, fp_table_blob)`` of an object, delta bases
         resolved and verified: per-record crc32, and the table must hash to
         the digest (fp objects) or the payload must (canonical objects).
         Recomputing the table from the tensors is the caller's half of the
-        check: the restore does it on the device after placement."""
+        check: the restore does it on the device after placement.
+        ``envelope(digest)`` replaces the envelope reads (a ``ReadSession``
+        routes them through its memo)."""
+        if envelope is None:
+            envelope = lambda d: self.read_envelope(d, alloc)  # noqa: E731
         try:
-            env = self.read_envelope(digest, alloc)
+            env = envelope(digest)
             fmt = env.get("format")
             fp_blob = env.get("fp")
             if fp_blob is not None:
@@ -302,7 +351,8 @@ class ChunkStore:
                 with self._lock:
                     self._fp_tables[digest] = tbl
                 if fmt == "block_delta":
-                    base_items, _ = self.read_items(env["base"], alloc)
+                    base_items, _ = self.read_items(env["base"], alloc,
+                                                    envelope=envelope)
                 t0 = time.perf_counter()
                 if fmt == "full":
                     _, items = workers.decode_chunk_items(env["payload"])

@@ -48,8 +48,9 @@ each task of a lane (``pool:write``, ``pool:spill``, ...).
 
 The port's save path reaches ``fingerprint``, ``gather``,
 ``object_write``, ``manifest_commit``, ``manifest_latest``,
-``snapshot_overlap``, ``spread_slice`` and ``pool:write``; the tiered,
-sharded and serving points are cataloged for the stages still to port.
+``snapshot_overlap``, ``spread_slice`` and ``pool:write``, and its
+hot-swap ``swap_apply``; the tiered and sharded points are cataloged for
+the stages still to port.
 
 Arming semantics (:func:`arm`):
 

@@ -1,5 +1,7 @@
-"""Full-state restore of the port: plan over the manifest, read, verify,
-copy host->device per unit, insert.
+"""Restore of the port: plan over the manifest, read, verify, copy
+host->device per unit, insert.  The full train state, or only the parts
+asked for: ``parts=("params",)`` is the weights-only load of a server,
+which plans, and so opens, no optimizer object.
 
 For every (unit, kind) the plan holds the manifest's entry first and then
 every different object an older manifest holds for that unit, newest first
@@ -25,7 +27,7 @@ from repro_torch.checkpoint.serial import (ChunkCorruption,
                                            flatten_with_paths,
                                            unflatten_from_paths)
 from repro_torch.core.layer_registry import OPT_KINDS, LayerRegistry
-from repro_torch.core.manifest import ManifestStore
+from repro_torch.core.manifest import Manifest, ManifestStore
 from repro_torch.dtypes import dtype_name, from_bytes
 from repro_torch.kernels import block_fp as bfp
 from repro_torch.optim.groups import tree_map
@@ -35,6 +37,9 @@ log = logging.getLogger("repro_torch.checkpoint.restore")
 PyTree = Any
 
 KINDS = ("weights", "opt")
+PARTS = ("params", "opt")
+_PART_KIND = {"params": "weights", "opt": "opt"}
+
 
 class RestoreError(RuntimeError):
     pass
@@ -50,11 +55,16 @@ def host_buffer_alloc(device: torch.device):
 
 
 def plan_restore(manifests: ManifestStore, store: ChunkStore,
-                 unit_names: Sequence[str], *, step: Optional[int] = None
+                 unit_names: Sequence[str], *, step: Optional[int] = None,
+                 kinds: Sequence[str] = KINDS,
+                 manifest: Optional[Manifest] = None
                  ) -> Tuple[int, List[Tuple[str, str, List]]]:
     """(manifest step, [(unit, kind, [(manifest step, ref), ...])]) with
-    each chain's objects present on disk, best first."""
-    manifest = manifests.load(step)
+    each chain's objects present on disk, best first, for the ``kinds``
+    asked for.  A caller-supplied ``manifest`` replaces the ``step``
+    lookup; the older manifests of the store still give the fallbacks."""
+    if manifest is None:
+        manifest = manifests.load(step)
     if manifest is None:
         raise RestoreError(f"no manifest found in {manifests.root}")
     older: Dict[Tuple[str, str], List[Tuple[int, ChunkRef]]] = {}
@@ -62,14 +72,16 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
         if s >= manifest.step:
             continue
         m = manifests.load(s)
-        for unit, kinds in (m.entries.items() if m else ()):
-            for kind, ref in kinds.items():
+        for unit, refs in (m.entries.items() if m else ()):
+            for kind, ref in refs.items():
                 older.setdefault((unit, kind), []).append((s, ref))
     targets = []
     for name in unit_names:
         if name not in manifest.entries:
             raise RestoreError(f"manifest missing unit {name}")
-        for kind in KINDS:
+        for kind in kinds:
+            if kind not in manifest.entries[name]:
+                raise RestoreError(f"manifest missing {name}/{kind}")
             cands = [(manifest.step, manifest.entries[name][kind])]
             cands += list(reversed(older.get((name, kind), [])))
             chain, seen = [], set()
@@ -84,6 +96,19 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
                 raise RestoreError(f"no readable chunk for unit {name}/{kind}")
             targets.append((name, kind, chain))
     return manifest.step, targets
+
+
+def verify_placed(tree: PyTree, fp_blob: bytes, digest: str) -> None:
+    """Fingerprint the tensors of a placed unit where they lie (the
+    ``block_fp`` kernel on the card) and compare the packed table with the
+    object's, whose blake2 is its address; raise ``ChunkCorruption`` on a
+    mismatch."""
+    tbl = fputil.unpack_table(fp_blob)
+    bb = tbl[0].block_bytes if tbl else fputil.DEFAULT_BLOCK_BYTES
+    cur = bfp.tree_to_host(bfp.fingerprint_tree(tree, block_bytes=bb))
+    if fputil.pack_table(cur) != bytes(fp_blob):
+        raise ChunkCorruption(f"fingerprint mismatch for reconstructed "
+                              f"{digest}")
 
 
 class RestoreEngine:
@@ -125,12 +150,7 @@ class RestoreEngine:
             self.registry.insert_opt_unit(state["opt"], name, host)
         t2 = time.perf_counter()
         if fp_blob is not None:
-            tbl = fputil.unpack_table(fp_blob)
-            bb = tbl[0].block_bytes if tbl else fputil.DEFAULT_BLOCK_BYTES
-            cur = bfp.tree_to_host(bfp.fingerprint_tree(dst, block_bytes=bb))
-            if fputil.pack_table(cur) != fp_blob:
-                raise ChunkCorruption(
-                    f"fingerprint mismatch for reconstructed {digest}")
+            verify_placed(dst, fp_blob, digest)
         t3 = time.perf_counter()
         timings["read_seconds"] += t1 - t0
         timings["h2d_seconds"] += t2 - t1
@@ -138,20 +158,29 @@ class RestoreEngine:
         return sum(t.numel() * t.element_size() for t in want.values())
 
     def restore(self, state_like: Dict[str, PyTree], *,
-                device: torch.device,
-                step: Optional[int] = None) -> Dict[str, PyTree]:
+                device: torch.device, step: Optional[int] = None,
+                parts: Sequence[str] = PARTS,
+                manifest: Optional[Manifest] = None) -> Dict[str, PyTree]:
         """Rebuild a train state from the manifest chain (the implicit
         Frankenstein merge).  ``state_like`` gives the structure as
-        ``TensorSpec`` trees under "params" and "opt"; the result holds
-        them on ``device`` plus ``step`` (a host int32 tensor)."""
+        ``TensorSpec`` trees under each of ``parts`` ("params", "opt"); the
+        result holds them on ``device`` plus ``step`` (a host int32
+        tensor).  ``parts=("params",)`` plans and reads only the weights
+        objects; ``manifest`` replaces the ``step`` lookup."""
         t0 = time.perf_counter()
-        m_step, targets = plan_restore(self.manifests, self.store,
-                                       self.registry.unit_names(), step=step)
+        parts = tuple(parts)
+        if not parts or any(p not in PARTS for p in parts):
+            raise RestoreError(f"restore parts {parts!r} must be a "
+                               f"non-empty subset of {PARTS}")
+        m_step, targets = plan_restore(
+            self.manifests, self.store, self.registry.unit_names(),
+            step=step, kinds=[_PART_KIND[p] for p in parts],
+            manifest=manifest)
         state: Dict[str, PyTree] = {
             p: tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                               device=device), state_like[p])
-            for p in ("params", "opt")}
-        if set(state["opt"]) != set(OPT_KINDS):
+            for p in parts}
+        if "opt" in state and set(state["opt"]) != set(OPT_KINDS):
             raise RestoreError("opt state must hold master, m and v")
         alloc = host_buffer_alloc(device)
         timings = {"read_seconds": 0.0, "h2d_seconds": 0.0,

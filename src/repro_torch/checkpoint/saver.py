@@ -48,7 +48,7 @@ from repro_torch.checkpoint.async_io import (AsyncWriter, PendingResult,
                                              TransferPool)
 from repro_torch.checkpoint.chunk_store import (REBASE_EVERY, ChunkRef,
                                                 ChunkStore)
-from repro_torch.checkpoint.restore import RestoreEngine
+from repro_torch.checkpoint.restore import PARTS, RestoreEngine
 from repro_torch.checkpoint.serial import flatten_with_paths
 from repro_torch.core.layer_registry import LayerRegistry
 from repro_torch.core.manifest import Manifest, ManifestStore
@@ -428,9 +428,14 @@ class CheckpointManager:
 
     # --------------------------------------------------------------- restore
     def restore(self, state_like: Dict[str, PyTree], *,
-                device: torch.device,
-                step: Optional[int] = None) -> Dict[str, PyTree]:
-        return self.restorer.restore(state_like, device=device, step=step)
+                device: torch.device, step: Optional[int] = None,
+                parts: Sequence[str] = PARTS,
+                manifest: Optional[Manifest] = None) -> Dict[str, PyTree]:
+        """Rebuild the state (or, with ``parts=("params",)``, the weights
+        alone, reading no optimizer object) from the manifest at ``step``
+        or the given ``manifest``; see ``RestoreEngine.restore``."""
+        return self.restorer.restore(state_like, device=device, step=step,
+                                     parts=parts, manifest=manifest)
 
     @property
     def last_restore_stats(self) -> Dict[str, Any]:

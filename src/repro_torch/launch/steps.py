@@ -90,3 +90,4 @@ def make_train_step(model: BaseLM, tcfg: TrainConfig,
         return state, metrics
 
     return train_step
+

@@ -49,11 +49,32 @@ class BaseLM:
         """Tree of float32 ``TensorSpec`` for the master params."""
         raise NotImplementedError
 
-    def init(self, seed: int, device: torch.device) -> PyTree:
+    def init(self, seed: int, device: torch.device,
+             dtype: torch.dtype = torch.float32) -> PyTree:
         raise NotImplementedError
 
     def loss(self, params: PyTree, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        raise NotImplementedError
+
+    def prefill(self, params: PyTree, batch: Dict[str, torch.Tensor],
+                cache_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, PyTree]:
+        """(last-position logits (B, V), cache of ``cache_len`` positions)."""
+        raise NotImplementedError
+
+    def decode_step(self, params: PyTree, cache: PyTree,
+                    batch: Dict[str, Any]) -> Tuple[torch.Tensor, PyTree]:
+        """One token per sequence at ``batch["pos"]``; updates ``cache`` in
+        place and returns (logits (B, V), cache)."""
+        raise NotImplementedError
+
+    def cache_spec(self, batch: int, seq: int) -> PyTree:
+        """Tree of ``TensorSpec`` of the decode cache."""
+        raise NotImplementedError
+
+    def init_cache(self, batch: int, seq: int,
+                   device: torch.device) -> PyTree:
         raise NotImplementedError
 
     def layer_units(self) -> List[LayerUnit]:

@@ -6,7 +6,9 @@ elsewhere.  On a machine with the card run them with
 Tolerances: fingerprint pairs exact; sums of squares rtol 1e-5 (blocks of
 at most 1024 elements); AdamW float32 state rtol 1e-5 / atol 1e-7;
 block_gather's indices, block bytes and counts exact, and its sums of
-squares bit-equal to block_fp's (the same device code).
+squares bit-equal to block_fp's (the same device code); flash_attention
+within atol = rtol = 2e-2 in bf16 and 2e-5 in float32 of its plain version
+(one float32 function summed in another order).
 """
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import torch
 from repro_torch.dtypes import byte_view
 from repro_torch.kernels import block_fp as bfp
 from repro_torch.kernels import block_gather as bg
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_adamw as fadam
 
 pytestmark = pytest.mark.cuda
@@ -169,3 +172,49 @@ def test_block_gather_kernel_matches_plain(dev):
         lo += nb
     assert int(got[-1].count) == 32 and got[-1].idx.tolist() == [0]
     assert int(got[-2].count) == 0 and got[-2].idx.tolist() == [-1] * 4
+
+
+@pytest.mark.parametrize("b,sq,sk,h,g,d,causal,dtype", [
+    (2, 128, 128, 8, 2, 128, True, torch.bfloat16),     # causal Sq == Sk
+    (2, 64, 200, 8, 4, 64, True, torch.float32),        # top-left Sq < Sk
+    (2, 96, 160, 4, 2, 128, False, torch.bfloat16),     # non-causal
+    (1, 77, 77, 4, 1, 64, True, torch.bfloat16),        # ragged Sk, G = 1
+    (2, 130, 130, 4, 4, 64, True, torch.float32),       # G = H
+    (1, 70, 70, 32, 1, 128, True, torch.float32),       # 32 heads on 1
+])
+def test_flash_attention_kernel_matches_plain(dev, b, sq, sk, h, g, d,
+                                              causal, dtype):
+    gen = torch.Generator(device=dev).manual_seed(sq + sk)
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    k = torch.randn(b, sk, g, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, sk, g, d, generator=gen, device=dev).to(dtype)
+    before = fa.KERNEL.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), fa.attention_plain(
+        q, k, v, causal=causal).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_decode_on_a_strided_cache_view(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cache = torch.randn(2, 300, 2, 2, 128, generator=gen,
+                        device=dev).to(dtype)
+    q = torch.randn(2, 1, 8, 128, generator=gen, device=dev).to(dtype)
+    k, v = cache[:, :213, 0], cache[:, :213, 1]
+    got = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), fa.attention_plain(
+        q, k, v, causal=False).float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(dev):
+    q = torch.zeros(1, 4, 2, 96, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    q = torch.zeros(1, 4, 2, 64, device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q[:, :, :1], q[:, :, :1])

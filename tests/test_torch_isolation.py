@@ -52,6 +52,11 @@ except SimulatedFailure:
     pass
 r = train(resume=True, **kw)
 assert r["restore_stats"]["step"] == 2, r["restore_stats"]
+from repro_torch.launch.serve import serve
+s = serve(arch="yi-9b", batch=2, prompt_len=8, new_tokens=2, device="cpu",
+          num_layers=2, from_ckpt=kw["ckpt_dir"], from_step=2,
+          hot_swap=True, swap_wait=0.0)
+assert s["served_step"] == 4 and s["swap"]["step_to"] == 4, s
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r})
 print("BAD", bad)
