@@ -7,7 +7,7 @@ Needs one CUDA card (an H100: the kernels build for sm_90a) and the CUDA
 toolkit's ``nvcc``; exits non-zero without them.  Phases, any failure of
 which exits non-zero:
 
-1. print the card's name and power limit; build the four CUDA kernels
+1. print the card's name and power limit; build the five CUDA kernels
    from the sources in this checkout (one ``nvcc`` each, concurrently);
 2. hold each kernel against its plain PyTorch version on the card:
    ``block_fp`` over every dtype it takes with ragged tails and a
@@ -23,6 +23,12 @@ which exits non-zero:
    non-causal, ragged-Sk, G = H, G = 1, bf16/float32, D 64/128 cases and a
    decode step on a strided cache view, then timed beside its plain
    version and SDPA at the serve path's prefill and decode shapes;
+   ``ssd_scan`` over full, ragged-S, odd-Q, S < Q, G = 1, G = 2 and G = H
+   cases in bf16 and float32, on model-style strided views and contiguous
+   inputs (two launches bitwise equal), then at the Mamba2-370m serve
+   prefill shape under the two-ulp check, with the plain version rounding
+   its decayed scores to bf16 as a control the check must reject, and
+   timed beside its plain version;
 3. the main paths, Yi-9B at full width cut to 2 layers, batch 2, seq 1024,
    through ``repro_torch.launch.train.train``, each with the launch
    counts set to 0 just before it and read just after:
@@ -60,8 +66,18 @@ which exits non-zero:
       on random bf16 weights, batch 8, 1024-token prompts, 128 new tokens:
       every prefill and decode attention launches ``flash_attention`` and
       one decode step matches the prefill of the longer prompt;
+   e. Mamba2-370m at full width and full depth (48 layers), batch 4, seq
+      1024: an 8-step reference run, an overlapped topk_delta run (every 2
+      steps, spread 2, 2 writer threads) that fails at step 7 with event 6
+      in flight and its resume to step 8, under the checks of 3a/3b; from
+      that store a weights-only cold load of step 4, a hot-swap to LATEST
+      bit-identical to a cold load and hot vs cold ``tokens_digest``; then
+      serving on random weights, batch 8, 1024-token prompts, 128 new
+      tokens, with exactly 48 ``ssd_scan`` launches in the prefill and one
+      decode step matching the prefill of the longer prompt;
 4. print the main paths' step/save/restore times, the serve line, the
-   kernels line, the card line, and last the ``{"ok": true, "device":
+   Mamba line, the kernels line, the card line, and last the ``{"ok":
+   true, "device":
    ...}`` line; each phase logs its wall time; with
    ``--record PATH``, the full record of every phase also goes to PATH
    (written even when a check fails).
@@ -115,11 +131,35 @@ MODE_TOL = 1e-3
 # Phase 3d: one decode step against the prefilled cache vs the prefill of
 # the longer prompt, the bound of tests/test_models_consistency.py.
 DECODE_TOL = 0.06
+# Phase 3e, Mamba2-370m at full width: the bf16 gap grows with depth in
+# the JAX package itself.  On one set of weights and tokens (batch 8 x
+# 1024, scripts/mamba_decode_gap.py, CPU) the JAX MambaLM reads 0.031,
+# 0.058 and 0.064 at 4, 12 and 24 layers, past DECODE_TOL (set on 4-layer
+# reduced configs), and the port 0.037, 0.053 and 0.064.  Held to 0.1, the
+# JAX package's bound for five chained decode steps: a decode step that
+# loses or shifts the conv window gives ~3.7, one that halves the state
+# 0.15 (4 layers, the same script's weights).
+DECODE_SSM_TOL = 0.1
+# ... and the same comparison computing in float32 (float32 weights and
+# activations, the ssd_scan kernel's float32 path), which takes bf16
+# rounding out of it: far above float32 rounding (~1e-5).
+DECODE_F32_TOL = 1e-3
+# ... and the bf16 prefill (ssd_scan in every layer) against the training
+# path (the plain chunked scan) on the longer prompt: the kernel's y
+# equals the plain version's bit for bit at the serve shape, so the two
+# give the same last logits up to the order of the float32 logits
+# product (0.0 at 4 to 48 layers on an H100, scripts/mamba_decode_gap.py):
+# the bf16 decode gap is not the kernel's.
+SSD_PREFILL_TOL = 1e-3
 # A swap of a few 64 KiB blocks moves under 1% of the weights to the card.
 SWAP_H2D_FRAC = 0.01
 PROFILE_STEPS = 4    # decode steps traced for the device's busy time
 STORE_BYTES_NEEDED = 26e9
 CHAIN_ARCH = "llama3.2-3b"   # phase 3c, reduced config
+SSM_ARCH = "mamba2-370m"     # phase 3e, full width and depth
+SSM_BATCH = 4
+SSM_SEQ = 1024
+SSM_STEPS = 8
 
 # Serving (phase 3d): Yi-9B at full width and depth on random weights
 SERVE_BATCH = 8
@@ -150,6 +190,13 @@ FLASH_MAIN_MISMATCH = 0.01
 # SDPA against the plain version is recorded under the same check (a
 # control that should fail it) and held only to this sanity bound.
 SDPA_SANITY_TOL = 5e-2
+# ssd_scan vs its plain version (one float32 function summed in another
+# order): bf16 y under the two-ulp check above; float32 y within
+# |d| <= 1e-4 (|want| + 1), the bound of the JAX package's kernel tests;
+# the final state (float32) within 1e-4 of the plain version's largest
+# magnitude.
+SSD_F32_TOL = 1e-4
+SSD_STATE_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -673,6 +720,199 @@ def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
             "prefill": pre, "decode": out["decode"]}
 
 
+# (B, S, H, G, Q, dtype name, what): the kernel's edges.  The model calls
+# it with Q = min(256, S), so S >= Q there; the kernel also takes S < Q.
+SSD_CASES = (
+    (2, 512, 8, 1, 256, "bfloat16", "full chunks, G = 1"),
+    (1, 1025, 4, 1, 256, "bfloat16", "ragged S = 4 x 256 + 1"),
+    (2, 300, 4, 4, 37, "float32", "odd Q = 37, ragged S, G = H"),
+    (1, 200, 8, 2, 64, "float32", "G = 2, ragged S"),
+    (3, 100, 32, 1, 100, "bfloat16", "Q = S = 100, 32 heads, G = 1"),
+    (2, 77, 4, 4, 256, "float32", "S < Q, G = H"),
+    (2, 333, 4, 1, 256, "float32", "ragged S, G = 1"),
+    (2, 256, 8, 8, 128, "bfloat16", "G = H"),
+)
+
+
+def ssd_inputs(torch, dev, b, s, h, g, dtype, gen, views: bool = True):
+    """SSD inputs as the model makes them: x, B and C views of one conv
+    output row (B, S, H*P + 2*G*N) in ``dtype`` (or contiguous tensors),
+    dt = softplus(randn) float32, a_log = log(linspace(1, 16, H))."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    p, n = ops.HEAD_DIM, ops.STATE_DIM
+    if views:
+        conv = (torch.randn(b, s, h * p + 2 * g * n, generator=gen,
+                            device=dev) * 0.5).to(dtype)
+        xs = conv[..., :h * p].unflatten(-1, (h, p))
+        bs = conv[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+        cs = conv[..., h * p + g * n:].unflatten(-1, (g, n))
+    else:
+        xs, bs, cs = ((torch.randn(b, s, k, d, generator=gen, device=dev)
+                       * 0.5).to(dtype) for k, d in ((h, p), (g, n), (g, n)))
+    dt = torch.logaddexp(torch.randn(b, s, h, generator=gen, device=dev),
+                         torch.zeros((), device=dev))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    return xs, dt, a_log, bs, cs
+
+
+def _ssd_check(torch, y, want_y, fin, want_fin) -> dict:
+    """y against the plain version (bf16: the two-ulp check of the serve
+    shapes; float32: within SSD_F32_TOL) and the final state within
+    SSD_STATE_RTOL of the plain version's largest magnitude."""
+    if y.dtype == torch.bfloat16:
+        chk = _main_shape_check(y, want_y)
+    else:
+        d = (y - want_y).abs()
+        worst = (d / (SSD_F32_TOL * want_y.abs() + SSD_F32_TOL)).max().item()
+        chk = {"max_abs_err": d.max().item(), "worst_of_limit": worst,
+               "mismatch_share": None, "within": worst <= 1.0}
+    fd = (fin - want_fin).abs().max().item()
+    chk["state_rel_err"] = fd / max(want_fin.abs().max().item(), 1e-30)
+    chk["within"] = chk["within"] and chk["state_rel_err"] <= SSD_STATE_RTOL
+    return chk
+
+
+def check_ssd_scan_cases(torch, dev) -> float:
+    """ssd_scan against its plain version on the card over SSD_CASES, with
+    model-style strided views and contiguous inputs; two launches must
+    give bitwise-equal outputs.  Returns the largest absolute difference
+    of y."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst = 0.0
+    for i, (b, s, h, g, q, dt_name, what) in enumerate(SSD_CASES):
+        args = ssd_inputs(torch, dev, b, s, h, g, getattr(torch, dt_name),
+                          gen, views=i % 2 == 0)
+        before = ssd.KERNEL.launches
+        y, fin = ssd.ssd_scan(*args, q)
+        y2, fin2 = ssd.ssd_scan(*args, q)
+        want_y, want_fin = ssd.ssd_scan_plain(*args, q)
+        torch.cuda.synchronize()
+        _check_launched({"ssd_scan": ssd.KERNEL.launches - before - 1},
+                        ["ssd_scan"], f"the ssd_scan case {what}")
+        if not (torch.equal(y, y2) and torch.equal(fin, fin2)):
+            raise AssertionError(f"ssd_scan: two launches differ ({what})")
+        chk = _ssd_check(torch, y, want_y, fin, want_fin)
+        if not (chk["within"] and torch.isfinite(y.float()).all()):
+            raise AssertionError(f"ssd_scan differs from the plain version "
+                                 f"({what}): {chk}")
+        log(f"ssd_scan {what}: {chk}")
+        worst = max(worst, chk["max_abs_err"])
+    log(f"ssd_scan: {len(SSD_CASES)} cases within tolerance, two launches "
+        f"bitwise equal (max abs {worst:.3g})")
+    return worst
+
+
+def ssd_scan_rounded_m(torch, xs, dt, a_log, bs, cs, chunk: int):
+    """The control of the serve-shape check: the plain version's function
+    with the decayed score matrix rounded to bf16 before its product with
+    x (what a bf16 tensor-core product of m and x would do without care).
+    Written out here, independently of the port, for S % chunk == 0."""
+    b, s, h, p = xs.shape
+    g, n = bs.shape[2], bs.shape[3]
+    r = h // g
+    f = torch.float32
+    a = -torch.exp(a_log.float())
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=xs.device).tril()
+    state = torch.zeros(b, h, p, n, dtype=f, device=xs.device)
+    ys = []
+    for c0 in range(0, s, chunk):
+        x_ = xs[:, c0:c0 + chunk].float()                      # (B,Q,H,P)
+        d_ = dt[:, c0:c0 + chunk].float()                      # (B,Q,H)
+        b_ = bs[:, c0:c0 + chunk].float().repeat_interleave(r, dim=2)
+        c_ = cs[:, c0:c0 + chunk].float().repeat_interleave(r, dim=2)
+        lt = torch.cumsum(d_ * a, dim=1).transpose(1, 2)       # (B,H,Q)
+        y_inter = torch.einsum("bqhn,bhpn->bqhp", c_, state) \
+            * torch.exp(lt).transpose(1, 2)[..., None]
+        sc = torch.einsum("bihn,bjhn->bhij", c_, b_)
+        rel = torch.clamp(lt[..., :, None] - lt[..., None, :], max=0.0)
+        m = torch.where(causal, sc * torch.exp(rel), 0.0) \
+            * d_.transpose(1, 2)[:, :, None, :]
+        m = m.to(torch.bfloat16).float()
+        ys.append((y_inter + torch.einsum("bhij,bjhp->bihp", m, x_))
+                  .to(xs.dtype))
+        w = torch.exp(lt[..., -1:] - lt) * d_.transpose(1, 2)  # (B,H,Q)
+        state = state * torch.exp(lt[..., -1])[..., None, None] \
+            + torch.einsum("bhq,bqhn,bqhp->bhpn", w, b_, x_)
+    return torch.cat(ys, dim=1), state
+
+
+def ssd_scan_at_main_shape(torch, dev, err: float) -> dict:
+    """Time the kernel and its plain version at the serve prefill shape of
+    Mamba2-370m (batch 8 x 1024 tokens, 32 heads, P 64, N 128, Q 256, one
+    group, bf16 views of the conv output), after the two-ulp check against
+    the plain version and the rounded-m control under the same check."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ssd
+
+    cfg = get_config(SSM_ARCH)
+    sc = cfg.ssm
+    h = sc.num_heads(cfg.d_model)
+    g_, q = sc.ngroups, min(sc.chunk_size, SERVE_PROMPT)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    args = ssd_inputs(torch, dev, SERVE_BATCH, SERVE_PROMPT, h, g_,
+                      torch.bfloat16, gen)
+    y, fin = ssd.ssd_scan(*args, q)
+    want_y, want_fin = ssd.ssd_scan_plain(*args, q)
+    ctl_y, ctl_fin = ssd_scan_rounded_m(torch, *args, q)
+    torch.cuda.synchronize()
+    kchk = _ssd_check(torch, y, want_y, fin, want_fin)
+    cchk = _ssd_check(torch, ctl_y, want_y, ctl_fin, want_fin)
+    log(f"ssd_scan serve shape vs plain: {kchk}; rounded-m control: {cchk}")
+    if not kchk["within"]:
+        raise AssertionError(f"ssd_scan off the plain version at the serve "
+                             f"shape: {kchk}")
+    if cchk["within"]:
+        raise AssertionError(f"the check passed the rounded-m control: "
+                             f"{cchk}")
+    del y, fin, want_y, want_fin, ctl_y, ctl_fin
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: ssd.ssd_scan(*args, q), 20, torch)
+    plain_ms = cuda_ms(lambda: ssd.ssd_scan_plain(*args, q), 3, torch)
+    xs, dt, a_log, bs, cs = args
+    b, s, _, p = xs.shape
+    n = bs.shape[-1]
+    nbytes = (2 * xs.numel() * xs.element_size() + bs.numel()
+              * bs.element_size() + cs.numel() * cs.element_size()
+              + dt.numel() * 4 + a_log.numel() * 4 + b * h * p * n * 4)
+    # The products the function needs, chunk by chunk: the causal scores
+    # C.B^T (Q(Q+1)/2 entries of N terms) once per (b, group), and per
+    # (b, head) the causal intra product with x (Q(Q+1)/2 entries of P
+    # terms), the carried state's part C.state^T (none in the first chunk,
+    # whose incoming state is zero) and the state update (Q N P each).
+    flops = 0
+    for c0 in range(0, s, q):
+        qc = min(q, s - c0)
+        tri = qc * (qc + 1) // 2
+        flops += b * g_ * 2 * tri * n
+        flops += b * h * (2 * tri * p + 2 * qc * n * p * (2 if c0 else 1))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    out = {"name": "ssd_scan", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan/kernel.py:83",
+           "max_abs_err": max(err, kchk["max_abs_err"]), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None,
+           "library_note": "no single PyTorch call computes the SSD chunk "
+                           "scan",
+           "bytes": nbytes, "flops": flops,
+           "worst_of_limit": kchk["worst_of_limit"],
+           "mismatch_share": kchk["mismatch_share"],
+           "state_rel_err": kchk["state_rel_err"],
+           "control_rounded_m": cchk,
+           "shape": f"x ({b},{s},{h},{p}) bf16 views, B/C ({b},{s},{g_},"
+                    f"{n}), Q {q}"}
+    log(f"ssd_scan at the serve prefill shape: {ms:.4f} ms (bound "
+        f"{out['bound_ms']:.4f}, {out['bound_by']}; plain {plain_ms:.3f})")
+    del args, xs, dt, a_log, bs, cs
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ phase 3
 def _model(chain: bool = False):
     """The main paths' model, or (``chain``) phase 3c's reduced config."""
@@ -690,9 +930,11 @@ def _launch_counts():
     from repro_torch.kernels import block_gather as bg
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_adamw as fadam
+    from repro_torch.kernels import ssd_scan as ssd
 
     return {"block_fp": bfp.KERNEL, "fused_adamw": fadam.KERNEL,
-            "block_gather": bg.KERNEL, "flash_attention": fa.KERNEL}
+            "block_gather": bg.KERNEL, "flash_attention": fa.KERNEL,
+            "ssd_scan": ssd.KERNEL}
 
 
 def _zero_counts() -> None:
@@ -705,10 +947,11 @@ def _read_counts() -> dict:
 
 
 def check_store(torch, dev, root: Path, policy: str, merged_step: int,
-                ) -> dict:
+                model=None) -> dict:
     """A store's step-``merged_step`` manifest merges units of two events;
     after a restore of LATEST every unit's device fingerprints equal its
-    stored table; an unchanged re-save moves nothing."""
+    stored table; an unchanged re-save moves nothing.  ``model`` defaults
+    to the main paths' model."""
     from repro_torch.checkpoint import fingerprint as fputil
     from repro_torch.checkpoint.saver import CheckpointManager
     from repro_torch.core.layer_registry import LayerRegistry
@@ -716,7 +959,7 @@ def check_store(torch, dev, root: Path, policy: str, merged_step: int,
     from repro_torch.kernels import block_fp as bfp
     from repro_torch.launch import steps
 
-    model = _model()
+    model = model or _model()
     registry = LayerRegistry(model)
     mgr = CheckpointManager(root, registry,
                             make_policy(policy, model.layer_units()),
@@ -927,6 +1170,136 @@ def phase_3b(torch, dev, store: Path, ref: dict, out: dict) -> None:
     out.update(check_store(torch, dev, run, "topk_delta", 4))
 
 
+def phase_3e_train(torch, dev, store: Path, out: dict) -> None:
+    """Mamba2-370m at full width and depth (48 layers), batch SSM_BATCH x
+    SSM_SEQ: an uninterrupted reference run of SSM_STEPS steps without
+    saves; a run with overlapped topk_delta saves (every 2 steps, spread 2,
+    2 writer threads) that fails at step 7 with the step-6 event in
+    flight, and its resume from the step-4 manifest to step SSM_STEPS.
+    Two controls, each failing at step 5 and resumed without further
+    saves: the same topk_delta decisions saved synchronously (its step-2
+    and step-4 manifests must equal the overlapped run's, its resumed
+    losses the overlapped run's within MODE_TOL), and ``full`` saves,
+    whose resume holds no stale unit and must give the reference run's
+    losses within MODE_TOL.  The resumed topk_delta losses' distance to the
+    reference run is the merge's (recorded, see PERF.md).  Also: finite
+    losses, LATEST 4 after the failure, the step-4 manifest a merge of two
+    events, restored device fingerprints equal to the stored tables, an
+    unchanged re-save moving 0 bytes, and block_fp, block_gather and
+    fused_adamw launched.  Fills ``out`` before its checks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import SimulatedFailure, train
+    from repro_torch.models import build_model
+
+    kw = dict(arch=SSM_ARCH, reduced=REDUCED, batch=SSM_BATCH,
+              seq_len=SSM_SEQ, policy_name="topk_delta", seed=SEED,
+              device=str(dev), total_steps=SSM_STEPS,
+              ckpt_interval=CKPT_INTERVAL, ckpt_async=True)
+    no_saves = {"ckpt_interval": SSM_STEPS + 1}
+
+    def control(name: str, policy: str):
+        """A sync-saving run that fails at FAIL_AT and its resume without
+        saves: (save events, step-2/4 signatures, resumed run)."""
+        root = store / name
+        ckw = dict(kw, policy_name=policy, ckpt_dir=str(root))
+        try:
+            train(fail_at=FAIL_AT, **ckw)
+            raise AssertionError(f"3e: the {name} control did not fail")
+        except SimulatedFailure as e:
+            events = e.save_events
+        sigs = {s: _signature(root, s) for s in (2, 4)}
+        _release(torch)
+        res = train(resume=True, **{**ckw, **no_saves})
+        shutil.rmtree(root, ignore_errors=True)
+        _release(torch)
+        return events, sigs, res
+
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ref = train(ckpt_dir=str(store / "ref"), **{**kw, **no_saves})
+    peak_ref = torch.cuda.max_memory_allocated(dev)
+    shutil.rmtree(store / "ref", ignore_errors=True)
+    full_events, _, full_res = control("full_control", "full")
+    ctl_events, ctl_sigs, ctl_res = control("sync_control", "topk_delta")
+
+    run = store / "run"
+    kw.update(ckpt_spread_steps=SPREAD, writer_threads=2, ckpt_dir=str(run))
+    _release(torch)
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        train(fail_at=OV_FAIL_AT, **kw)
+        raise AssertionError("the Mamba run did not fail")
+    except SimulatedFailure as e:
+        failed = e
+    peak_failed = torch.cuda.max_memory_allocated(dev)
+    latest = int((run / "LATEST").read_text())
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = train(resume=True, **kw)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    wall = time.perf_counter() - t0
+    events = failed.save_events + res["save_events"]
+    log(f"phase 3e train done in {wall:.1f} s; launches {launches}")
+    cfg = get_config(SSM_ARCH, reduced=REDUCED)
+    ref_loss = dict(ref["losses"])
+    out.update({
+        "config": f"{SSM_ARCH} full width and depth ({cfg.num_layers} "
+                  f"layers), batch {SSM_BATCH}, seq {SSM_SEQ}, topk_delta, "
+                  f"ckpt every {CKPT_INTERVAL}, spread {SPREAD}, 2 writer "
+                  "threads",
+        "launches": launches,
+        "latest_after_failure": latest,
+        "step_seconds_median": statistics.median(ref["step_seconds"][1:]),
+        "step_seconds_ref": ref["step_seconds"],
+        "losses_ref": ref["losses"], "losses_failed_run": failed.losses,
+        "losses_resumed": res["losses"],
+        "losses_sync_control": ctl_res["losses"],
+        "losses_full_control": full_res["losses"],
+        # the Frankenstein merge's distance to the uninterrupted run
+        "merge_loss_gap": {s + 1: abs(l - ref_loss[s])
+                           for s, l in res["losses"]},
+        "step_seconds_resumed": res["step_seconds"],
+        "save_events": [{k: e.get(k) for k in _EVENT_KEYS} for e in events],
+        "sync_control_events": [{k: e.get(k) for k in _EVENT_KEYS}
+                                for e in ctl_events],
+        "full_control_events": [{k: e.get(k) for k in _EVENT_KEYS}
+                                for e in full_events],
+        "restore_on_resume": res["restore_stats"],
+        "restore_full_control": full_res["restore_stats"],
+        "store_bytes_at_end": res["ckpt_bytes"],
+        "peak_device_bytes": {"reference_run": peak_ref,
+                              "failed_run": peak_failed,
+                              "resumed_run": res["peak_device_bytes"]},
+        "seconds": wall,
+    })
+    log(f"3e merge loss gap {out['merge_loss_gap']}")
+    if latest != 4:
+        raise AssertionError(f"3e: LATEST is {latest} after the failure at "
+                             f"step {OV_FAIL_AT}, want 4 (event 6 in flight)")
+    if [e["step"] for e in failed.save_events] != [2, 4]:
+        raise AssertionError(f"3e: failed run committed events "
+                             f"{[e['step'] for e in failed.save_events]}")
+    for e in events:
+        if e["save_mode"] != "overlapped":
+            raise AssertionError(f"3e: event {e['step']} was not overlapped")
+    for s in (2, 4):
+        if _signature(run, s) != ctl_sigs[s]:
+            raise AssertionError(f"3e: step-{s} manifest differs from the "
+                                 "sync control's")
+    out["loss_diffs_full_control"] = _check_losses(
+        ref, full_res, lambda s: MODE_TOL, "phase 3e full control vs the "
+        "reference")
+    out["loss_diffs_vs_sync_control"] = _check_losses(
+        ctl_res, res, lambda s: MODE_TOL, "phase 3e vs its sync control")
+    _check_launched(launches, ("block_fp", "fused_adamw", "block_gather"),
+                    "phase 3e")
+    out.update(check_store(torch, dev, run, "topk_delta", 4,
+                           model=build_model(cfg)))
+
+
 def _poke_state(torch, state, how: str, bb: int):
     """A drifted copy of a state: every leaf's first element ("all"), the
     last element of the biggest params leaf ("one"), or the first element
@@ -1056,32 +1429,33 @@ def _params_equal(torch, a, b) -> bool:
                     for (_, x), (_, y) in zip(fa, fb)))
 
 
-def _check_serve_launches(launches: dict, want: int) -> None:
-    if launches["flash_attention"] != want:
-        raise AssertionError(f"flash_attention launched "
-                             f"{launches['flash_attention']} times in the "
-                             f"serve run, want {want}")
+def _check_serve_launches(launches: dict, want: dict) -> None:
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"the serve run, want {n}")
 
 
-def phase_3d_serve(torch, dev, out: dict) -> None:
-    """Yi-9B at full width and depth on random bf16 weights through
-    ``repro_torch.launch.serve.serve``: batch 8, 1024-token prompts, 128
-    greedy tokens.  Every prefill and decode attention must launch the
-    kernel (layers x (1 + new tokens)); then one decode step against the
-    prefilled cache must give the logits of prefilling the longer prompt
-    within DECODE_TOL, all finite."""
+def serve_full_depth(torch, dev, out: dict, arch: str, want: dict,
+                     decode_tol: float) -> None:
+    """A published model at full width and depth on random bf16 weights
+    through ``repro_torch.launch.serve.serve``: batch 8, 1024-token
+    prompts, 128 greedy tokens.  Each kernel must launch as often as
+    ``want`` says; then one decode step against the prefilled cache must
+    give the logits of prefilling the longer prompt within ``decode_tol``,
+    all finite."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
     from repro_torch.optim import tree_leaves
 
-    cfg = get_config(ARCH, reduced=REDUCED)
+    cfg = get_config(arch, reduced=REDUCED)
     _release(torch)
     torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
     _zero_counts()
     t0 = time.perf_counter()
-    res = serve(arch=ARCH, reduced=REDUCED, batch=SERVE_BATCH,
+    res = serve(arch=arch, reduced=REDUCED, batch=SERVE_BATCH,
                 prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW, seed=SEED,
                 device=str(dev))
     torch.cuda.synchronize()
@@ -1091,7 +1465,7 @@ def phase_3d_serve(torch, dev, out: dict) -> None:
     n_params = sum(math.prod(s.shape) for s in tree_leaves(
         build_model(cfg).param_specs()))
     out.update({
-        "config": f"{ARCH} full width, {cfg.num_layers} layers "
+        "config": f"{arch} full width, {cfg.num_layers} layers "
                   f"({n_params} params, random bf16), batch {SERVE_BATCH}, "
                   f"prompt {SERVE_PROMPT}, {SERVE_NEW} new tokens",
         "launches": launches, "peak_device_bytes": peak,
@@ -1099,22 +1473,35 @@ def phase_3d_serve(torch, dev, out: dict) -> None:
         **{k: res[k] for k in ("prefill_seconds", "decode_seconds",
                                "decode_tokens_per_s", "sample_tokens",
                                "tokens_digest")}})
-    log(f"phase 3d serve done in {wall:.1f} s: prefill "
+    log(f"serve {arch} done in {wall:.1f} s: prefill "
         f"{res['prefill_seconds']:.3f} s, decode "
         f"{res['decode_tokens_per_s']:.1f} tokens/s, peak "
         f"{peak / 1e9:.2f} GB ({before / 1e9:.2f} GB allocated before); "
         f"launches {launches}")
-    _check_serve_launches(launches, cfg.num_layers * (1 + SERVE_NEW))
+    _check_serve_launches(launches, want)
     if not all(0 <= t < cfg.vocab_size for t in res["sample_tokens"]):
         raise AssertionError(f"tokens out of range: {res['sample_tokens']}")
     out["decode_vs_prefill"], out["decode_profile"] = _decode_checks(
-        torch, dev, cfg, res["decode_seconds"] / SERVE_NEW)
+        torch, dev, cfg, res["decode_seconds"] / SERVE_NEW, decode_tol)
 
 
-def _decode_checks(torch, dev, cfg, step_seconds: float):
+def phase_3d_serve(torch, dev, out: dict) -> None:
+    """Yi-9B at full width and depth: every prefill and decode attention
+    launches ``flash_attention`` (layers x (1 + new tokens)); decode vs
+    prefill within DECODE_TOL."""
+    from repro_torch.configs import get_config
+
+    n = get_config(ARCH, reduced=REDUCED).num_layers
+    serve_full_depth(torch, dev, out, ARCH,
+                     {"flash_attention": n * (1 + SERVE_NEW), "ssd_scan": 0},
+                     DECODE_TOL)
+
+
+def _decode_checks(torch, dev, cfg, step_seconds: float, tol: float):
     """On the serve run's weights and prompts: max |decode-step logits -
-    prefill(T + 1) last logits| (the JAX package's consistency check),
-    and the device's busy time over PROFILE_STEPS more decode steps
+    prefill(T + 1) last logits| (the JAX package's consistency check,
+    held to ``tol``), and the
+    device's busy time over PROFILE_STEPS more decode steps
     (``_decode_profile``) beside the serve run's unprofiled step time."""
     import numpy as np
 
@@ -1140,10 +1527,42 @@ def _decode_checks(torch, dev, cfg, step_seconds: float):
     log(f"decode vs prefill of the longer prompt: max abs {err:.4g}")
     del params
     torch.cuda.empty_cache()
-    if not err < DECODE_TOL:
+    if not err < tol:
         raise AssertionError(f"decode step off the prefill of T + 1 tokens: "
                              f"{err}")
     return err, profile
+
+
+def _decode_gap_float32(torch, dev, cfg) -> float:
+    """The decode-vs-prefill comparison of ``_decode_checks`` with the
+    model computing in float32 (float32 weights and activations, the
+    ssd_scan kernel's float32 path, a float32 conv window), which takes
+    bf16 rounding out of it: a decode step that does not continue the
+    prefill's state and conv window shows here, rounding does not.  Held
+    to DECODE_F32_TOL."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+
+    model = build_model(cfg, compute_dtype=torch.float32)
+    params = model.init(SEED, dev)
+    rng = np.random.RandomState(SEED)
+    toks = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 1)).astype(
+            np.int32)).to(dev)
+    _, cache = model.prefill(params, {"tokens": toks[:, :-1]})
+    ld, _ = model.decode_step(params, cache, {"tokens": toks[:, -1:],
+                                              "pos": SERVE_PROMPT})
+    del cache
+    lf, _ = model.prefill(params, {"tokens": toks})
+    err = (ld - lf).abs().max().item()
+    del params
+    torch.cuda.empty_cache()
+    log(f"decode vs prefill in float32: max abs {err:.4g}")
+    if not err < DECODE_F32_TOL:
+        raise AssertionError(f"float32 decode step off the prefill of T + 1 "
+                             f"tokens: {err}")
+    return err
 
 
 def _decode_profile(torch, model, params, cache, tok,
@@ -1188,14 +1607,17 @@ def _decode_profile(torch, model, params, cache, tok,
 
 
 def phase_3d_store(torch, dev, store: Path, full_restore_bytes: int,
-                   out: dict) -> None:
-    """Serving from phase 3b's store (the main paths' model, 2 layers):
-    a weights-only cold load of step 4 that opens no optimizer object; a
-    poll to LATEST (8) that must equal a cold weights-only load of 8 bit
-    for bit, and ``serve`` hot-swapped from 4 must generate the tokens of
-    ``serve`` cold-loaded at 8; then a constructed drift of a few 64 KiB
-    blocks of one block unit's weights, saved on top of a full object the
-    server holds, must take the scatter path and stay bit-exact."""
+                   out: dict, model=None, serve_kw=None,
+                   drift: bool = True) -> None:
+    """Serving from a training store (phase 3b's by default: the main
+    paths' model, 2 layers): a weights-only cold load of step 4 that opens
+    no optimizer object; a poll to LATEST (8) that must equal a cold
+    weights-only load of 8 bit for bit, and ``serve`` hot-swapped from 4
+    must generate the tokens of ``serve`` cold-loaded at 8; then
+    (``drift``) a constructed drift of a few 64 KiB blocks of one block
+    unit's weights, saved on top of a full object the server holds, must
+    take the scatter path and stay bit-exact.  ``serve_kw`` names the
+    served model to ``serve``."""
     from repro_torch.checkpoint.saver import CheckpointManager
     from repro_torch.checkpoint.serial import flatten_with_paths
     from repro_torch.checkpoint.swap import WeightService
@@ -1205,7 +1627,9 @@ def phase_3d_store(torch, dev, store: Path, full_restore_bytes: int,
     from repro_torch.launch.serve import serve
 
     _release(torch)
-    model = _model()
+    model = model or _model()
+    serve_kw = serve_kw or dict(arch=ARCH, reduced=REDUCED,
+                                num_layers=NUM_LAYERS)
     registry = LayerRegistry(model)
     names = registry.unit_names()
     like = steps.state_specs(model)
@@ -1250,8 +1674,7 @@ def phase_3d_store(torch, dev, store: Path, full_restore_bytes: int,
                                           cold8["params"]):
         raise AssertionError("the swap to 8 is not a cold load of 8")
     del cold8
-    kw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
-              batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+    kw = dict(serve_kw, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
               new_tokens=SERVE_NEW, from_ckpt=str(store), device=str(dev))
     hot = serve(from_step=4, hot_swap=True, swap_wait=0.0, **kw)
     cold = serve(**kw)
@@ -1262,6 +1685,10 @@ def phase_3d_store(torch, dev, store: Path, full_restore_bytes: int,
         raise AssertionError(f"hot-swapped and cold-loaded servers differ: "
                              f"{hot['served_step']}/{cold['served_step']}, "
                              f"{out['tokens_digest']}")
+    if not drift:
+        mgr.close()
+        out["seconds"] = time.perf_counter() - t0
+        return
 
     # the constructed case: one block unit drifts everywhere (a full
     # object the server takes whole), then in a few blocks (a BD02 delta
@@ -1305,6 +1732,117 @@ def phase_3d_store(torch, dev, store: Path, full_restore_bytes: int,
         raise AssertionError("the scattered swap is not a cold load of 12")
 
 
+def _train_step_profile(torch, dev, step_seconds: float) -> dict:
+    """Device time of one Mamba2-370m train step (phase 3e's shape, a
+    fresh state, after one warm step) traced by torch.profiler: every
+    kernel, copy and fill on the card, summed; the number of device events
+    and of host kernel launches; the busy share of ``step_seconds``, the
+    reference run's unprofiled median step.  None where the profiler shows
+    no device events."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    model = build_model(get_config(SSM_ARCH, reduced=REDUCED))
+    state = steps.init_state(model, SEED, dev)
+    step = steps.make_train_step(model, TrainConfig(
+        learning_rate=1e-3, warmup_steps=20, total_steps=SSM_STEPS))
+    rng = np.random.RandomState(SEED)
+    tokens = [torch.from_numpy(rng.randint(
+        0, model.cfg.vocab_size, (SSM_BATCH, SSM_SEQ)).astype(
+            np.int32)).to(dev) for _ in range(2)]
+    state, m = step(state, {"tokens": tokens[0]})
+    float(m["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, {"tokens": tokens[1]})
+        float(m["loss"])
+        torch.cuda.synchronize()
+    busy_us = 0.0
+    n_dev = n_launch = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+            n_dev += 1
+        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                        "cudaLaunchKernelExC"):
+            n_launch += 1
+    del state, step, model
+    _release(torch)
+    if busy_us == 0:
+        log("train step profile: the profiler shows no device time "
+            "(not measured)")
+        return {"device_ms": None, "busy_share": None}
+    out = {"device_ms": busy_us / 1e3, "device_events": n_dev,
+           "host_kernel_launches": n_launch,
+           "step_ms_unprofiled": step_seconds * 1e3,
+           "busy_share": busy_us / 1e3 / (step_seconds * 1e3)}
+    log(f"train step profile: {out}")
+    return out
+
+
+def phase_3e(torch, dev, store: Path, out: dict) -> None:
+    """Mamba2-370m at full width and depth: train, save, fail and resume
+    (``phase_3e_train``), serve from that store (weights-only cold load,
+    hot-swap to LATEST, hot vs cold tokens) before it is removed, then
+    serve on random weights: ``ssd_scan`` once per layer in the prefill
+    (the decode is a recurrent step), decode vs prefill in bf16 within
+    DECODE_SSM_TOL and in float32 within DECODE_F32_TOL, the bf16 prefill
+    within SSD_PREFILL_TOL of the plain scan's forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(SSM_ARCH, reduced=REDUCED)
+    phase_3e_train(torch, dev, store, out["train"])
+    out["train"]["step_profile"] = _train_step_profile(
+        torch, dev, out["train"]["step_seconds_median"])
+    phase_3d_store(torch, dev, store / "run",
+                   out["train"]["restore_on_resume"]["bytes_read"],
+                   out["store"], model=build_model(cfg),
+                   serve_kw=dict(arch=SSM_ARCH, reduced=REDUCED), drift=False)
+    shutil.rmtree(store, ignore_errors=True)
+    serve_full_depth(torch, dev, out["serve"], SSM_ARCH,
+                     {"flash_attention": 0, "ssd_scan": cfg.num_layers},
+                     DECODE_SSM_TOL)
+    out["serve"]["decode_vs_prefill_float32"] = _decode_gap_float32(
+        torch, dev, cfg)
+    out["serve"]["prefill_vs_plain_scan"] = _prefill_vs_plain_scan(
+        torch, dev, cfg)
+
+
+def _prefill_vs_plain_scan(torch, dev, cfg) -> float:
+    """Max |last logits of the bf16 prefill (``ssd_scan``) - those of the
+    training path (the plain chunked scan)| on the serve run's weights and
+    the longer prompt, held to SSD_PREFILL_TOL.  Launches made here are
+    not counted: the serve run's counts were read before."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    params = model.init(SEED, dev, dtype=torch.bfloat16)
+    toks = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 1)).astype(
+            np.int32)).to(dev)
+    with torch.no_grad():
+        lf, _ = model.prefill(params, {"tokens": toks})
+        lt = model.logits(params, toks)[:, -1]
+    err = (lf - lt).abs().max().item()
+    del params, lf, lt
+    torch.cuda.empty_cache()
+    log(f"bf16 prefill vs the plain scan's forward: max abs {err:.4g}")
+    if not err < SSD_PREFILL_TOL:
+        raise AssertionError(f"the ssd_scan prefill is off the plain scan's "
+                             f"forward at full depth: {err}")
+    return err
+
+
 def write_record(record: dict, path) -> None:
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -1316,12 +1854,16 @@ def report(record: dict, path) -> None:
     record, log the per-event split and print the summary lines."""
     kernels, mp = record["kernels"], record["main_path"]
     mp_a, mp_b, mp_c, mp_d = mp["3a"], mp["3b"], mp["3c"], mp["3d"]
+    mp_e = mp["3e"]
     for k in kernels:
         if k["name"] == "flash_attention":     # the serving path
             k["launches"] = mp_d["serve"]["launches"][k["name"]]
+        elif k["name"] == "ssd_scan":          # the Mamba serving path
+            k["launches"] = mp_e["serve"]["launches"][k["name"]]
         else:                                  # the training paths
             k["launches"] = mp_b["launches"][k["name"]]
             k["launches_sync_path"] = mp_a["launches"][k["name"]]
+            k["launches_mamba_path"] = mp_e["train"]["launches"][k["name"]]
     write_record(record, path)
     a_secs = {e["step"]: e["seconds"] for e in mp_a["save_events"]}
     ctl_secs = {e["step"]: e["seconds"]
@@ -1358,6 +1900,37 @@ def report(record: dict, path) -> None:
         "full_restore_bytes_step4": st["full_restore_bytes_step4"],
         "weights_bytes": st["weights_bytes"],
         **{k: st[k] for k in ("swap_4_to_8", "swap_to_10", "swap_to_12")}}}))
+    et, es, ev = mp_e["train"], mp_e["store"], mp_e["serve"]
+    for e in et["save_events"]:
+        log(f"3e event {e['step']}: stall {e['stall_seconds']:.3f} s "
+            f"(snapshot {e['snapshot_seconds']:.3f}, stage "
+            f"{e['stage_seconds']:.3f}, writeback "
+            f"{e['writeback_seconds']:.3f}, commit "
+            f"{e['commit_seconds']:.3f}), d2h {e['d2h_bytes']}, units "
+            f"{e['selected_units']}")
+    print(json.dumps({"mamba": {
+        "train": {k: et[k] for k in ("config", "step_seconds_median",
+                                     "merge_loss_gap",
+                                     "loss_diffs_full_control",
+                                     "loss_diffs_vs_sync_control",
+                                     "launches", "peak_device_bytes",
+                                     "store_bytes_at_end", "step_profile")}
+        | {"event_stall_seconds": {e["step"]: e["stall_seconds"]
+                                   for e in et["save_events"]},
+           "restore_seconds": et["restore_on_resume"]["seconds"],
+           "restore_bytes": et["restore_on_resume"]["bytes_read"]},
+        "store": {"cold_load_step4": {k: es["cold_load_step4"][k] for k in (
+            "seconds", "bytes_read", "h2d_bytes")},
+            "weights_bytes": es["weights_bytes"],
+            "swap_4_to_8": {k: es["swap_4_to_8"][k] for k in (
+                "seconds", "bytes_read", "h2d_bytes", "units_swapped",
+                "units_skipped", "units_scattered", "units_full")},
+            "tokens_digest": es["tokens_digest"]},
+        "serve": {k: ev[k] for k in (
+            "config", "prefill_seconds", "decode_tokens_per_s",
+            "peak_device_bytes", "launches", "decode_vs_prefill",
+            "decode_vs_prefill_float32", "prefill_vs_plain_scan",
+            "decode_profile")}}}))
     print(json.dumps({"kernels": kernels}))
 
 
@@ -1380,7 +1953,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t = t_start = time.perf_counter()
     BUILDER.build(["block_fp", "fused_adamw", "block_gather",
-                   "flash_attention"])
+                   "flash_attention", "ssd_scan"])
     for name, text in BUILDER.logs.items():
         log(f"--- nvcc {name}.cu ---\n{text.strip()}")
     log(f"kernels built in {time.perf_counter() - t:.1f} s")
@@ -1393,6 +1966,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_err = check_flash_attention_cases(torch, dev)
     kernels.append(flash_attention_at_main_shapes(torch, dev, flash_err))
+    ssd_err = check_ssd_scan_cases(torch, dev)
+    kernels.append(ssd_scan_at_main_shape(torch, dev, ssd_err))
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     store = ROOT / "build" / "chip_smoke_store"
@@ -1405,7 +1980,8 @@ def main() -> int:
                            f"the main paths write about 25 GB at a time")
     record = {"card": card, "kernels": kernels,
               "main_path": {"3a": {}, "3b": {}, "3c": {},
-                            "3d": {"serve": {}, "store": {}}}}
+                            "3d": {"serve": {}, "store": {}},
+                            "3e": {"train": {}, "store": {}, "serve": {}}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
@@ -1425,6 +2001,8 @@ def main() -> int:
         log(f"phase 3c done at {time.perf_counter() - t_start:.1f} s")
         phase_3d_serve(torch, dev, mp["3d"]["serve"])
         log(f"phase 3d (serve) done at {time.perf_counter() - t_start:.1f} s")
+        phase_3e(torch, dev, store / "3e", mp["3e"])
+        log(f"phase 3e done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(store, ignore_errors=True)
         write_record(record, args.record)

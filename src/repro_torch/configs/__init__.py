@@ -13,6 +13,7 @@ from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: F401
 _ARCH_MODULES: Dict[str, str] = {
     "yi-9b": "repro_torch.configs.yi_9b",
     "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

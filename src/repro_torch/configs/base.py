@@ -53,6 +53,12 @@ class SSMConfig:
     chunk_size: int = 256
     ngroups: int = 1
 
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def num_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
 
 @dataclasses.dataclass(frozen=True)
 class HybridConfig:

@@ -130,3 +130,16 @@ class CudaKernel:
                                f"{err}")
         with self._count_lock:
             self.launches += 1
+
+
+def check_strided_operand(kernel: str, name: str, t) -> None:
+    """Raise unless ``t`` is what a kernel reading (B, S, heads, D)
+    tensors through their strides takes: the last dim contiguous, the
+    start and the first three strides on 16 bytes (its 16-byte loads)."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{kernel}: {name}'s last dim must be contiguous")
+    size = t.element_size()
+    if t.data_ptr() % 16 or any(t.stride(i) * size % 16
+                                for i in range(3) if t.shape[i] > 1):
+        raise ValueError(f"{kernel}: {name} must start on 16 bytes and keep "
+                         "16-byte strides")

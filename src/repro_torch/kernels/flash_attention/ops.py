@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaKernel
+from repro_torch.kernels._build import CudaKernel, check_strided_operand
 from repro_torch.kernels.flash_attention.ref import (attention_plain,
                                                      softmax_scale)
 
@@ -43,17 +43,6 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention needs at least one query and key")
 
 
-def _check_kernel_operand(name: str, t: torch.Tensor) -> None:
-    if t.stride(-1) != 1:
-        raise ValueError(f"flash_attention: {name}'s last dim must be "
-                         "contiguous")
-    size = t.element_size()
-    if t.data_ptr() % 16 or any(t.stride(i) * size % 16
-                                for i in range(3) if t.shape[i] > 1):
-        raise ValueError(f"flash_attention: {name} must start on 16 bytes "
-                         "and keep 16-byte strides")
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Attention forward over (B, S, heads, D) tensors (see module doc).
@@ -76,7 +65,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention kernel takes head dim "
                          f"{HEAD_DIMS}, not {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_kernel_operand(name, t)
+        check_strided_operand("flash_attention", name, t)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])

@@ -25,7 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.model_api import TensorSpec
-from repro_torch.models.modules import COMPUTE_DTYPE, apply_rope
+from repro_torch.models.modules import apply_rope
 
 NEG_INF = -1e30
 
@@ -96,8 +96,7 @@ def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd)), new_kv
 
 
-def gqa_cache_spec(cfg: ModelConfig, batch: int,
-                   seq: int) -> Dict[str, TensorSpec]:
+def gqa_cache_spec(cfg: ModelConfig, batch: int, seq: int,
+                   dtype: torch.dtype) -> Dict[str, TensorSpec]:
     shape = (batch, seq, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": TensorSpec(shape, COMPUTE_DTYPE),
-            "v": TensorSpec(shape, COMPUTE_DTYPE)}
+    return {"k": TensorSpec(shape, dtype), "v": TensorSpec(shape, dtype)}

@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-COMPUTE_DTYPE = torch.bfloat16
+COMPUTE_DTYPE = torch.bfloat16     # a model's default (``build_model``)
 
 
 def leaf_seed(seed: int, path: str) -> int:
@@ -60,17 +60,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def embed_lookup(embedding: torch.Tensor,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), embedding.to(COMPUTE_DTYPE))
+def embed_lookup(embedding: torch.Tensor, tokens: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    return F.embedding(tokens.long(), embedding.to(dtype))
 
 
-def unembed_logits(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Hidden states -> float32 vocab logits.  kernel: (D, V).  bf16 inputs
-    multiply exactly in float32, so this is the float32-accumulated product
-    of the bf16 operands."""
+def unembed_logits(x: torch.Tensor, kernel: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """Hidden states -> float32 vocab logits.  kernel: (D, V), rounded to
+    the compute ``dtype``.  bf16 inputs multiply exactly in float32, so
+    this is the float32-accumulated product of the bf16 operands."""
     return torch.matmul(x.to(torch.float32),
-                        kernel.to(COMPUTE_DTYPE).to(torch.float32))
+                        kernel.to(dtype).to(torch.float32))
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

@@ -15,31 +15,22 @@ writes its k/v into the cache in place, where the JAX server donates it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import gqa_cache_spec, gqa_forward
-from repro_torch.models.model_api import BaseLM, LayerUnit, TensorSpec
-from repro_torch.models.modules import (
-    cross_entropy_loss,
-    embed_lookup,
-    rms_norm,
-    swiglu,
-    truncated_normal,
-    unembed_logits,
-)
+from repro_torch.models.model_api import (Rule, StackedLM, TensorSpec,
+                                          unbind_layers)
+from repro_torch.models.modules import rms_norm, swiglu
 
 PyTree = Any
 
-# leaf rule: ("dense", fan_in scale or None) | ("ones",)
-_Rule = Tuple[str, Any]
 
-
-class DecoderLM(BaseLM):
+class DecoderLM(StackedLM):
     # ------------------------------------------------------------ structure
-    def _block_leaves(self) -> Dict[str, Tuple[Tuple[int, ...], _Rule]]:
+    def _block_leaves(self) -> Dict[str, Tuple[Tuple[int, ...], Rule]]:
         cfg = self.cfg
         d, f = cfg.d_model, cfg.d_ff
         h, g, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
@@ -55,59 +46,6 @@ class DecoderLM(BaseLM):
             "mlp/w_up": ((d, f), dense),
             "mlp/w_down": ((f, d), dense),
         }
-
-    def _aux_leaves(self) -> Dict[str, Tuple[Tuple[int, ...], _Rule]]:
-        cfg = self.cfg
-        out = {"embed/w": ((cfg.vocab_size, cfg.d_model), ("dense", 0.02)),
-               "final_norm/scale": ((cfg.d_model,), ("ones", None))}
-        if not cfg.tie_embeddings:
-            out["lm_head/w"] = ((cfg.d_model, cfg.vocab_size),
-                                ("dense", 0.02))
-        return out
-
-    @staticmethod
-    def _set(tree: Dict, path: str, value) -> None:
-        parts = path.split("/")
-        for p in parts[:-1]:
-            tree = tree.setdefault(p, {})
-        tree[parts[-1]] = value
-
-    def param_specs(self) -> PyTree:
-        tree: Dict[str, Any] = {}
-        n = self.cfg.num_layers
-        for path, (shape, _) in self._aux_leaves().items():
-            self._set(tree, path, TensorSpec(shape, torch.float32))
-        for path, (shape, _) in self._block_leaves().items():
-            self._set(tree, "blocks/" + path,
-                      TensorSpec((n,) + shape, torch.float32))
-        return tree
-
-    def init(self, seed: int, device: torch.device,
-             dtype: torch.dtype = torch.float32) -> PyTree:
-        """Params: truncated normal with 1/sqrt(fan_in) scale (0.02 for
-        embeddings) from a generator per leaf (and per layer), ones for
-        norms, drawn in float32 and stored in ``dtype`` one layer at a
-        time (bf16 serving weights never hold a float32 copy of the
-        model)."""
-        tree: Dict[str, Any] = {}
-
-        def make(path: str, shape, rule: _Rule) -> torch.Tensor:
-            kind, scale = rule
-            if kind == "ones":
-                return torch.ones(shape, dtype=torch.float32, device=device)
-            if scale is None:
-                scale = 1.0 / max(int(shape[0]), 1) ** 0.5
-            return truncated_normal(shape, scale, seed, path, device)
-
-        for path, (shape, rule) in self._aux_leaves().items():
-            self._set(tree, path, make(path, shape, rule).to(dtype))
-        n = self.cfg.num_layers
-        for path, (shape, rule) in self._block_leaves().items():
-            stacked = torch.empty((n,) + shape, dtype=dtype, device=device)
-            for i in range(n):
-                stacked[i] = make(f"block{i}/{path}", shape, rule)
-            self._set(tree, "blocks/" + path, stacked)
-        return tree
 
     # --------------------------------------------------------------- forward
     def _block(self, p: Dict, h: torch.Tensor, positions: torch.Tensor,
@@ -128,33 +66,15 @@ class DecoderLM(BaseLM):
         return self._block(p, h, positions)[0]
 
     def hidden(self, params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
-        h = embed_lookup(params["embed"]["w"], tokens)
+        h = self._embed(params, tokens)
         positions = torch.arange(h.shape[1], device=h.device)
-        blocks = params["blocks"]
-        for i in range(self.cfg.num_layers):
-            layer_p = _index_tree(blocks, i)
+        for layer_p in unbind_layers(params["blocks"]):
             if self.cfg.remat != "none":
                 h = checkpoint(self._train_block, layer_p, h, positions,
                                use_reentrant=False)
             else:
                 h = self._train_block(layer_p, h, positions)
         return h
-
-    def _logits(self, params: PyTree, h: torch.Tensor) -> torch.Tensor:
-        h = rms_norm(h, params["final_norm"]["scale"], self.cfg.norm_eps)
-        w = (params["embed"]["w"].t() if self.cfg.tie_embeddings
-             else params["lm_head"]["w"])
-        return unembed_logits(h, w)
-
-    def logits(self, params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
-        return self._logits(params, self.hidden(params, tokens))
-
-    def loss(self, params, batch):
-        tokens = batch["tokens"]
-        logits = self.logits(params, tokens)
-        ce = cross_entropy_loss(logits[:, :-1], tokens[:, 1:])
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
-        return ce + aux, {"ce": ce, "aux_loss": aux}
 
     # --------------------------------------------------------------- serving
     @torch.no_grad()
@@ -166,13 +86,11 @@ class DecoderLM(BaseLM):
         prompt length) with the tail left zero for decoding."""
         tokens = batch["tokens"]
         b, t = tokens.shape
-        h = embed_lookup(params["embed"]["w"], tokens)
+        h = self._embed(params, tokens)
         positions = torch.arange(t, device=h.device)
         cache = self.init_cache(b, cache_len or t, h.device)
-        blocks = params["blocks"]
-        for i in range(self.cfg.num_layers):
-            h, kv = self._block(_index_tree(blocks, i), h, positions,
-                                return_kv=True)
+        for i, layer_p in enumerate(unbind_layers(params["blocks"])):
+            h, kv = self._block(layer_p, h, positions, return_kv=True)
             for name in ("k", "v"):
                 cache["blocks"][name][i, :, :t] = kv[name]
         # the last position only: full logits at 8 x 1024 tokens would be
@@ -187,41 +105,14 @@ class DecoderLM(BaseLM):
         float32 logits (B, V) and the cache."""
         tok = batch["tokens"]
         pos = int(batch["pos"])
-        h = embed_lookup(params["embed"]["w"], tok)
+        h = self._embed(params, tok)
         positions = pos + torch.arange(1, device=h.device)
-        blocks, kv = params["blocks"], cache["blocks"]
-        for i in range(self.cfg.num_layers):
-            layer_cache = {"k": kv["k"][i], "v": kv["v"][i]}
-            h, _ = self._block(_index_tree(blocks, i), h, positions,
-                               cache=layer_cache, cache_pos=pos)
+        for layer_p, layer_cache in zip(unbind_layers(params["blocks"]),
+                                        unbind_layers(cache["blocks"])):
+            h, _ = self._block(layer_p, h, positions, cache=layer_cache,
+                               cache_pos=pos)
         return self._logits(params, h)[:, 0], cache
 
-    def cache_spec(self, batch: int, seq: int) -> PyTree:
-        one = gqa_cache_spec(self.cfg, batch, seq)
-        return {"blocks": {k: TensorSpec((self.cfg.num_layers,) + s.shape,
-                                         s.dtype)
-                           for k, s in one.items()}}
-
-    def init_cache(self, batch: int, seq: int,
-                   device: torch.device) -> PyTree:
-        """A zero cache of ``cache_spec(batch, seq)`` on ``device``."""
-        return {"blocks": {k: torch.zeros(s.shape, dtype=s.dtype,
-                                          device=device)
-                           for k, s in self.cache_spec(
-                               batch, seq)["blocks"].items()}}
-
-    # ---------------------------------------------------------------- units
-    def layer_units(self) -> List[LayerUnit]:
-        units = [LayerUnit("embed", ("embed",), kind="aux")]
-        for i in range(self.cfg.num_layers):
-            units.append(LayerUnit(f"block_{i:03d}", ("blocks",), index=i))
-        units.append(LayerUnit("final_norm", ("final_norm",), kind="aux"))
-        if not self.cfg.tie_embeddings:
-            units.append(LayerUnit("lm_head", ("lm_head",), kind="aux"))
-        return units
-
-
-def _index_tree(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _index_tree(v, i) for k, v in tree.items()}
-    return tree[i]
+    def _layer_cache_spec(self, batch: int,
+                          seq: int) -> Dict[str, TensorSpec]:
+        return gqa_cache_spec(self.cfg, batch, seq, self.compute_dtype)

@@ -8,7 +8,13 @@ at most 1024 elements); AdamW float32 state rtol 1e-5 / atol 1e-7;
 block_gather's indices, block bytes and counts exact, and its sums of
 squares bit-equal to block_fp's (the same device code); flash_attention
 within atol = rtol = 2e-2 in bf16 and 2e-5 in float32 of its plain version
-(one float32 function summed in another order).
+(one float32 function summed in another order); ssd_scan's bf16 y within
+two bf16 ulps of its plain version's per element (|d| <= 2**-6 |want| +
+1e-5) with at most 1% of the elements differing at all, the check of
+chip_smoke.py's serve shapes, which a plain version that rounds its
+decayed scores to bf16 fails; its float32 y within 1e-4 (the JAX
+package's kernel-test bound), its float32 final state within 1e-4 of the
+plain version's largest magnitude, and two launches bitwise equal.
 """
 import numpy as np
 import pytest
@@ -19,6 +25,7 @@ from repro_torch.kernels import block_fp as bfp
 from repro_torch.kernels import block_gather as bg
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_adamw as fadam
+from repro_torch.kernels import ssd_scan as ssd
 
 pytestmark = pytest.mark.cuda
 
@@ -218,3 +225,63 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(dev):
     q = torch.zeros(1, 4, 2, 64, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
+
+
+def _ssd_inputs(dev, b, s, h, g, dtype, seed, views):
+    """x, B, C as the model passes them (views of one conv output row) or
+    contiguous; dt = softplus(randn); A_log = log(linspace(1, 16, H))."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p, n = ssd.ops.HEAD_DIM, ssd.ops.STATE_DIM
+    if views:
+        conv = (torch.randn(b, s, h * p + 2 * g * n, generator=gen,
+                            device=dev) * 0.5).to(dtype)
+        xs = conv[..., :h * p].unflatten(-1, (h, p))
+        bs = conv[..., h * p:h * p + g * n].unflatten(-1, (g, n))
+        cs = conv[..., h * p + g * n:].unflatten(-1, (g, n))
+    else:
+        xs, bs, cs = ((torch.randn(b, s, k, d, generator=gen, device=dev)
+                       * 0.5).to(dtype) for k, d in ((h, p), (g, n), (g, n)))
+    dt = torch.logaddexp(torch.randn(b, s, h, generator=gen, device=dev),
+                         torch.zeros((), device=dev))
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    return xs, dt, a_log, bs, cs
+
+
+@pytest.mark.parametrize("b,s,h,g,q,dtype,views", [
+    (2, 512, 8, 1, 256, torch.bfloat16, True),    # full chunks, G = 1
+    (1, 1025, 4, 1, 256, torch.bfloat16, False),  # ragged S = 4 x 256 + 1
+    (2, 300, 4, 4, 37, torch.float32, True),      # odd Q, G = H
+    (1, 200, 8, 2, 64, torch.float32, False),     # G = 2, ragged S
+    (3, 100, 32, 1, 100, torch.bfloat16, True),   # Q = S, 32 heads
+    (2, 77, 4, 4, 256, torch.float32, False),     # S < Q
+    (2, 256, 8, 8, 128, torch.bfloat16, True),    # G = H
+    (1, 64, 2, 1, 1, torch.float32, True),        # Q = 1
+])
+def test_ssd_scan_kernel_matches_plain(dev, b, s, h, g, q, dtype, views):
+    args = _ssd_inputs(dev, b, s, h, g, dtype, s + q, views)
+    before = ssd.KERNEL.launches
+    y, fin = ssd.ssd_scan(*args, q)
+    y2, fin2 = ssd.ssd_scan(*args, q)
+    torch.cuda.synchronize()
+    assert ssd.KERNEL.launches == before + 2
+    assert torch.equal(y, y2) and torch.equal(fin, fin2)
+    want_y, want_fin = ssd.ssd_scan_plain(*args, q)
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    if dtype == torch.bfloat16:
+        d = (y.float() - want_y.float()).abs()
+        assert (d <= 2.0 ** -6 * want_y.float().abs() + 1e-5).all()
+        assert (d > 0).float().mean() <= 0.01
+    else:
+        torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    assert (fin - want_fin).abs().max() <= 1e-4 * want_fin.abs().max()
+
+
+def test_ssd_scan_kernel_rejects_what_it_does_not_take(dev):
+    xs, dt, a_log, bs, cs = _ssd_inputs(dev, 1, 16, 2, 1, torch.bfloat16, 0,
+                                        False)
+    with pytest.raises(ValueError, match="chunks of at most"):
+        ssd.ssd_scan(xs, dt, a_log, bs, cs, 300)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(xs.half(), dt, a_log, bs.half(), cs.half(), 8)
+    with pytest.raises(ValueError, match="P 64 and N 128"):
+        ssd.ssd_scan(xs[..., :32], dt, a_log, bs, cs, 8)

@@ -39,11 +39,12 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def test_train_save_resume_loads_no_forbidden_module(tmp_path):
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m"])
+def test_train_save_resume_loads_no_forbidden_module(tmp_path, arch):
     script = f"""
 import sys
 from repro_torch.launch.train import SimulatedFailure, train
-kw = dict(arch="yi-9b", total_steps=4, batch=2, seq_len=16, seed=0,
+kw = dict(arch={arch!r}, total_steps=4, batch=2, seq_len=16, seed=0,
           policy_name="parity", ckpt_interval=2, device="cpu",
           num_layers=2, ckpt_dir={str(tmp_path / 'run')!r})
 try:
@@ -53,7 +54,7 @@ except SimulatedFailure:
 r = train(resume=True, **kw)
 assert r["restore_stats"]["step"] == 2, r["restore_stats"]
 from repro_torch.launch.serve import serve
-s = serve(arch="yi-9b", batch=2, prompt_len=8, new_tokens=2, device="cpu",
+s = serve(arch={arch!r}, batch=2, prompt_len=8, new_tokens=2, device="cpu",
           num_layers=2, from_ckpt=kw["ckpt_dir"], from_step=2,
           hot_swap=True, swap_wait=0.0)
 assert s["served_step"] == 4 and s["swap"]["step_to"] == 4, s
