@@ -7,8 +7,9 @@ Needs one CUDA card (an H100: the kernels build for sm_90a) and the CUDA
 toolkit's ``nvcc``; exits non-zero without them.  Phases, any failure of
 which exits non-zero:
 
-1. print the card's name and power limit; build the five CUDA kernels
-   from the sources in this checkout (one ``nvcc`` each, concurrently);
+1. print the card's name and power limit; build the six CUDA kernel
+   libraries from the sources in this checkout (one ``nvcc`` each,
+   concurrently);
 2. hold each kernel against its plain PyTorch version on the card:
    ``block_fp`` over every dtype it takes with ragged tails and a
    misaligned leaf (fingerprint pairs bit-exact, also against the host
@@ -28,7 +29,12 @@ which exits non-zero:
    inputs (two launches bitwise equal), then at the Mamba2-370m serve
    prefill shape under the two-ulp check, with the plain version rounding
    its decayed scores to bf16 as a control the check must reject, and
-   timed beside its plain version;
+   timed beside its plain version; ``quantize`` and ``dequantize`` (one
+   source) bitwise against their plain versions over n in {1, 255, 256,
+   257, 64*256+3}, f32 and bf16, and blocks of zeros, half-way ties, the
+   clip edge, denormals, an underflowing scale, NaN and Inf (scales only
+   there), then at the main path's shapes (a Yi-9B block's optimizer unit,
+   27 f32 leaves, and its weights unit, 9 bf16 leaves), timed;
 3. the main paths, Yi-9B at full width cut to 2 layers, batch 2, seq 1024,
    through ``repro_torch.launch.train.train``, each with the launch
    counts set to 0 just before it and read just after:
@@ -56,7 +62,9 @@ which exits non-zero:
       synchronously and twice overlapped, with the dirty-block predictor
       pinned at 1 and at 2^20 blocks and every state tensor overwritten in
       place on the compute stream right after ``begin``: all three commit
-      the same manifests and objects;
+      the same manifests and objects; and the chain saved sync and
+      overlapped with ``codec="int8"`` (quantized at ``begin``), which
+      must commit the same manifests and objects, all full;
    d. serving, through ``repro_torch.launch.serve.serve``: (store) on b's
       store before it is removed, a weights-only cold load of step 4 that
       opens no optimizer object, a hot-swap to LATEST bit-identical to a
@@ -75,12 +83,24 @@ which exits non-zero:
       serving on random weights, batch 8, 1024-token prompts, 128 new
       tokens, with exactly 48 ``ssd_scan`` launches in the prefill and one
       decode step matching the prefill of the longer prompt;
+   f. the int8 codec, as 3a (Yi-9B, parity, sync inline saves) with
+      ``codec="int8"``: a run that fails at step 5 and its resume to step
+      8, its losses held against 3a's uninterrupted run (the first resumed
+      step, the restored merge, within INT8_LOSS_BAND; the later ones
+      recorded against it); (a) event 2's block_000 objects equal byte for
+      byte those the CPU path writes from the same unit (replayed to step
+      2) copied to the host; (b) event 2's device->host and written bytes
+      beside 3a's (below 0.35 of them); (c) after a restore every leaf
+      equals ``dequantize_plain`` of its stored record; (d) every entry is
+      a full object (no deltas) and a second re-save of the restored state
+      moves 0 bytes; (f) a weights-only cold load of step 4 and a swap to
+      6, bit-identical to a cold load of 6; quantize and dequantize
+      launched;
 4. print the main paths' step/save/restore times, the serve line, the
-   Mamba line, the kernels line, the card line, and last the ``{"ok":
-   true, "device":
-   ...}`` line; each phase logs its wall time; with
-   ``--record PATH``, the full record of every phase also goes to PATH
-   (written even when a check fails).
+   Mamba line, the int8 line, the kernels line, the card line, and last
+   the ``{"ok": true, "device": ...}`` line; each phase logs its wall
+   time; with ``--record PATH``, the full record of every phase also goes
+   to PATH (written even when a check fails).
 
 The stores live under ``build/`` in this checkout and are removed at the
 end.
@@ -197,6 +217,11 @@ SDPA_SANITY_TOL = 5e-2
 # magnitude.
 SSD_F32_TOL = 1e-4
 SSD_STATE_RTOL = 1e-4
+# Phase 3f: resumed losses of an int8 resume against the uninterrupted run,
+# held to the JAX package's own band for an int8 resume
+# (tests/test_data_and_policies_prop.py,
+# test_int8_checkpoint_resume_trains_on).
+INT8_LOSS_BAND = 0.5
 
 
 def log(msg: str) -> None:
@@ -378,6 +403,182 @@ def fused_adamw_at_main_shapes(torch, dev) -> dict:
             "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "library_ms": None,
             "shape": f"Yi-9B block, {len(master)} leaves, {n} params"}
+
+
+def _quant_special_block(torch, dev, dtype):
+    """Seven 256-element blocks: all zero; half-way ties (amax 127, so
+    scale 1 and x / scale = k + 0.5 exactly); +-amax (the clip edge);
+    f32 denormals; a denormal amax whose quotient underflows (scale 1, as
+    numpy's ``where(scales == 0, 1, scales)``); a NaN; an Inf."""
+    k = torch.arange(256, device=dev, dtype=torch.float32)
+    ties = (k % 64) - 31.5                     # +-0.5 ... +-31.5
+    ties[0], ties[1] = 127.0, -126.5
+    clip = torch.where(k % 2 == 0, 1.0, -1.0) * 3.0
+    clip[5] = -3.0000002
+    denorm = (k - 128) * 1e-41
+    under = torch.zeros(256, device=dev)
+    under[7] = 1e-44
+    nan = torch.ones(256, device=dev)
+    nan[100] = float("nan")
+    inf = torch.ones(256, device=dev)
+    inf[3] = float("-inf")
+    x = torch.cat([torch.zeros(256, device=dev), ties, clip, denorm, under,
+                   nan, inf]).to(dtype)
+    return x, 5          # the first 5 blocks are finite
+
+
+def _scales_equal(torch, a, b) -> bool:
+    """Bitwise equal, NaN where the other is NaN (any NaN payload)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32))
+
+
+def check_quantize_cases(torch, dev) -> None:
+    """quantize and dequantize against their plain versions on the card,
+    bitwise, in one launch each: n in {1, 255, 256, 257, 64*256+3}, f32
+    and bf16, a leaf and a destination that do not start on 16 bytes (the
+    kernels' scalar path), and the special blocks of
+    ``_quant_special_block`` (q of the NaN and Inf blocks is not compared:
+    numpy's int8 cast of NaN is platform-defined); two launches give the
+    same bytes."""
+    from repro_torch.kernels import quantize as qz
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    leaves, finite = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1, 255, 256, 257, 64 * 256 + 3):
+            leaves.append((torch.randn(n, generator=g, device=dev)
+                           * 3).to(dtype))
+            finite.append(qz.n_quant_blocks(n))
+        x, nf = _quant_special_block(torch, dev, dtype)
+        leaves.append(x)
+        finite.append(nf)
+        odd = (torch.randn(3 * 256 + 9, generator=g, device=dev)
+               * 3).to(dtype)
+        leaves.append(odd[1:])              # 4 or 2 bytes past 16
+        finite.append(qz.n_quant_blocks(odd.numel() - 1))
+    unit = qz.quantize_unit(leaves)
+    again = qz.quantize_unit(leaves)
+    torch.cuda.synchronize()
+    if not all(torch.equal(unit.record(i), again.record(i))
+               for i in range(len(leaves))):
+        raise AssertionError("quantize: two launches differ")
+    dsts, recs = [], []
+    for i, (x, nf) in enumerate(zip(leaves, finite)):
+        what = f"quantize {x.dtype} n={x.numel()}"
+        for pq, ps in (qz.quantize_plain(x), qz.quantize_plain(x.cpu())):
+            if not torch.equal(unit.q(i)[:nf].cpu(), pq[:nf].cpu()):
+                raise AssertionError(f"{what}: q differs from the plain "
+                                     "version")
+            if not _scales_equal(torch, unit.scales(i).cpu(), ps.cpu()):
+                raise AssertionError(f"{what}: scales differ from the "
+                                     "plain version")
+        n = min(x.numel(), nf * qz.QUANT_BLOCK)
+        nb = qz.n_quant_blocks(n)
+        for dt in (torch.float32, torch.bfloat16):
+            off = len(dsts) % 2     # every other destination off 16 bytes
+            dsts.append(torch.empty(n + 1, dtype=dt, device=dev)[
+                off:off + n])
+            recs.append((unit.q(i)[:nb], unit.scales(i)[:nb]))
+    qz.dequantize_unit(recs, dsts)
+    torch.cuda.synchronize()
+    for out, (q, s) in zip(dsts, recs):
+        want = qz.dequantize_plain(q, s, out.numel(), out.dtype)
+        if not torch.equal(out.view(torch.uint8), want.view(torch.uint8)):
+            raise AssertionError(f"dequantize {out.dtype} n={out.numel()}: "
+                                 "differs from the plain version")
+    log(f"quantize/dequantize: {len(leaves)} leaves (sizes, f32/bf16, zero,"
+        " ties, clip, denormal, underflow, NaN, Inf, off 16 bytes) bitwise "
+        "equal to the plain versions")
+
+
+def quantize_at_main_shapes(torch, dev) -> list:
+    """quantize of a full-width Yi-9B block's optimizer unit (27 f32
+    leaves) and weights unit (9 bf16 leaves), dequantize of the optimizer
+    unit, each bitwise against its plain version and timed."""
+    from repro_torch.kernels import quantize as qz
+
+    params, master, m, v, grads = yi_block_unit(torch, dev, seed=4)
+    del grads
+    opt = master + m + v
+    rows = []
+    for name, unit in (("opt", opt), ("weights", params)):
+        got = qz.quantize_unit(unit)
+        torch.cuda.synchronize()
+        for i, x in enumerate(unit):
+            pq, ps = qz.quantize_plain(x)
+            if not (torch.equal(got.q(i), pq)
+                    and _scales_equal(torch, got.scales(i), ps)):
+                raise AssertionError(f"quantize differs from the plain "
+                                     f"version at the Yi-9B block {name} "
+                                     "unit")
+        del pq, ps
+        nin = sum(x.numel() * x.element_size() for x in unit)
+        nout = sum(qz.record_nbytes(x.numel()) for x in unit)
+        elems = sum(x.numel() for x in unit)
+        ms = cuda_ms(lambda: qz.quantize_unit(unit), 10, torch)
+        plain_ms = cuda_ms(lambda: [qz.quantize_plain(x) for x in unit], 3,
+                           torch)
+        t_bytes = (nin + nout) / HBM_BYTES_PER_S
+        t_ops = 5 * elems / F32_OPS_PER_S    # abs, max, 2 div, rint+clamp
+        rows.append({"name": "quantize", "unit": name, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops)
+                     * 1e3, "bound_by": ("bytes" if t_bytes >= t_ops
+                                         else "operations"),
+                     "bytes": nin + nout,
+                     "shape": f"Yi-9B block {name} unit, {len(unit)} leaves,"
+                              f" {nin} bytes"})
+        if name == "opt":
+            recs = [(got.q(i), got.scales(i)) for i in range(len(unit))]
+            outs = [torch.empty_like(x) for x in unit]
+            qz.dequantize_unit(recs, outs)
+            torch.cuda.synchronize()
+            for (q, s), o in zip(recs, outs):
+                if not torch.equal(o.view(-1), qz.dequantize_plain(
+                        q, s, o.numel(), o.dtype)):
+                    raise AssertionError("dequantize differs from the plain "
+                                         "version at the Yi-9B opt unit")
+            ms = cuda_ms(lambda: qz.dequantize_unit(recs, outs), 10, torch)
+            plain_ms = cuda_ms(lambda: [qz.dequantize_plain(
+                q, s, o.numel(), o.dtype) for (q, s), o in zip(recs, outs)],
+                3, torch)
+            t_ops = elems / F32_OPS_PER_S
+            rows.append({"name": "dequantize", "unit": name, "ms": ms,
+                         "plain_ms": plain_ms,
+                         "bound_ms": max(t_bytes, t_ops) * 1e3,
+                         "bound_by": ("bytes" if t_bytes >= t_ops
+                                      else "operations"),
+                         "bytes": nin + nout,
+                         "shape": f"Yi-9B block opt unit, {len(unit)} "
+                                  f"leaves, {nin} bytes"})
+            del recs, outs
+        del got
+        torch.cuda.empty_cache()
+    del params, master, m, v, opt
+    torch.cuda.empty_cache()
+    out = []
+    for r in rows:
+        log(f"{r['name']} at the {r['shape']}: {r['ms']:.4f} ms (bound "
+            f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.3f})")
+        if r["unit"] == "weights":
+            continue
+        src = "src/repro_torch/kernels/csrc/quantize.cu"
+        out.append({
+            "name": r["name"], "route": "cuda", "source": src,
+            "replaces": ("src/repro/kernels/quantize/kernel.py:32"
+                         if r["name"] == "quantize" else
+                         "src/repro/kernels/quantize/kernel.py:53"),
+            "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call derives per-block "
+                            "scales from amax and rounds to int8 "
+                            "(quantize_per_channel takes given scales and "
+                            "returns a quantized tensor type)",
+            "shape": r["shape"]})
+    out[0]["weights_unit"] = next(r for r in rows if r["unit"] == "weights")
+    return out
 
 
 def check_block_gather_cases(torch, dev) -> None:
@@ -930,11 +1131,13 @@ def _launch_counts():
     from repro_torch.kernels import block_gather as bg
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_adamw as fadam
+    from repro_torch.kernels import quantize as qz
     from repro_torch.kernels import ssd_scan as ssd
 
     return {"block_fp": bfp.KERNEL, "fused_adamw": fadam.KERNEL,
             "block_gather": bg.KERNEL, "flash_attention": fa.KERNEL,
-            "ssd_scan": ssd.KERNEL}
+            "ssd_scan": ssd.KERNEL, "quantize": qz.QUANTIZE,
+            "dequantize": qz.DEQUANTIZE}
 
 
 def _zero_counts() -> None:
@@ -1170,6 +1373,290 @@ def phase_3b(torch, dev, store: Path, ref: dict, out: dict) -> None:
     out.update(check_store(torch, dev, run, "topk_delta", 4))
 
 
+def _step2_state(torch, dev):
+    """(model, registry, state) of ``train`` after its first two steps in
+    3f's configuration: the same model, schedule, registry, data and seed,
+    so its units fingerprint to event 2's digests."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.data.synthetic import SyntheticTokens
+    from repro_torch.launch import steps
+
+    model = _model()
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=20,
+                       total_steps=REF_STEPS, ckpt_interval=CKPT_INTERVAL,
+                       seed=SEED)
+    registry = LayerRegistry(model, weight_decay=tcfg.weight_decay)
+    step = steps.make_train_step(model, tcfg, registry)
+    data = SyntheticTokens(vocab_size=model.cfg.vocab_size, batch=BATCH,
+                           seq_len=SEQ, seed=SEED)
+    state = steps.init_state(model, SEED, dev)
+    for i in range(2):
+        tokens = torch.from_numpy(data.peek(i)["tokens"]).to(dev)
+        state, m = step(state, {"tokens": tokens})
+        float(m["loss"])
+    return model, registry, state
+
+
+def _check_cpu_path_objects(torch, dev, run: Path, scratch: Path) -> dict:
+    """3f (a): event 2's block_000 objects (weights, opt) equal, byte for
+    byte, those the port's CPU path (plain quantize, plain fingerprints)
+    writes from the same unit copied to the host."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.core.manifest import ManifestStore
+    from repro_torch.core.policies import make_policy
+
+    model, registry, state = _step2_state(torch, dev)
+    event2 = ManifestStore(run).load(2).entries["block_000"]
+    cpu = CheckpointManager(scratch, registry,
+                            make_policy("parity", model.layer_units()),
+                            async_save=False, codec="int8")
+    out = {}
+    for kind in ("weights", "opt"):
+        tree = (registry.extract_unit(state["params"], "block_000")
+                if kind == "weights" else
+                registry.extract_opt_unit(state["opt"], "block_000"))
+        host = _to_cpu(tree)
+        acc = {"d2h_bytes": 0, "blocks_moved": 0, "blocks_total": 0,
+               "fingerprint_seconds": 0.0, "d2h_seconds": 0.0,
+               "write_seconds": 0.0}
+        ref, _ = cpu._save_unit_fp(2, "block_000", kind, host, None, acc)
+        want = event2[kind]
+        if ref.digest != want.digest:
+            raise AssertionError(f"3f (a): the replayed step-2 block_000 "
+                                 f"{kind} is not event 2's content")
+        got = cpu.store.object_path(ref.digest).read_bytes()
+        if got != (run / want.relpath).read_bytes():
+            raise AssertionError(f"3f (a): event 2's block_000 {kind} "
+                                 "object differs from the CPU path's")
+        out[kind] = {"object_bytes": len(got),
+                     "cpu_path_d2h_bytes": acc["d2h_bytes"]}
+        del host
+    cpu.close()
+    shutil.rmtree(scratch, ignore_errors=True)
+    del state
+    _release(torch)
+    log(f"3f (a): event 2's block_000 objects equal the CPU path's: {out}")
+    return out
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    return tree.cpu()
+
+
+def _check_int8_restore(torch, dev, mgr, state, step: int) -> dict:
+    """3f (c): every restored leaf equals ``dequantize_plain`` of its
+    stored record on the card (raw records: their bytes), bitwise."""
+    from repro_torch.checkpoint.serial import flatten_with_paths
+    from repro_torch.checkpoint.workers import Int8Record
+    from repro_torch.dtypes import byte_view
+    from repro_torch.kernels import quantize as qz
+
+    reg = mgr.registry
+    m = mgr.manifests.load(step)
+    n_int8 = n_raw = 0
+    for name in reg.unit_names():
+        for kind in ("weights", "opt"):
+            tree = (reg.extract_unit(state["params"], name)
+                    if kind == "weights" else
+                    reg.extract_opt_unit(state["opt"], name))
+            leaves = dict(flatten_with_paths(tree))
+            items, _ = mgr.store.read_items(m.entries[name][kind].digest)
+            for path, _, _, data in items:
+                x = leaves[path]
+                if isinstance(data, Int8Record):
+                    raw = torch.frombuffer(bytearray(data.data),
+                                           dtype=torch.uint8).to(dev)
+                    want = byte_view(qz.dequantize_plain(
+                        raw[:data.n_q].view(torch.int8),
+                        raw[data.n_q:].view(torch.float32), x.numel(),
+                        x.dtype))
+                    n_int8 += 1
+                else:
+                    want = torch.frombuffer(bytearray(data),
+                                            dtype=torch.uint8).to(dev)
+                    n_raw += 1
+                if not torch.equal(byte_view(x), want):
+                    raise AssertionError(f"3f (c): restored {name}/{kind}/"
+                                         f"{path} is not its stored record "
+                                         "dequantized")
+                del want
+            del items
+    return {"int8_leaves": n_int8, "raw_leaves": n_raw}
+
+
+def _int8_payload_bytes(registry, state) -> int:
+    """What an int8 save of every unit of ``state`` moves device->host (and
+    a restore of it host->device): per unit leaf, its int8 record if the
+    codec quantizes it, else its bytes."""
+    from repro_torch.checkpoint import workers
+    from repro_torch.checkpoint.serial import flatten_with_paths
+    from repro_torch.dtypes import dtype_name
+    from repro_torch.kernels import quantize as qz
+
+    total = 0
+    for name in registry.unit_names():
+        for tree in (registry.extract_unit(state["params"], name),
+                     registry.extract_opt_unit(state["opt"], name)):
+            for _, x in flatten_with_paths(tree):
+                total += (qz.record_nbytes(x.numel())
+                          if workers.int8_eligible(dtype_name(x.dtype),
+                                                   x.shape)
+                          else x.numel() * x.element_size())
+    return total
+
+
+def phase_3f(torch, dev, store: Path, ref: dict, out: dict,
+             lossless: dict) -> None:
+    """The int8 codec on the main path: Yi-9B as 3a (parity, sync saves,
+    inline writes) with ``codec="int8"``, failing at step 5 and resumed
+    from the step-4 merge to step REF_STEPS; the losses are held against
+    3a's uninterrupted run (``ref``).  Checks (a)-(f): see the module
+    doc.  ``lossless`` holds 3a's record (event bytes) and 3d's store
+    reads for comparison.  Fills ``out`` before its checks."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.checkpoint.swap import WeightService
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.core.policies import make_policy
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import SimulatedFailure, train
+
+    run = store / "run"
+    kw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
+              batch=BATCH, seq_len=SEQ, policy_name="parity", seed=SEED,
+              device=str(dev), ckpt_async=False, codec="int8",
+              total_steps=REF_STEPS, ckpt_interval=CKPT_INTERVAL,
+              ckpt_dir=str(run))
+    _release(torch)
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        train(fail_at=FAIL_AT, **kw)
+        raise AssertionError("3f: the int8 run did not fail")
+    except SimulatedFailure as e:
+        failed = e
+    _release(torch)
+    res = train(resume=True, **kw)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    wall = time.perf_counter() - t0
+    events = failed.save_events + res["save_events"]
+    log(f"phase 3f train done in {wall:.1f} s; launches {launches}")
+    a2 = next(e for e in lossless["3a_events"] if e["step"] == 2)
+    ref_loss = dict(ref["losses"])
+    diffs = {s + 1: abs(l - ref_loss[s]) for s, l in res["losses"]}
+    out.update({
+        "config": f"{ARCH} full width, {NUM_LAYERS} layers, batch {BATCH}, "
+                  f"seq {SEQ}, parity, ckpt every {CKPT_INTERVAL}, sync "
+                  "saves, inline writes, codec int8",
+        "launches": launches,
+        "losses_failed_run": failed.losses, "losses_resumed": res["losses"],
+        "loss_diffs_vs_3a_reference": diffs,
+        "loss_band": INT8_LOSS_BAND,
+        "within_band": {s: d <= INT8_LOSS_BAND for s, d in diffs.items()},
+        "save_events": [{k: e.get(k) for k in _EVENT_KEYS} for e in events],
+        "event2_vs_3a": {"int8": {k: events[0][k] for k in (
+            "d2h_bytes", "written_bytes", "seconds")},
+            "lossless_3a": {k: a2[k] for k in (
+                "d2h_bytes", "written_bytes", "seconds")}},
+        "restore_on_resume": res["restore_stats"],
+        "store_bytes_at_end": res["ckpt_bytes"],
+        "peak_device_bytes": res["peak_device_bytes"],
+        "seconds": wall,
+    })
+    log(f"3f losses vs 3a's uninterrupted run: {diffs} (band "
+        f"{INT8_LOSS_BAND}); event 2: {out['event2_vs_3a']}")
+    for _, loss in failed.losses + res["losses"]:
+        if not math.isfinite(loss):
+            raise AssertionError(f"3f: non-finite loss {loss}")
+    if diffs[FAIL_AT] > INT8_LOSS_BAND:
+        raise AssertionError(f"3f: the restored int8 merge's loss is "
+                             f"{diffs[FAIL_AT]} off the reference")
+    _check_launched(launches, ("block_fp", "fused_adamw", "quantize",
+                               "dequantize"), "phase 3f")
+    # (b) only records and raw small leaves crossed device->host
+    if not events[0]["d2h_bytes"] < 0.35 * a2["d2h_bytes"]:
+        raise AssertionError(f"3f (b): event 2 moved {events[0]['d2h_bytes']}"
+                             f" bytes, 3a's {a2['d2h_bytes']}")
+    # (d) no deltas: every entry of every manifest is a full object
+    model = _model()
+    registry = LayerRegistry(model)
+    mgr = CheckpointManager(run, registry,
+                            make_policy("parity", model.layer_units()),
+                            async_save=False, codec="int8")
+    for s in mgr.manifests.all_steps():
+        for u, kinds in mgr.manifests.load(s).entries.items():
+            for k, r in kinds.items():
+                if r.stored != "full" or r.delta_base is not None:
+                    raise AssertionError(f"3f (d): step {s} {u}/{k} is "
+                                         f"{r.stored}")
+    if any(e["delta_chunks"] for e in events):
+        raise AssertionError("3f (d): an int8 event wrote a delta")
+    out["cpu_path_objects"] = _check_cpu_path_objects(
+        torch, dev, run, store / "cpu_path")
+    _release(torch)
+    like = steps.state_specs(model)
+    state = mgr.restore(like, device=dev)
+    out["restore_check"] = dict(mgr.last_restore_stats)
+    # (b) event 2 saved every unit: exactly the records and the raw small
+    # leaves crossed to the host, and the resume moved them back
+    payload = _int8_payload_bytes(registry, state)
+    out["int8_payload_bytes"] = payload
+    if (events[0]["d2h_bytes"] != payload
+            or res["restore_stats"]["h2d_bytes"] != payload):
+        raise AssertionError(f"3f (b): event 2 moved {events[0]['d2h_bytes']}"
+                             f" bytes and the resume "
+                             f"{res['restore_stats']['h2d_bytes']}, the "
+                             f"records hold {payload}")
+    out["restored_vs_records"] = _check_int8_restore(
+        torch, dev, mgr, state, int(state["step"]))
+    names = registry.unit_names()
+    mgr.save(state, step=REF_STEPS + 1, units=names)
+    first = dict(mgr.last_save_stats)
+    mgr.save(state, step=REF_STEPS + 2, units=names)
+    again = dict(mgr.last_save_stats)
+    out["resave"] = {"first": {k: first[k] for k in (
+        "d2h_bytes", "written_bytes", "dedup_hits")},
+        "unchanged": {k: again[k] for k in (
+            "d2h_bytes", "written_bytes", "dedup_hits")}}
+    if again["d2h_bytes"] != 0 or again["written_bytes"] != 0:
+        raise AssertionError(f"3f (d): unchanged re-save moved bytes: "
+                             f"{out['resave']}")
+    del state
+    _release(torch)
+    # (f) serving from the int8 store
+    svc = WeightService(mgr, like, device=dev, step=4)
+    cold4 = dict(svc.restore_stats)
+    swap6 = svc.swap(mgr.manifests.load(6))
+    cold6 = mgr.restore({"params": like["params"]}, device=dev,
+                        parts=("params",), step=6)
+    exact = _params_equal(torch, svc.current(), cold6["params"])
+    lossless_store = lossless.get("3d_store") or {}
+    out["serve"] = {
+        "cold_load_step4": {k: cold4[k] for k in ("seconds", "bytes_read",
+                                                  "h2d_bytes")},
+        "swap_4_to_6": {k: swap6[k] for k in (
+            "seconds", "bytes_read", "h2d_bytes", "units_swapped",
+            "units_skipped", "units_full", "units_scattered")},
+        "cold_load_step6": {k: mgr.last_restore_stats[k]
+                            for k in ("seconds", "bytes_read", "h2d_bytes")},
+        "lossless_3d_cold_load_step4": {
+            k: lossless_store.get("cold_load_step4", {}).get(k)
+            for k in ("seconds", "bytes_read", "h2d_bytes")}}
+    del svc, cold6
+    mgr.close()
+    log(f"3f serve: {out['serve']}")
+    if not exact:
+        raise AssertionError("3f (f): the swap 4 -> 6 is not a cold load "
+                             "of 6")
+    if swap6["units_full"] != swap6["units_swapped"]:
+        raise AssertionError(f"3f (f): int8 units must be read whole: "
+                             f"{swap6}")
+    out["seconds_with_checks"] = time.perf_counter() - t0
+
+
 def phase_3e_train(torch, dev, store: Path, out: dict) -> None:
     """Mamba2-370m at full width and depth (48 layers), batch SSM_BATCH x
     SSM_SEQ: an uninterrupted reference run of SSM_STEPS steps without
@@ -1361,10 +1848,10 @@ def phase_3c(torch, dev, store: Path) -> dict:
         def predict(self, name, kind, path, n_blocks, drift):
             return min(max(1, self.n), n_blocks)
 
-    def mgr_at(root):
+    def mgr_at(root, codec="none"):
         return CheckpointManager(root, registry,
                                  make_policy("full", model.layer_units()),
-                                 fp_block_bytes=bb)
+                                 fp_block_bytes=bb, codec=codec)
 
     def signature(mgr):
         sig = {}
@@ -1375,14 +1862,20 @@ def phase_3c(torch, dev, store: Path) -> dict:
                          for k, e in kinds.items()}
         return sig, sorted(mgr.store.iter_digests())
 
-    mgr = mgr_at(store / "sync")
-    for step, si in events:
-        mgr.save(states[si], step=step)
-    want = signature(mgr)
-    mgr.close()
+    def sync_chain(root, codec):
+        mgr = mgr_at(root, codec)
+        for step, si in events:
+            mgr.save(states[si], step=step)
+        sig = signature(mgr)
+        mgr.close()
+        return sig
+
+    want = sync_chain(store / "sync", "none")
+    want_int8 = sync_chain(store / "sync-int8", "int8")
     out = {}
-    for guess in (1, 1 << 20):
-        mgr = mgr_at(store / f"ov-{guess}")
+    for guess, codec in ((1, "none"), (1 << 20, "none"), (1, "int8")):
+        tag = f"{guess}" if codec == "none" else f"{guess}_int8"
+        mgr = mgr_at(store / f"ov-{tag}", codec)
         ov = OverlappedSaver(mgr, spread_steps=SPREAD)
         ov.predictor = Fixed(guess)
         overflows = 0
@@ -1400,16 +1893,22 @@ def phase_3c(torch, dev, store: Path) -> dict:
         got = signature(mgr)
         ov.close()
         mgr.close()
-        if got != want:
+        if got != (want if codec == "none" else want_int8):
             raise AssertionError(f"phase 3c: overlapped saves (predictor "
-                                 f"{guess}) differ from the sync saves")
-        if (overflows > 0) != (guess == 1):
+                                 f"{guess}, codec {codec}) differ from the "
+                                 "sync saves")
+        if (overflows > 0) != (guess == 1 and codec == "none"):
             raise AssertionError(f"phase 3c: predictor {guess} gave "
                                  f"{overflows} overflow re-dispatches")
-        out[f"predictor_{guess}"] = {"overflow_redispatches": overflows}
+        out[f"predictor_{tag}"] = {"overflow_redispatches": overflows}
+    stored = {e[1] for m in want_int8[0].values() for e in m.values()}
+    if stored != {"full"}:
+        raise AssertionError(f"phase 3c: the int8 chain stored {stored}")
     torch.cuda.synchronize()
-    log(f"phase 3c: sync and overlapped chains identical ({out})")
-    return {"events": len(events), "objects": len(want[1]), **out}
+    log(f"phase 3c: sync and overlapped chains identical, codec none and "
+        f"int8 ({out})")
+    return {"events": len(events), "objects": len(want[1]),
+            "objects_int8": len(want_int8[1]), **out}
 
 
 def _release(torch) -> None:
@@ -1860,6 +2359,8 @@ def report(record: dict, path) -> None:
             k["launches"] = mp_d["serve"]["launches"][k["name"]]
         elif k["name"] == "ssd_scan":          # the Mamba serving path
             k["launches"] = mp_e["serve"]["launches"][k["name"]]
+        elif k["name"] in ("quantize", "dequantize"):  # the int8 path
+            k["launches"] = mp["3f"]["launches"][k["name"]]
         else:                                  # the training paths
             k["launches"] = mp_b["launches"][k["name"]]
             k["launches_sync_path"] = mp_a["launches"][k["name"]]
@@ -1931,6 +2432,21 @@ def report(record: dict, path) -> None:
             "peak_device_bytes", "launches", "decode_vs_prefill",
             "decode_vs_prefill_float32", "prefill_vs_plain_scan",
             "decode_profile")}}}))
+    mp_f = mp["3f"]
+    for e in mp_f["save_events"]:
+        log(f"3f event {e['step']}: {e['seconds']:.3f} s, d2h "
+            f"{e['d2h_bytes']}, written {e['written_bytes']}, full "
+            f"{e['full_chunks']}, dedup {e['dedup_hits']}")
+    print(json.dumps({"int8": {k: mp_f[k] for k in (
+        "config", "loss_diffs_vs_3a_reference", "within_band",
+        "event2_vs_3a", "launches", "peak_device_bytes",
+        "store_bytes_at_end", "cpu_path_objects", "restored_vs_records",
+        "resave", "serve")}
+        | {"restore_seconds": mp_f["restore_on_resume"]["seconds"],
+           "restore_bytes": mp_f["restore_on_resume"]["bytes_read"],
+           "restore_h2d_bytes": mp_f["restore_on_resume"]["h2d_bytes"],
+           "event_seconds": {e["step"]: e["seconds"]
+                             for e in mp_f["save_events"]}}}))
     print(json.dumps({"kernels": kernels}))
 
 
@@ -1953,7 +2469,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t = t_start = time.perf_counter()
     BUILDER.build(["block_fp", "fused_adamw", "block_gather",
-                   "flash_attention", "ssd_scan"])
+                   "flash_attention", "ssd_scan", "quantize"])
     for name, text in BUILDER.logs.items():
         log(f"--- nvcc {name}.cu ---\n{text.strip()}")
     log(f"kernels built in {time.perf_counter() - t:.1f} s")
@@ -1968,6 +2484,8 @@ def main() -> int:
     kernels.append(flash_attention_at_main_shapes(torch, dev, flash_err))
     ssd_err = check_ssd_scan_cases(torch, dev)
     kernels.append(ssd_scan_at_main_shape(torch, dev, ssd_err))
+    check_quantize_cases(torch, dev)
+    kernels.extend(quantize_at_main_shapes(torch, dev))
     log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     store = ROOT / "build" / "chip_smoke_store"
@@ -1981,7 +2499,8 @@ def main() -> int:
     record = {"card": card, "kernels": kernels,
               "main_path": {"3a": {}, "3b": {}, "3c": {},
                             "3d": {"serve": {}, "store": {}},
-                            "3e": {"train": {}, "store": {}, "serve": {}}}}
+                            "3e": {"train": {}, "store": {}, "serve": {}},
+                            "3f": {}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
@@ -1997,6 +2516,11 @@ def main() -> int:
                        mp["3d"]["store"])
         log(f"phase 3d (store) done at {time.perf_counter() - t_start:.1f} s")
         shutil.rmtree(store / "3b", ignore_errors=True)
+        phase_3f(torch, dev, store / "3f", ref, mp["3f"],
+                 {"3a_events": mp["3a"]["save_events"],
+                  "3d_store": mp["3d"]["store"]})
+        shutil.rmtree(store / "3f", ignore_errors=True)
+        log(f"phase 3f done at {time.perf_counter() - t_start:.1f} s")
         mp["3c"].update(phase_3c(torch, dev, store / "3c"))
         log(f"phase 3c done at {time.perf_counter() - t_start:.1f} s")
         phase_3d_serve(torch, dev, mp["3d"]["serve"])

@@ -12,6 +12,13 @@ An object is a msgpack envelope.  Objects written by ``write_fp`` are
 addressed by the blake2b of their fingerprint table (carried in the
 envelope under ``"fp"``) and hold either a ``full`` chunk payload or a
 ``block_delta`` (BD02) of the dirty blocks against a full base object.
+The store's codec (``none`` or ``int8``) is the envelope's ``codec``; an
+int8 store's full objects hold int8 records for the leaves the saver
+quantized.  Such objects are lossy: they never anchor a delta, and since
+they decode to other tensors than their table describes (the table is of
+the content before quantization, which is what dedup compares), a read
+returns no table for them and the reader checks them by crc32 alone.
+Canonically addressed objects (no table) are read with codec none only.
 Lifetimes are refcounted from the committed manifests; ``gc_objects``
 deletes objects no manifest references.
 
@@ -75,7 +82,9 @@ class ReadSession:
 
     Envelopes and decoded trees are memoized per digest, so a digest two
     units share, or a full base that several block deltas patch, is read
-    off the disk once.  ``stats`` counts the real object I/O:
+    off the disk once.  A tree's leaves are host tensors, or the
+    ``Int8Record`` of an int8-coded leaf (dequantized only where it is
+    placed).  ``stats`` counts the real object I/O:
     ``object_reads`` envelope reads and ``bytes_read`` object-file bytes.
     The crc32 of every record and the table's hash to the address are
     checked on read; the fingerprint table itself is returned with the tree
@@ -106,19 +115,21 @@ class ReadSession:
             return hit
         items, fp_blob = self.store.read_items(digest,
                                                envelope=self.envelope)
-        tree = unflatten_from_paths({name: from_bytes(raw, shape, dtype)
-                                     for name, shape, dtype, raw in items})
+        tree = unflatten_from_paths({
+            name: (raw if isinstance(raw, workers.Int8Record)
+                   else from_bytes(raw, shape, dtype))
+            for name, shape, dtype, raw in items})
         self._trees[digest] = (tree, fp_blob)
         return tree, fp_blob
 
 
 class ChunkStore:
-    """The store under ``root`` (the ``local`` backend, codec none)."""
+    """The store under ``root`` (the ``local`` backend); ``codec`` is
+    ``none``/``auto`` or ``int8`` (see ``workers.resolve_codec``)."""
 
-    codec = "none"
-
-    def __init__(self, root: Path | str):
+    def __init__(self, root: Path | str, *, codec: str = "none"):
         self.root = Path(root)
+        self.codec = workers.resolve_codec(codec)
         self.backend = LocalFSBackend(self.root / "objects")
         self._lock = threading.RLock()
         self._refcounts: Counter = Counter()
@@ -259,8 +270,7 @@ class ChunkStore:
         t0 = time.perf_counter()
         table = fputil.unpack_table(packet.table)
         if packet.full:
-            items = [(l.path, tuple(l.shape), l.dtype,
-                      memoryview(l.data).cast("B")[:l.nbytes])
+            items = [(l.path, tuple(l.shape), l.dtype, self._record(l))
                      for l in packet.leaves]
             env = {"v": OBJECT_VERSION, "format": "full",
                    "codec": self.codec, "base": None,
@@ -299,6 +309,19 @@ class ChunkStore:
                         digest=digest, stored="delta",
                         delta_base=packet.base_digest)
 
+    def _record(self, leaf: fputil.LeafPayload):
+        """A full write's record data: the raw bytes, or an int8 record
+        when the saver quantized the leaf (int8 stores only)."""
+        mv = memoryview(leaf.data).cast("B")
+        if leaf.quant is None:
+            return mv[:leaf.nbytes]
+        if self.codec != "int8":
+            raise ValueError(f"leaf {leaf.path!r} arrived quantized for a "
+                             f"store with codec {self.codec!r}")
+        n_q, n_scale = leaf.quant
+        return workers.Int8Record(mv[:n_q + 4 * n_scale], n_q, n_scale,
+                                  tuple(leaf.shape), leaf.dtype)
+
     def load_fp_table(self, digest: str) -> Optional[list]:
         """The fingerprint table of an fp-addressed object (None for a
         missing, unreadable or canonical-digest object); cached."""
@@ -331,7 +354,10 @@ class ChunkStore:
         resolved and verified: per-record crc32, and the table must hash to
         the digest (fp objects) or the payload must (canonical objects).
         Recomputing the table from the tensors is the caller's half of the
-        check: the restore does it on the device after placement.
+        check: the restore does it on the device after placement.  The
+        blob is None where there is no such half: canonical objects, and
+        lossy (int8) full objects, whose table describes the tensors before
+        quantization; their int8 records come as ``Int8Record`` items.
         ``envelope(digest)`` replaces the envelope reads (a ``ReadSession``
         routes them through its memo)."""
         if envelope is None:
@@ -362,6 +388,8 @@ class ChunkStore:
                 else:
                     raise ChunkCorruption(f"unknown object format {fmt!r}")
                 self._add_seconds("decode", time.perf_counter() - t0)
+                if env.get("codec") in workers.LOSSY_CODECS:
+                    return items, None
                 return items, fp_blob
             if fmt == "full" and env.get("codec") == "none":
                 payload = env["payload"]

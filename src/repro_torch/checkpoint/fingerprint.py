@@ -7,7 +7,8 @@
   no payload transfer and no payload hashing.
 - **FingerprintPacket**: what the saver hands the chunk store — per-leaf
   dirty block indices and gathered block bytes (delta path) or the full raw
-  bytes (full path), plus the table blob.
+  bytes, or under codec int8 a leaf's quantized record (full path), plus
+  the table blob, which always describes the raw leaves.
 
 The digest hashes only integer checksums and leaf metadata, never float
 reductions, so device-side and host-side derivations agree bit for bit.
@@ -15,7 +16,7 @@ reductions, so device-side and host-side derivations agree bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -82,7 +83,9 @@ def meta_table(tree, block_bytes: int = DEFAULT_BLOCK_BYTES
 class LeafPayload:
     """One leaf's share of a write: the full raw bytes (``idx is None``) or
     the gathered dirty blocks (whole blocks, ``idx`` listing them).
-    ``data`` is a buffer (often a view into a pinned staging buffer)."""
+    ``data`` is a buffer (often a view into a pinned staging buffer).
+    ``quant = (n_q, n_scale)`` says that ``data`` is the leaf's int8
+    record instead (q, then scales; full writes only)."""
     path: str
     shape: tuple
     dtype: str
@@ -90,6 +93,7 @@ class LeafPayload:
     block_bytes: int
     idx: Optional[np.ndarray]
     data: Any
+    quant: Optional[Tuple[int, int]] = None
 
 
 @dataclasses.dataclass

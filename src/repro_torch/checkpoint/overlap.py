@@ -12,7 +12,9 @@ the next ``spread_steps`` steps:
     (fingerprint + compare with the delta base + dirty-block compaction in
     one pass; the buffer's capacity comes from the advisory
     :class:`DirtyPredictor`) or, without a usable delta base, the
-    ``block_fp`` kernel and ``clone()`` s of the full leaves, and it makes
+    ``block_fp`` kernel and ``clone()`` s of the full leaves (under codec
+    int8, the ``quantize`` kernel's records of the eligible leaves, which
+    are new buffers already, and clones of the rest), and it makes
     the exact dedup/delta decisions the sync path makes.  Every one of
     those device reads is enqueued on the compute stream, so stream order
     makes it read the pre-step values even though the next optimizer step
@@ -67,11 +69,10 @@ from repro_torch.checkpoint import fingerprint as fputil
 from repro_torch.checkpoint.async_io import (PendingResult, StagingArena,
                                              StagingSlot)
 from repro_torch.checkpoint.saver import (MAX_DIRTY_FRAC, CheckpointManager,
-                                          _usable_prev)
+                                          _usable_prev, full_sources)
 from repro_torch.checkpoint.serial import flatten_with_paths
 from repro_torch.core.manifest import Manifest
 from repro_torch.core.policies import PolicyContext
-from repro_torch.dtypes import byte_view
 from repro_torch.kernels import block_fp as bfp
 from repro_torch.kernels import block_gather as bgather
 from repro_torch.kernels.block_fp.ref import LeafFP
@@ -114,6 +115,7 @@ class _StagedLeaf:
     idx: Optional[np.ndarray] = None   # delta: dirty indices (host, exact)
     count: int = 0                  # delta: dirty blocks staged
     host: Optional[torch.Tensor] = None  # its region of the staging slot
+    quant: Optional[Tuple[int, int]] = None  # full int8: (n_q, n_scale)
 
 
 @dataclasses.dataclass
@@ -343,10 +345,14 @@ class OverlappedSaver:
             # a first-sight leaf's buffer is as large as the leaf.
             results = None
             # Fresh buffers on the compute stream: the live tensors are
-            # overwritten in place by the next step, the copies are not.
-            copies = [byte_view(a.clone()) for a in arrs]
-            for m, dev in zip(metas, copies):
-                leaves.append(_StagedLeaf(meta=m, mode="full", dev=dev))
+            # overwritten in place by the next step, the copies (or int8
+            # records) are not.
+            copies, recs = full_sources(
+                [(m.path, a) for m, a in zip(metas, arrs)], mgr.store.codec,
+                clone=True)
+            for m, dev, rec in zip(metas, copies, recs):
+                leaves.append(_StagedLeaf(meta=m, mode="full", dev=dev,
+                                          quant=rec))
             for m in metas:
                 self.predictor.observe(name, kind, m.path, m.n_blocks)
         ev.queue.append(_StagedUnit(
@@ -450,7 +456,7 @@ class OverlappedSaver:
                     path=m.path, shape=m.shape, dtype=m.dtype,
                     nbytes=m.nbytes, block_bytes=m.block_bytes,
                     idx=leaf.idx if leaf.mode == "delta" else None,
-                    data=data))
+                    data=data, quant=leaf.quant))
                 leaf.dev = None  # the device buffer is no longer needed
             ev.staged_bytes += sum(l.host.numel() for l in unit.leaves
                                    if l.host is not None)

@@ -10,8 +10,12 @@ the target is a CUDA device), decoded, crc32-checked per tensor record,
 copied into the unit's slice of the state, and then verified by
 fingerprinting the placed tensors on the device (the ``block_fp`` kernel)
 and comparing the packed table with the one stored in the object, whose
-blake2 is the object's address.  A candidate that fails falls through to
-the next one; a unit with no good candidate raises ``RestoreError``.
+blake2 is the object's address.  An int8 record crosses to the device as
+it is stored (q and scales) and the ``dequantize`` kernel writes the
+destination leaf; a lossy object is checked by its crc32s alone (its table
+describes the tensors before quantization), as in the JAX package.  A
+candidate that fails falls through to the next one; a unit with no good
+candidate raises ``RestoreError``.
 """
 from __future__ import annotations
 
@@ -19,17 +23,19 @@ import logging
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import fingerprint as fputil
 from repro_torch.checkpoint.chunk_store import ChunkRef, ChunkStore
 from repro_torch.checkpoint.serial import (ChunkCorruption,
-                                           flatten_with_paths,
-                                           unflatten_from_paths)
+                                           flatten_with_paths)
+from repro_torch.checkpoint.workers import Int8Record
 from repro_torch.core.layer_registry import OPT_KINDS, LayerRegistry
 from repro_torch.core.manifest import Manifest, ManifestStore
 from repro_torch.dtypes import dtype_name, from_bytes
 from repro_torch.kernels import block_fp as bfp
+from repro_torch.kernels import quantize as qz
 from repro_torch.optim.groups import tree_map
 
 log = logging.getLogger("repro_torch.checkpoint.restore")
@@ -98,6 +104,43 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
     return manifest.step, targets
 
 
+def place_leaves(dsts: Sequence[Tuple[torch.Tensor, Any]]) -> int:
+    """Write each ``(leaf, value)``'s value into the leaf in place: a host
+    tensor by one copy; an ``Int8Record`` by copying its q and scales to
+    the leaf's device (into one buffer, each record on 16 bytes) and one
+    ``dequantize`` launch for all of them.  Returns the bytes moved to the
+    leaves' device."""
+    moved = 0
+    quant = []
+    with torch.no_grad():
+        for dst, value in dsts:
+            if isinstance(value, Int8Record):
+                quant.append((dst, value))
+                continue
+            dst.copy_(value)
+            moved += value.numel() * value.element_size()
+        if not quant:
+            return moved
+        offs, total = [], 0
+        for _, rec in quant:
+            offs.append(total)
+            total += -(-rec.nbytes // 16) * 16
+        dev = quant[0][0].device
+        buf = torch.empty(total, dtype=torch.uint8, device=dev)
+        for off, (_, rec) in zip(offs, quant):
+            src = np.frombuffer(rec.data, np.uint8)
+            buf[off:off + rec.nbytes].copy_(torch.from_numpy(
+                src if src.flags.writeable else src.copy()))
+            moved += rec.nbytes
+        records = []
+        for off, (_, rec) in zip(offs, quant):
+            q = buf[off:off + rec.n_q].view(torch.int8)
+            s = buf[off + rec.n_q:off + rec.nbytes].view(torch.float32)
+            records.append((q, s))
+        qz.dequantize_unit(records, [dst for dst, _ in quant])
+    return moved
+
+
 def verify_placed(tree: PyTree, fp_blob: bytes, digest: str) -> None:
     """Fingerprint the tensors of a placed unit where they lie (the
     ``block_fp`` kernel on the card) and compare the packed table with the
@@ -135,19 +178,17 @@ class RestoreEngine:
             raise ChunkCorruption(f"object {digest} holds leaves "
                                   f"{sorted(n for n, *_ in items)}, the unit "
                                   f"wants {sorted(want)}")
-        host = {}
+        pairs = []
         for path, shape, dtype, raw in items:
             t = want[path]
             if tuple(shape) != tuple(t.shape) or dtype != dtype_name(t.dtype):
                 raise RestoreError(
                     f"{name}/{path}: object holds {dtype}{list(shape)}, the "
                     f"state wants {dtype_name(t.dtype)}{list(t.shape)}")
-            host[path] = from_bytes(raw, shape, dtype)
-        host = unflatten_from_paths(host)
-        if kind == "weights":
-            self.registry.insert_unit(state["params"], name, host)
-        else:
-            self.registry.insert_opt_unit(state["opt"], name, host)
+            pairs.append((t, raw if isinstance(raw, Int8Record)
+                          else from_bytes(raw, shape, dtype)))
+        # ``want`` holds the unit's own tensors (views into the state)
+        moved = place_leaves(pairs)
         t2 = time.perf_counter()
         if fp_blob is not None:
             verify_placed(dst, fp_blob, digest)
@@ -155,7 +196,7 @@ class RestoreEngine:
         timings["read_seconds"] += t1 - t0
         timings["h2d_seconds"] += t2 - t1
         timings["verify_seconds"] += t3 - t2
-        return sum(t.numel() * t.element_size() for t in want.values())
+        return moved
 
     def restore(self, state_like: Dict[str, PyTree], *,
                 device: torch.device, step: Optional[int] = None,

@@ -11,7 +11,11 @@ Save path, per event:
        device->host and nothing hashed or written,
      - changed: only the dirty blocks are gathered and copied to the host
        (all of the unit's bytes when there is no usable base or too many
-       blocks changed), in one batched copy into pinned memory,
+       blocks changed), in one batched copy into pinned memory; with
+       ``codec="int8"`` every unit is written whole and its float leaves
+       of at least 256 elements are quantized on the device first (the
+       ``quantize`` kernel, one launch per unit), so only their int8 values
+       and scales cross to the host,
   3. the chunk store writes a block-sparse delta or a full object: on the
      async writer's threads (``async_save=True``, the default), while the
      training thread fingerprints and gathers the next unit, or inline
@@ -42,7 +46,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.checkpoint import faults
+from repro_torch.checkpoint import faults, workers
 from repro_torch.checkpoint import fingerprint as fputil
 from repro_torch.checkpoint.async_io import (AsyncWriter, PendingResult,
                                              TransferPool)
@@ -53,8 +57,9 @@ from repro_torch.checkpoint.serial import flatten_with_paths
 from repro_torch.core.layer_registry import LayerRegistry
 from repro_torch.core.manifest import Manifest, ManifestStore
 from repro_torch.core.policies import CheckpointPolicy, PolicyContext
-from repro_torch.dtypes import byte_view
+from repro_torch.dtypes import byte_view, dtype_name
 from repro_torch.kernels import block_fp as bfp
+from repro_torch.kernels import quantize as qz
 
 log = logging.getLogger("repro_torch.checkpoint")
 
@@ -106,15 +111,42 @@ def stage_to_host(srcs: Sequence[torch.Tensor]) -> List[memoryview]:
     return out
 
 
+def full_sources(flat: Sequence[Tuple[str, torch.Tensor]], codec: str, *,
+                 clone: bool) -> Tuple[List[torch.Tensor],
+                                       List[Optional[Tuple[int, int]]]]:
+    """A unit's full write on its device: one flat uint8 buffer per leaf,
+    in leaf order, and each leaf's ``(n_q, n_scale)`` where the buffer is
+    its int8 record.  Under codec int8 the eligible leaves are quantized in
+    one launch into new buffers; the other buffers are the leaves' bytes,
+    cloned first when ``clone`` (the caller lets the live tensors change
+    before it copies them)."""
+    quant = ([workers.int8_eligible(dtype_name(a.dtype), a.shape)
+              for _, a in flat] if codec == "int8" else [False] * len(flat))
+    picked = [a.detach() for (_, a), q in zip(flat, quant) if q]
+    unit = qz.quantize_unit(picked) if picked else None
+    srcs, recs, j = [], [], 0
+    for (_, a), q in zip(flat, quant):
+        if q:
+            srcs.append(unit.record(j))
+            recs.append((unit.n_blocks(j) * qz.QUANT_BLOCK,
+                         unit.n_blocks(j)))
+            j += 1
+        else:
+            srcs.append(byte_view(a.clone() if clone else a.detach()))
+            recs.append(None)
+    return srcs, recs
+
+
 class CheckpointManager:
     def __init__(self, root: Path | str, registry: LayerRegistry,
                  policy: CheckpointPolicy, *, keep: int = 8,
                  fp_block_bytes: int = fputil.DEFAULT_BLOCK_BYTES,
-                 async_save: bool = True, writer_threads: int = 2):
+                 async_save: bool = True, writer_threads: int = 2,
+                 codec: str = "auto"):
         self.root = Path(root)
         self.registry = registry
         self.policy = policy
-        self.store = ChunkStore(self.root)
+        self.store = ChunkStore(self.root, codec=codec)
         self.manifests = ManifestStore(self.root)
         self.keep = keep
         self.restorer = RestoreEngine(self.store, self.manifests, registry)
@@ -383,13 +415,15 @@ class CheckpointManager:
                 digest=digest, table=tblob, leaves=leaves, full=False,
                 base_digest=base_digest, logical_bytes=logical)
         else:
-            staged = stage_to_host([byte_view(arr.detach())
-                                    for _, arr in flat])
-            for (path, _), leaf, data in zip(flat, host, staged):
+            srcs, recs = full_sources(flat, self.store.codec, clone=False)
+            staged = stage_to_host(srcs)
+            del srcs
+            for (path, _), leaf, data, rec in zip(flat, host, staged, recs):
                 acc["d2h_bytes"] += len(data)
                 leaves.append(fputil.LeafPayload(
                     path=path, shape=leaf.shape, dtype=leaf.dtype,
-                    nbytes=leaf.nbytes, block_bytes=bb, idx=None, data=data))
+                    nbytes=leaf.nbytes, block_bytes=bb, idx=None, data=data,
+                    quant=rec))
             acc["blocks_moved"] += nb_total
             packet = fputil.FingerprintPacket(
                 digest=digest, table=tblob, leaves=leaves, full=True,
@@ -409,8 +443,11 @@ class CheckpointManager:
                     metas) -> Tuple[Optional[str], Optional[list]]:
         """A structurally usable delta base for (unit, kind), or
         ``(None, None)``: the previous entry must be digest-addressed, the
-        rebase bound unspent, and the base's table meta-comparable."""
+        store codec lossless (a block delta patches exact bytes onto its
+        base, which a lossy base cannot provide), the rebase bound unspent,
+        and the base's table meta-comparable."""
         if not (pref is not None and pref.digest
+                and self.store.codec not in workers.LOSSY_CODECS
                 and self.store.delta_run(name, kind) < REBASE_EVERY):
             return None, None
         base_digest = (pref.digest if pref.stored == "full"

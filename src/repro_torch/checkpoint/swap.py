@@ -11,7 +11,10 @@ moved:
   BD02 object (never its base: the device holds those bytes) and scatter
   its dirty blocks onto the unit's tensors;
 - **anything else** (a full object, a delta against another base):
-  a verified read of the unit through the session, copied in whole.
+  a verified read of the unit through the session, copied in whole; an
+  int8 leaf crosses as its q and scales and is dequantized on the device
+  (``restore.place_leaves``, the cold load's route, so a swap stays
+  bit-identical to a cold load), and a lossy object is checked by crc32.
 
 Atomic publish with copy-on-write.  The JAX service stages every change in
 a functional copy of the tree.  Here the served tensors are never written:
@@ -54,7 +57,7 @@ import torch
 
 from repro_torch.checkpoint import faults, workers
 from repro_torch.checkpoint.chunk_store import ReadSession
-from repro_torch.checkpoint.restore import verify_placed
+from repro_torch.checkpoint.restore import place_leaves, verify_placed
 from repro_torch.checkpoint.serial import flatten_with_paths
 from repro_torch.core.manifest import Manifest
 from repro_torch.devices import resolve_device
@@ -342,14 +345,12 @@ class WeightService:
         if set(got) != {p for p, _ in want}:
             raise SwapError(f"object {digest} holds leaves {sorted(got)}, "
                             f"unit {unit!r} has {[p for p, _ in want]}")
-        with torch.no_grad():
-            for path, t in want:
-                src = got[path]
-                if tuple(src.shape) != tuple(t.shape):
-                    raise SwapError(f"{unit}/{path}: object holds "
-                                    f"{list(src.shape)}, the unit "
-                                    f"{list(t.shape)}")
-                t.copy_(src)
-                stats["h2d_bytes"] += src.numel() * src.element_size()
+        for path, t in want:
+            if tuple(got[path].shape) != tuple(t.shape):
+                raise SwapError(f"{unit}/{path}: object holds "
+                                f"{list(got[path].shape)}, the unit "
+                                f"{list(t.shape)}")
+        stats["h2d_bytes"] += place_leaves([(t, got[path])
+                                            for path, t in want])
         if fp_blob is not None:
             verify_placed(dst, fp_blob, digest)

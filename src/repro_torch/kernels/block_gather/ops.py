@@ -14,6 +14,11 @@ predictor) and rounded up to a power of two by :func:`round_capacity`;
 the returned ``count`` is authoritative: ``count > capacity`` means the
 prediction was short, the first ``capacity`` dirty blocks are still exact,
 and the caller gathers again with a larger buffer.
+
+``quantize_int8=True`` adds the int8 codec's quantization of each leaf's
+gathered buffer (cast to float32, 256-element blocks): ``q`` and
+``scales``, from the ``quantize`` kernel (one more launch per unit) or its
+plain version, as the JAX package's composition returns them.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from repro_torch.kernels.block_fp.ops import (_DTYPE_CODES, _check_block_bytes,
                                               _fp_bits, fingerprint_plain,
                                               n_blocks_of)
 from repro_torch.kernels.block_fp.ref import DEFAULT_BLOCK_BYTES
+from repro_torch.kernels.quantize import quantize_unit
 
 MAX_LEAVES = 32  # GB_MAX_LEAVES in csrc/block_gather.cu
 
@@ -58,6 +64,8 @@ class GatherResult:
     idx: torch.Tensor     # (capacity,) int32, dirty indices ascending, -1
     blocks: torch.Tensor  # (capacity, block elems) leaf dtype (bool: uint8)
     count: torch.Tensor   # () int32 — TOTAL dirty blocks (may exceed cap)
+    q: Optional[torch.Tensor] = None       # quantize_int8: (nq, 256) int8
+    scales: Optional[torch.Tensor] = None  # quantize_int8: (nq, 1) float32
 
     @property
     def capacity(self) -> int:
@@ -185,11 +193,19 @@ def gather_tree_dirty(arrs: Sequence[torch.Tensor], ref_fps: Sequence[Any],
     path order when called from the saver).  ``ref_fps[i]`` is the leaf's
     reference table (host uint32 or device int32 bits; None for "every
     block dirty").  CUDA tensors: one kernel launch (per 32 leaves); CPU
-    tensors: the plain version."""
+    tensors: the plain version.  ``quantize_int8`` also fills each
+    result's ``q`` and ``scales`` (see the module doc)."""
+    results = _gather_tree(arrs, ref_fps, capacities, block_bytes)
     if quantize_int8:
-        raise NotImplementedError(
-            "the int8 composition of block_gather comes with the port's "
-            "quantize kernel; it is not ported yet")
+        unit = quantize_unit([r.blocks for r in results])
+        for i, r in enumerate(results):
+            r.q, r.scales = unit.q(i), unit.scales(i)
+    return results
+
+
+def _gather_tree(arrs: Sequence[torch.Tensor], ref_fps: Sequence[Any],
+                 capacities: Sequence[int],
+                 block_bytes: int) -> List[GatherResult]:
     if not (len(arrs) == len(ref_fps) == len(capacities)) or not arrs:
         raise ValueError("gather_tree_dirty needs one ref table and one "
                          "capacity per tensor, and at least one tensor")

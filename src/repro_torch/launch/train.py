@@ -7,9 +7,14 @@ checkpointing and Frankenstein resume, on the card by default.
         [--fail-at 7 | --fail-at 7@spread_slice] [--resume]
 
 - selective checkpoints every ``ckpt_interval`` steps (policy-driven, on
-  the fingerprint path, local store, codec none); the object writes run on
+  the fingerprint path, local store); the object writes run on
   ``--writer-threads`` writer threads unless ``--sync-save`` asks for
   inline writes;
+- ``--codec int8`` (``auto`` and ``none`` store raw bytes) composes
+  selectivity with compression: the selected units' float leaves of at
+  least 256 elements, weights and optimizer state alike, are quantized on
+  the device and stored as int8 values and one float32 scale per 256
+  elements; the resume dequantizes them on the device (lossy);
 - ``--ckpt-spread-steps N`` (N > 0) runs each event through the
   overlapped saver (``checkpoint/overlap.py``): the device work and the
   decisions at the step boundary, the device->host copies, encoding and
@@ -93,6 +98,7 @@ def train(
     ckpt_dir: str = "/tmp/repro_train",
     ckpt_async: bool = True,
     ckpt_spread_steps: int = 0,
+    codec: str = "auto",
     writer_threads: int = 2,
     resume: bool = False,
     fail_at: Optional[Union[int, str]] = None,
@@ -117,7 +123,7 @@ def train(
     policy = make_policy(policy_name, model.layer_units())
     mgr = CheckpointManager(Path(ckpt_dir), registry, policy,
                             async_save=ckpt_async,
-                            writer_threads=writer_threads)
+                            writer_threads=writer_threads, codec=codec)
     tracker = DeltaTracker(registry) if policy_name == "topk_delta" else None
     # Zero-stall pipeline: events begin at the step boundary and run their
     # host-side copy/encode/write across the next ``ckpt_spread_steps``.
@@ -251,6 +257,7 @@ def train(
         "ckpt_time_fraction": save_seconds / total if total else 0.0,
         **{k: sum(e[k] for e in save_events) for k in _SPLIT},
         "save_mode": "overlapped" if ov is not None else "sync",
+        "codec": mgr.store.codec,
         "ckpt_spread_steps": ckpt_spread_steps,
         "overlap_slices": sum(e.get("spread_slices", 0)
                               for e in save_events),
@@ -287,6 +294,10 @@ def main() -> None:
     ap.add_argument("--ckpt-spread-steps", type=int, default=0,
                     help="N > 0: overlapped saves, each event's host work "
                          "spread over the next N steps")
+    ap.add_argument("--codec", default="auto",
+                    choices=["auto", "none", "int8"],
+                    help="object codec: auto/none store raw bytes, int8 "
+                         "quantizes float leaves on the device (lossy)")
     ap.add_argument("--writer-threads", type=int, default=2,
                     help="threads that encode and write objects")
     ap.add_argument("--sync-save", action="store_true",
@@ -308,6 +319,7 @@ def main() -> None:
                 policy_name=args.policy, ckpt_interval=args.ckpt_interval,
                 ckpt_dir=args.ckpt_dir, ckpt_async=not args.sync_save,
                 ckpt_spread_steps=args.ckpt_spread_steps,
+                codec=args.codec,
                 writer_threads=args.writer_threads, resume=args.resume,
                 fail_at=args.fail_at, seed=args.seed, log_csv=args.log_csv,
                 lr=args.lr, device=args.device, num_layers=args.num_layers)

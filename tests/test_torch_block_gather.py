@@ -20,6 +20,7 @@ from proptest import cases
 from repro.kernels.block_fp.ref import fingerprint_bytes
 from repro.kernels.block_gather import gather_dirty as jax_gather_dirty
 from repro.kernels.block_gather import gather_dirty_oracle as jax_oracle
+from repro.kernels.block_gather.ref import quantize_oracle
 from repro_torch.convert import state_from_numpy
 from repro_torch.kernels import block_fp as bfp
 from repro_torch.kernels.block_gather import (gather_dirty,
@@ -27,6 +28,7 @@ from repro_torch.kernels.block_gather import (gather_dirty,
                                               gather_dirty_plain,
                                               gather_tree_dirty,
                                               round_capacity)
+from repro_torch.kernels.quantize import quantize_plain
 
 # The suite runs in several worker processes at once: one intra-op
 # thread each keeps them from oversubscribing the cores.
@@ -207,10 +209,60 @@ def test_plain_version_takes_exact_capacity():
         gather_dirty_plain(a, None, capacity=0, block_bytes=BB)
 
 
-def test_quantize_composition_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="quantize"):
-        gather_dirty(torch.zeros(10), None, capacity=1, block_bytes=BB,
-                     quantize_int8=True)
+def _ulps(a, b) -> np.ndarray:
+    return np.abs(np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+                  - np.asarray(b, np.float32).view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16, np.int32,
+                                   np.bool_])
+def test_quantize_composition_matches_the_oracle_and_jax(dtype):
+    """``quantize_int8=True``: q and scales of the gathered buffer equal
+    ``quantize_oracle`` bit for bit; against the JAX composition (the same
+    function in jnp) scales within one float32 ulp and q equal where the
+    scales are, within 1 elsewhere (tests/test_torch_quantize.py says
+    why)."""
+    rng = np.random.RandomState(3)
+    n = 5 * BB + 37
+    base = (rng.randn(n) * 50).astype(np.float32)
+    base = base > 0 if dtype == np.bool_ else base.astype(dtype)
+    cur = _drift(base, [7, BB * 2 + 1, n - 1])
+    ref_fp = fingerprint_bytes(np.ascontiguousarray(base).tobytes(), BB)
+    res = gather_dirty(state_from_numpy(cur, "cpu"), ref_fp, capacity=4,
+                       block_bytes=BB, quantize_int8=True)
+    if dtype == ml_dtypes.bfloat16:
+        out = res.blocks.view(torch.int16).numpy().view(dtype)
+    else:
+        out = res.blocks.numpy()
+    q_o, s_o = quantize_oracle(out)
+    np.testing.assert_array_equal(res.q.numpy(), q_o)
+    np.testing.assert_array_equal(res.scales.numpy().view(np.uint32),
+                                  s_o.view(np.uint32))
+    j = jax_gather_dirty(jnp.asarray(cur), ref_fp, capacity=4,
+                         block_bytes=BB, interpret=True, quantize_int8=True)
+    ulps = _ulps(res.scales.numpy(), np.asarray(j.scales)).reshape(-1)
+    assert ulps.max() <= 1
+    same = ulps == 0
+    np.testing.assert_array_equal(res.q.numpy()[same],
+                                  np.asarray(j.q)[same])
+    dq = np.abs(res.q.numpy()[~same].astype(int) - np.asarray(j.q)[~same])
+    assert dq.size == 0 or dq.max() <= 1
+
+
+def test_quantize_composition_over_a_unit():
+    rng = np.random.RandomState(4)
+    curs = [(rng.randn(3 * BB) * 9).astype(np.float32),
+            (rng.randn(700) * 9).astype(ml_dtypes.bfloat16)]
+    got = gather_tree_dirty([state_from_numpy(c, "cpu") for c in curs],
+                            [None, None], [8, 8], block_bytes=BB,
+                            quantize_int8=True)
+    plain = gather_tree_dirty([state_from_numpy(c, "cpu") for c in curs],
+                              [None, None], [8, 8], block_bytes=BB)
+    for r, p in zip(got, plain):
+        q, s = quantize_plain(p.blocks)
+        assert torch.equal(r.q, q) and torch.equal(r.scales, s)
+        assert torch.equal(r.block_bytes(), p.block_bytes())
+        assert p.q is None and p.scales is None
 
 
 @pytest.mark.parametrize("n,nb,want", [

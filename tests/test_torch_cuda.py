@@ -14,7 +14,10 @@ two bf16 ulps of its plain version's per element (|d| <= 2**-6 |want| +
 chip_smoke.py's serve shapes, which a plain version that rounds its
 decayed scores to bf16 fails; its float32 y within 1e-4 (the JAX
 package's kernel-test bound), its float32 final state within 1e-4 of the
-plain version's largest magnitude, and two launches bitwise equal.
+plain version's largest magnitude, and two launches bitwise equal;
+quantize and dequantize bitwise equal to their plain versions (q of a NaN
+block aside: its int8 cast is platform-defined), and an int8 save's
+objects on the card byte-identical to the CPU path's.
 """
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ from repro_torch.kernels import block_fp as bfp
 from repro_torch.kernels import block_gather as bg
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_adamw as fadam
+from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import ssd_scan as ssd
 
 pytestmark = pytest.mark.cuda
@@ -285,3 +289,110 @@ def test_ssd_scan_kernel_rejects_what_it_does_not_take(dev):
         ssd.ssd_scan(xs.half(), dt, a_log, bs.half(), cs.half(), 8)
     with pytest.raises(ValueError, match="P 64 and N 128"):
         ssd.ssd_scan(xs[..., :32], dt, a_log, bs, cs, 8)
+
+
+def _scales_equal(a, b) -> bool:
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and torch.equal(
+        a[~na].view(torch.int32), b[~nb].view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kernels_match_plain_bitwise(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(3)
+    sizes = (1, 255, 256, 257, 64 * 256 + 3, 1000)
+    leaves = [(torch.randn(n, generator=g, device=dev) * 3).to(dtype)
+              for n in sizes]
+    special = torch.randn(4 * 256, generator=g, device=dev)
+    special[:256] = 0                       # all-zero block: scale 1
+    special[256:512] = (torch.arange(256, device=dev) % 64) - 31.5  # ties
+    special[256] = 127.0
+    special[512:768] *= 1e-40               # denormals
+    special[800] = float("nan")             # NaN block: scale only
+    odd = (torch.randn(1001, generator=g, device=dev) * 3).to(dtype)
+    leaves.append(odd[1:])                  # starts off 16 bytes
+    leaves.append(special.to(dtype))
+    before = (qz.QUANTIZE.launches, qz.DEQUANTIZE.launches)
+    unit = qz.quantize_unit(leaves)
+    torch.cuda.synchronize()
+    assert qz.QUANTIZE.launches == before[0] + 1
+    for i, x in enumerate(leaves):
+        q, s = qz.quantize_plain(x)
+        finite = ~torch.isnan(s.reshape(-1))
+        assert torch.equal(unit.q(i)[finite], q[finite])
+        assert _scales_equal(unit.scales(i), s)
+    outs = [torch.empty(x.numel() + 1, dtype=dtype, device=dev)[
+        i % 2:i % 2 + x.numel()] for i, x in enumerate(leaves)]
+    qz.dequantize_unit([(unit.q(i), unit.scales(i))
+                        for i in range(len(leaves) - 1)], outs[:-1])
+    torch.cuda.synchronize()
+    assert qz.DEQUANTIZE.launches == before[1] + 1
+    for i, o in enumerate(outs[:-1]):
+        want = qz.dequantize_plain(unit.q(i), unit.scales(i), o.numel(),
+                                   dtype)
+        assert torch.equal(o.view(torch.uint8) if dtype == torch.float32
+                           else o.view(torch.int16),
+                           want.view(torch.uint8) if dtype == torch.float32
+                           else want.view(torch.int16))
+
+
+def test_quantize_kernels_take_more_leaves_than_one_table(dev):
+    leaves = [torch.randn(300 + i, device=dev) for i in range(qz.MAX_LEAVES
+                                                              + 5)]
+    before = qz.QUANTIZE.launches
+    unit = qz.quantize_unit(leaves)
+    torch.cuda.synchronize()
+    assert qz.QUANTIZE.launches == before + 2
+    for i, x in enumerate(leaves):
+        q, s = qz.quantize_plain(x)
+        assert torch.equal(unit.q(i), q) and torch.equal(unit.scales(i), s)
+    outs = [torch.empty_like(x, dtype=torch.float16) for x in leaves]
+    qz.dequantize_unit([(unit.q(i), unit.scales(i))
+                        for i in range(len(leaves))], outs)
+    for i, o in enumerate(outs):
+        assert torch.equal(o, qz.dequantize_plain(unit.q(i), unit.scales(i),
+                                                  o.numel(), o.dtype))
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_int8_save_moves_records_and_restores_on_the_card(dev, tmp_path):
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.core.policies import make_policy
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("yi-9b", reduced=True))
+    reg = LayerRegistry(model)
+    # one state, made on the CPU (the init draws per device) and copied
+    cpu_state = steps.init_state(model, 0, torch.device("cpu"))
+    state = {k: (v if k == "step" else _to(v, dev))
+             for k, v in cpu_state.items()}
+    mgrs = {}
+    for where, st in (("card", state), ("cpu", cpu_state)):
+        mgrs[where] = CheckpointManager(
+            tmp_path / where, reg, make_policy("full", model.layer_units()),
+            async_save=False, codec="int8")
+        mgrs[where].save(st, step=1)
+    # the card's objects are the CPU path's, byte for byte
+    for p in sorted((tmp_path / "card" / "objects").glob("*/*.chunk")):
+        other = tmp_path / "cpu" / "objects" / p.parent.name / p.name
+        assert other.read_bytes() == p.read_bytes()
+    assert mgrs["card"].last_save_stats["d2h_bytes"] \
+        == mgrs["cpu"].last_save_stats["d2h_bytes"]
+    got = mgrs["card"].restore(steps.state_specs(model), device=dev)
+    want = mgrs["cpu"].restore(steps.state_specs(model),
+                               device=torch.device("cpu"))
+    from repro_torch.checkpoint.serial import flatten_with_paths
+    for part in ("params", "opt"):
+        for (p, x), (_, y) in zip(flatten_with_paths(got[part]),
+                                  flatten_with_paths(want[part])):
+            assert torch.equal(byte_view(x).cpu(), byte_view(y)), p
+    for m in mgrs.values():
+        m.close()
