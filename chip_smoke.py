@@ -21,9 +21,17 @@ which exits non-zero:
    ``fused_adamw`` at the main path's shapes (a full-width Yi-9B block's
    optimizer unit and its leaves), timed with CUDA events;
    ``flash_attention`` over causal (Sq == Sk and the top-left Sq < Sk),
-   non-causal, ragged-Sk, G = H, G = 1, bf16/float32, D 64/128 cases and a
-   decode step on a strided cache view, then timed beside its plain
-   version and SDPA at the serve path's prefill and decode shapes;
+   non-causal, ragged-Sk, G = H, G = 1, bf16/float32, D 64/128 cases, a
+   decode step on a strided cache view, and cases at the edges of its
+   three routes (bf16 prefill on tensor cores, bf16 split-K decode,
+   float32): Sq on either side of ``ops.PREFILL_MIN_QUERIES``, causal and
+   not, D 64, G = 1, G = H, Sk = 1 and 4097 (every route must be reached);
+   then timed beside its plain version and SDPA (event time of one call,
+   profiler device time, kernels per call) at the serve path's prefill and
+   decode shapes, each on the route the wrapper picks, and the float32
+   route at the prefill shape; both bf16 shapes under the two-ulp check
+   below, SDPA recorded under it as a control; ``ptxas``'s registers and
+   spills of every flash kernel recorded;
    ``ssd_scan`` over full, ragged-S, odd-Q, S < Q, G = 1, G = 2 and G = H
    cases in bf16 and float32, on model-style strided views and contiguous
    inputs (two launches bitwise equal), then at the Mamba2-370m serve
@@ -111,6 +119,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -776,6 +785,26 @@ FLASH_CASES = (
 )
 
 
+def flash_route_cases(t: int) -> tuple:
+    """Cases at the edges of the bf16 routes, ``t`` being the first query
+    count the prefill route takes (``ops.PREFILL_MIN_QUERIES``)."""
+    return (
+        (2, t - 1, 300, 32, 4, 128, False, "bfloat16", "decode, Sq = t - 1"),
+        (2, t, 300, 32, 4, 128, False, "bfloat16", "prefill, Sq = t"),
+        (2, t - 1, 300, 32, 4, 128, True, "bfloat16",
+         "decode, causal Sq = t - 1 < Sk"),
+        (2, t, 300, 32, 4, 128, True, "bfloat16",
+         "prefill, causal Sq = t < Sk"),
+        (1, t - 1, 500, 8, 2, 64, False, "bfloat16", "decode, D 64"),
+        (2, t - 1, 333, 8, 1, 128, False, "bfloat16", "decode, G = 1"),
+        (1, t - 1, 130, 4, 4, 128, False, "bfloat16", "decode, G = H"),
+        (2, 1, 1, 32, 4, 128, False, "bfloat16", "decode, Sk = 1"),
+        (1, 100, 1, 8, 2, 128, True, "bfloat16", "prefill, Sk = 1"),
+        (1, 1, 4097, 32, 4, 128, False, "bfloat16", "decode, Sk = 4097"),
+        (1, 70, 4097, 8, 2, 64, False, "bfloat16", "prefill, Sk = 4097"),
+    )
+
+
 def _flash_tol(dtype, torch) -> float:
     return FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL
 
@@ -789,11 +818,13 @@ def check_flash_attention_cases(torch, dev) -> float:
     g = torch.Generator(device=dev).manual_seed(7)
     worst = 0.0
     cases = [(b, sq, sk, h, gg, d, causal, getattr(torch, dt), what, None)
-             for b, sq, sk, h, gg, d, causal, dt, what in FLASH_CASES]
+             for b, sq, sk, h, gg, d, causal, dt, what in
+             FLASH_CASES + flash_route_cases(fa.ops.PREFILL_MIN_QUERIES)]
     for dt in (torch.bfloat16, torch.float32):
         cache = torch.randn(2, 300, 2, 2, 128, generator=g, device=dev).to(dt)
         cases.append((2, 1, 213, 8, 2, 128, False, dt,
                       f"decode Sq = 1 on a cache view ({dt})", cache))
+    routes = {}
     for b, sq, sk, h, gg, d, causal, dt, what, cache in cases:
         q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dt)
         if cache is None:
@@ -803,6 +834,7 @@ def check_flash_attention_cases(torch, dev) -> float:
             k, v = cache[:, :sk, 0], cache[:, :sk, 1]
             if k.is_contiguous():
                 raise AssertionError("the decode case must be strided")
+        route = fa.ops.pick_route(dt, sq)
         got = fa.flash_attention(q, k, v, causal=causal)
         want = fa.attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -810,10 +842,14 @@ def check_flash_attention_cases(torch, dev) -> float:
         if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
             err = (got.float() - want.float()).abs().max().item()
             raise AssertionError(f"flash_attention differs from the plain "
-                                 f"version ({what}): max abs {err}")
+                                 f"version ({what}, {route} route): max abs "
+                                 f"{err}")
+        routes[route] = routes.get(route, 0) + 1
         worst = max(worst, (got.float() - want.float()).abs().max().item())
+    if set(routes) != set(fa.ops.ROUTES):
+        raise AssertionError(f"phase 2's cases miss a route: {routes}")
     log(f"flash_attention: {len(cases)} cases within tolerance "
-        f"(max abs {worst:.3g})")
+        f"(max abs {worst:.3g}; cases per route {routes})")
     return worst
 
 
@@ -831,27 +867,74 @@ def _main_shape_check(got, want) -> dict:
             "within": worst <= 1.0 and mismatch <= FLASH_MAIN_MISMATCH}
 
 
+def device_ms(torch, fn, reps: int, name: str):
+    """Device milliseconds per call of ``fn`` from a ``torch.profiler``
+    trace of ``reps`` calls (kernel time alone, no host gaps), and the
+    device kernels per call whose name holds ``name``; (None, None) where
+    the profiler shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us += e.time_range.elapsed_us()
+            n += name in e.name
+    if us == 0:
+        return None, None
+    return us / 1e3 / reps, n / reps
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers and spill bytes per kernel from ``nvcc -Xptxas=-v``."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            out[fn] = {}
+        elif fn and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[fn]["spill_store_bytes"] = int(st)
+            out[fn]["spill_load_bytes"] = int(ld)
+        elif fn and re.search(r"Used \d+ registers", line):
+            out[fn]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
 def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
     """Time the kernel, its plain version and SDPA at the serve path's two
-    shapes: the Yi-9B prefill (batch 8 x 1024 tokens, causal) and a decode
-    step over a 1088-key cache prefix (non-causal, strided view)."""
+    shapes, each on the route the wrapper picks: the Yi-9B prefill (batch 8
+    x 1024 tokens, causal: the bf16 prefill route) and a decode step over a
+    1088-key cache prefix (non-causal, strided view: the split-K decode
+    route); and the float32 route at the prefill shape.  Event times (one
+    call: host work and device) and profiler device times."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels._build import BUILDER
 
     cfg = get_config(ARCH)
     h, gg, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     g = torch.Generator(device=dev).manual_seed(8)
     bf = torch.bfloat16
     out = {}
-    for name in ("prefill", "decode"):
-        if name == "prefill":
+    for name in ("prefill", "decode", "f32"):
+        dt = torch.float32 if name == "f32" else bf
+        if name != "decode":
             sq = sk = SERVE_PROMPT
             q = torch.randn(SERVE_BATCH, sq, h, d, generator=g, device=dev)
             k = torch.randn(SERVE_BATCH, sk, gg, d, generator=g, device=dev)
             v = torch.randn(SERVE_BATCH, sk, gg, d, generator=g, device=dev)
-            q, k, v = q.to(bf), k.to(bf), v.to(bf)
+            q, k, v = q.to(dt), k.to(dt), v.to(dt)
             causal = True
         else:
             sq, sk = 1, SERVE_PROMPT + SERVE_NEW // 2
@@ -861,16 +944,24 @@ def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
                             device=dev).to(bf)
             k, v = cache[:, :sk, 0], cache[:, :sk, 1]
             causal = False
+        route = fa.ops.pick_route(dt, sq)
         got = fa.flash_attention(q, k, v, causal=causal)
         want = fa.attention_plain(q, k, v, causal=causal)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                              enable_gqa=True).transpose(1, 2)
         torch.cuda.synchronize()
-        kchk = _main_shape_check(got, want)
-        lchk = _main_shape_check(lib, want)
-        log(f"flash_attention {name} vs plain: {kchk}; SDPA vs plain: "
-            f"{lchk}")
+        if name == "f32":
+            kchk = {"max_abs_err": (got - want).abs().max().item(),
+                    "within": torch.allclose(got, want, atol=FLASH_F32_TOL,
+                                             rtol=FLASH_F32_TOL)}
+            lchk = {"max_abs_err": (lib - want).abs().max().item(),
+                    "within": None}
+        else:
+            kchk = _main_shape_check(got, want)
+            lchk = _main_shape_check(lib, want)
+        log(f"flash_attention {name} ({route} route) vs plain: {kchk}; SDPA "
+            f"vs plain: {lchk}")
         if not kchk["within"]:
             raise AssertionError(f"flash_attention off the plain version at "
                                  f"the {name} shape: {kchk}")
@@ -879,37 +970,48 @@ def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
                                  f"shape: {lchk} (sanity check)")
         del got, want, lib
         torch.cuda.empty_cache()
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal), 20,
-                     torch)
+        call = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
+        ms = cuda_ms(call, 20, torch)
         plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v, causal=causal),
                            3, torch)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True), 20, torch)
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        library_ms = cuda_ms(sdpa, 20, torch)
+        dev_ms, per_call = device_ms(torch, call, 20, "flash_attention_kernel")
+        lib_dev_ms, _ = device_ms(torch, sdpa, 20, "")
+        size = q.element_size()
+        nbytes = size * (q.numel() + k.numel() + v.numel() + q.numel())
         flops = 4 * SERVE_BATCH * h * sq * sk * d
         if causal and sq == sk:
             flops //= 2
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        peak = F32_OPS_PER_S if name == "f32" else BF16_OPS_PER_S
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+        out[name] = {"route": route, "kernels_per_call": per_call,
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms,
+                     "library_device_ms": lib_dev_ms,
                      "bound_ms": max(t_bytes, t_ops) * 1e3,
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "max_abs_err": kchk["max_abs_err"],
-                     "worst_of_limit": kchk["worst_of_limit"],
-                     "mismatch_share": kchk["mismatch_share"],
+                     "worst_of_limit": kchk.get("worst_of_limit"),
+                     "mismatch_share": kchk.get("mismatch_share"),
                      "sdpa_max_abs_err": lchk["max_abs_err"],
-                     "sdpa_worst_of_limit": lchk["worst_of_limit"],
-                     "sdpa_mismatch_share": lchk["mismatch_share"],
+                     "sdpa_worst_of_limit": lchk.get("worst_of_limit"),
+                     "sdpa_mismatch_share": lchk.get("mismatch_share"),
                      "sdpa_within_limit": lchk["within"],
                      "bytes": nbytes, "flops": flops,
                      "shape": f"q ({SERVE_BATCH},{sq},{h},{d}) k/v "
-                              f"({SERVE_BATCH},{sk},{gg},{d}) bf16, "
-                              f"causal={causal}"}
-        log(f"flash_attention {name}: {ms:.4f} ms (bound "
+                              f"({SERVE_BATCH},{sk},{gg},{d}) "
+                              f"{str(dt).split('.')[-1]}, causal={causal}"}
+        log(f"flash_attention {name} ({route}): {ms:.4f} ms, device "
+            f"{dev_ms} ms, {per_call} kernels a call (bound "
             f"{out[name]['bound_ms']:.4f}, plain {plain_ms:.3f}, SDPA "
-            f"{library_ms:.4f})")
+            f"{library_ms:.4f}, device {lib_dev_ms})")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     pre = out["prefill"]
+    ptxas = ptxas_report(BUILDER.logs.get("flash_attention", ""))
+    log(f"flash_attention ptxas: {ptxas}")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
@@ -918,7 +1020,8 @@ def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
             "ms": pre["ms"], "plain_ms": pre["plain_ms"],
             "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
             "library_ms": pre["library_ms"], "shape": pre["shape"],
-            "prefill": pre, "decode": out["decode"]}
+            "prefill": pre, "decode": out["decode"], "f32": out["f32"],
+            "ptxas": ptxas}
 
 
 # (B, S, H, G, Q, dtype name, what): the kernel's edges.  The model calls

@@ -7,14 +7,16 @@ Tolerances: fingerprint pairs exact; sums of squares rtol 1e-5 (blocks of
 at most 1024 elements); AdamW float32 state rtol 1e-5 / atol 1e-7;
 block_gather's indices, block bytes and counts exact, and its sums of
 squares bit-equal to block_fp's (the same device code); flash_attention
-within atol = rtol = 2e-2 in bf16 and 2e-5 in float32 of its plain version
-(one float32 function summed in another order); ssd_scan's bf16 y within
-two bf16 ulps of its plain version's per element (|d| <= 2**-6 |want| +
-1e-5) with at most 1% of the elements differing at all, the check of
-chip_smoke.py's serve shapes, which a plain version that rounds its
-decayed scores to bf16 fails; its float32 y within 1e-4 (the JAX
-package's kernel-test bound), its float32 final state within 1e-4 of the
-plain version's largest magnitude, and two launches bitwise equal;
+(every route: bf16 prefill, bf16 split-K decode, float32) within atol =
+rtol = 2e-2 in bf16 and 2e-5 in float32 of its plain version (one float32
+function summed in another order), and at Yi-9B's heads within two bf16
+ulps of it per element with at most 1% of the elements differing;
+ssd_scan's bf16 y within two bf16 ulps of its plain version's per element
+(|d| <= 2**-6 |want| + 1e-5) with at most 1% of the elements differing at
+all, the check of chip_smoke.py's serve shapes, which a plain version that
+rounds its decayed scores to bf16 fails; its float32 y within 1e-4 (the
+JAX package's kernel-test bound), its float32 final state within 1e-4 of
+the plain version's largest magnitude, and two launches bitwise equal;
 quantize and dequantize bitwise equal to their plain versions (q of a NaN
 block aside: its int8 cast is platform-defined), and an int8 save's
 objects on the card byte-identical to the CPU path's.
@@ -220,6 +222,86 @@ def test_flash_attention_decode_on_a_strided_cache_view(dev, dtype):
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), fa.attention_plain(
         q, k, v, causal=False).float(), atol=tol, rtol=tol)
+
+
+_T = fa.ops.PREFILL_MIN_QUERIES
+
+
+# (B, Sq, Sk, H, G, D, causal, dtype, the route the wrapper must pick)
+@pytest.mark.parametrize("b,sq,sk,h,g,d,causal,dtype,route", [
+    (2, _T - 1, 300, 32, 4, 128, False, torch.bfloat16, "decode"),
+    (2, _T, 300, 32, 4, 128, False, torch.bfloat16, "prefill"),
+    (2, _T - 1, 300, 32, 4, 128, True, torch.bfloat16, "decode"),
+    (2, _T, 300, 32, 4, 128, True, torch.bfloat16, "prefill"),
+    (1, 200, 200, 8, 2, 64, True, torch.bfloat16, "prefill"),     # D 64
+    (1, _T - 1, 500, 8, 2, 64, False, torch.bfloat16, "decode"),  # D 64
+    (2, 150, 150, 8, 1, 128, True, torch.bfloat16, "prefill"),    # G = 1
+    (2, _T - 1, 333, 8, 1, 128, False, torch.bfloat16, "decode"),  # G = 1
+    (1, 130, 130, 4, 4, 128, True, torch.bfloat16, "prefill"),    # G = H
+    (1, _T - 1, 130, 4, 4, 128, False, torch.bfloat16, "decode"),  # G = H
+    (1, 77, 201, 4, 2, 128, True, torch.bfloat16, "prefill"),     # ragged
+    (1, 77, 201, 4, 2, 128, False, torch.bfloat16, "prefill"),    # Sq < Sk
+    (2, 1, 1, 32, 4, 128, False, torch.bfloat16, "decode"),       # Sk = 1
+    (1, 100, 1, 8, 2, 128, True, torch.bfloat16, "prefill"),      # Sk = 1
+    (1, 1, 4097, 32, 4, 128, False, torch.bfloat16, "decode"),    # Sk 4097
+    (1, 70, 4097, 8, 2, 64, False, torch.bfloat16, "prefill"),    # Sk 4097
+    (2, 70, 70, 32, 4, 128, True, torch.float32, "f32"),
+    (2, 1, 213, 8, 2, 64, False, torch.float32, "f32"),
+])
+def test_flash_attention_every_route_on_a_cache_view(dev, b, sq, sk, h, g, d,
+                                                     causal, dtype, route):
+    """Each route against attention_plain at its edges, reading k and v as
+    strided views of one cache (as a decode step does); one C entry call,
+    so one launch, per wrapper call."""
+    assert fa.ops.pick_route(dtype, sq) == route
+    gen = torch.Generator(device=dev).manual_seed(sq * 7 + sk)
+    q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    cache = torch.randn(b, sk + 3, 2, g, d, generator=gen,
+                        device=dev).to(dtype)
+    k, v = cache[:, :sk, 0], cache[:, :sk, 1]
+    before = fa.KERNEL.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), fa.attention_plain(
+        q, k, v, causal=causal).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,sq,sk,causal,route", [
+    (2, 512, 512, True, "prefill"), (8, 1, 1088, False, "decode")])
+def test_flash_attention_within_two_ulps_of_plain(dev, b, sq, sk, causal,
+                                                  route):
+    """chip_smoke.py's serve-shape check at Yi-9B's heads: every element
+    within two bf16 ulps of attention_plain (|d| <= 2**-6 |want| + 1e-5),
+    at most 1% of the elements differing at all."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(b, sq, 32, 128, generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn(b, sk, 4, 128, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    assert fa.ops.pick_route(q.dtype, sq) == route
+    got = fa.flash_attention(q, k, v, causal=causal).float()
+    want = fa.attention_plain(q, k, v, causal=causal).float()
+    limit = 2.0 ** -6 * want.abs() + 1e-5
+    assert ((got - want).abs() <= limit).all()
+    assert (got != want).float().mean().item() <= 0.01
+
+
+@pytest.mark.parametrize("route", ["prefill", "decode", "f32"])
+def test_flash_attention_launch_counts_one_per_call_on_each_route(dev,
+                                                                  route):
+    dtype = torch.float32 if route == "f32" else torch.bfloat16
+    q = torch.randn(1, 16, 8, 64, device=dev).to(dtype)
+    k = torch.randn(1, 40, 2, 64, device=dev).to(dtype)
+    before = fa.KERNEL.launches
+    for _ in range(3):
+        fa.ops.launch(q, k, k, True, route)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 3
+    with pytest.raises(TypeError):
+        fa.ops.launch(q.float() if dtype != torch.float32 else q.bfloat16(),
+                      k, k, True, route)
 
 
 def test_flash_attention_kernel_rejects_what_it_does_not_take(dev):
