@@ -33,16 +33,22 @@ which exits non-zero:
    below, SDPA recorded under it as a control; ``ptxas``'s registers and
    spills of every flash kernel recorded;
    ``ssd_scan`` over full, ragged-S, odd-Q, S < Q, G = 1, G = 2 and G = H
-   cases in bf16 and float32, on model-style strided views and contiguous
-   inputs (two launches bitwise equal), then at the Mamba2-370m serve
-   prefill shape under the two-ulp check, with the plain version rounding
-   its decayed scores to bf16 as a control the check must reject, and
-   timed beside its plain version; ``quantize`` and ``dequantize`` (one
-   source) bitwise against their plain versions over n in {1, 255, 256,
-   257, 64*256+3}, f32 and bf16, and blocks of zeros, half-way ties, the
-   clip edge, denormals, an underflowing scale, NaN and Inf (scales only
-   there), then at the main path's shapes (a Yi-9B block's optimizer unit,
-   27 f32 leaves, and its weights unit, 9 bf16 leaves), timed;
+   cases in bf16 and float32 through the wrapper (the f32 route, CUDA
+   cores), the bf16 cases also on the bf16 route (tensor cores), on
+   model-style strided views and contiguous inputs (two launches bitwise
+   equal), then both routes at the Mamba2-370m serve prefill shape under
+   the two-ulp check, with the plain version rounding its decayed scores
+   to bf16 as a control the check must reject, and the wrapper timed
+   beside its plain version; both routes timed on the same bf16 inputs
+   (event and device time, kernels per call, device time by kernel) there
+   and at batch 1 x 4096, with the bf16 route's scratch bytes and
+   ``ptxas``'s registers and spills; ``quantize`` and
+   ``dequantize`` (one source) bitwise against their plain versions over
+   n in {1, 255, 256, 257, 64*256+3}, f32 and bf16, and blocks of zeros,
+   half-way ties, the clip edge, denormals, an underflowing scale, NaN and
+   Inf (scales only there), then at the main path's shapes (a Yi-9B
+   block's optimizer unit, 27 f32 leaves, and its weights unit, 9 bf16
+   leaves), timed;
 3. the main paths, Yi-9B at full width cut to 2 layers, batch 2, seq 1024,
    through ``repro_torch.launch.train.train``, each with the launch
    counts set to 0 just before it and read just after:
@@ -174,11 +180,16 @@ DECODE_SSM_TOL = 0.1
 # rounding out of it: far above float32 rounding (~1e-5).
 DECODE_F32_TOL = 1e-3
 # ... and the bf16 prefill (ssd_scan in every layer) against the training
-# path (the plain chunked scan) on the longer prompt: the kernel's y
-# equals the plain version's bit for bit at the serve shape, so the two
-# give the same last logits up to the order of the float32 logits
-# product (0.0 at 4 to 48 layers on an H100, scripts/mamba_decode_gap.py):
-# the bf16 decode gap is not the kernel's.
+# path (the plain chunked scan) on the longer prompt.  The wrapper's f32
+# route sums in the plain version's order, so its y equals the plain
+# version's bit for bit and the logits agree to ~1.5e-6 at 4 to 48 layers.
+# The bf16 route (tensor cores) sums in another order: its y rounds
+# differently from the plain version's on ~0.01% of the elements, as
+# accurate as the plain version (each rounds 0.13% of y off float64's),
+# and the model carries that to 0.012, 0.039, 0.064 and 0.097 at 4, 12, 24
+# and 48 layers, past this bound, which the plain formulas in float64 miss
+# too (0.016 to 0.126) (H100, scripts/ssd_prefill_gap.py; PERF.md, section
+# 6).  So the wrapper does not take the bf16 route (ROADMAP.md, C4).
 SSD_PREFILL_TOL = 1e-3
 # A swap of a few 64 KiB blocks moves under 1% of the weights to the card.
 SWAP_H2D_FRAC = 0.01
@@ -867,11 +878,12 @@ def _main_shape_check(got, want) -> dict:
             "within": worst <= 1.0 and mismatch <= FLASH_MAIN_MISMATCH}
 
 
-def device_ms(torch, fn, reps: int, name: str):
+def device_ms(torch, fn, reps: int, name: str, by_kernel=None):
     """Device milliseconds per call of ``fn`` from a ``torch.profiler``
     trace of ``reps`` calls (kernel time alone, no host gaps), and the
     device kernels per call whose name holds ``name``; (None, None) where
-    the profiler shows no device time."""
+    the profiler shows no device time.  A dict ``by_kernel`` receives the
+    device milliseconds per call of each kernel, by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -887,6 +899,10 @@ def device_ms(torch, fn, reps: int, name: str):
         if e.device_type == DeviceType.CUDA:
             us += e.time_range.elapsed_us()
             n += name in e.name
+            if by_kernel is not None:
+                k = e.name.split("(")[0]
+                by_kernel[k] = (by_kernel.get(k, 0.0)
+                                + e.time_range.elapsed_us() / 1e3 / reps)
     if us == 0:
         return None, None
     return us / 1e3 / reps, n / reps
@@ -1026,6 +1042,8 @@ def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
 
 # (B, S, H, G, Q, dtype name, what): the kernel's edges.  The model calls
 # it with Q = min(256, S), so S >= Q there; the kernel also takes S < Q.
+# Every case goes through the wrapper (the f32 route, CUDA cores); bf16
+# cases also through the bf16 route (tensor cores).
 SSD_CASES = (
     (2, 512, 8, 1, 256, "bfloat16", "full chunks, G = 1"),
     (1, 1025, 4, 1, 256, "bfloat16", "ragged S = 4 x 256 + 1"),
@@ -1035,7 +1053,11 @@ SSD_CASES = (
     (2, 77, 4, 4, 256, "float32", "S < Q, G = H"),
     (2, 333, 4, 1, 256, "float32", "ragged S, G = 1"),
     (2, 256, 8, 8, 128, "bfloat16", "G = H"),
+    (2, 77, 4, 4, 256, "bfloat16", "S < Q, G = H, bf16"),
+    (2, 300, 4, 2, 37, "bfloat16", "odd Q = 37, ragged S, G = 2, bf16"),
 )
+# Timed besides the serve prefill shape: one long prompt.
+SSD_LONG = (1, 4096)
 
 
 def ssd_inputs(torch, dev, b, s, h, g, dtype, gen, views: bool = True):
@@ -1079,32 +1101,40 @@ def _ssd_check(torch, y, want_y, fin, want_fin) -> dict:
 
 def check_ssd_scan_cases(torch, dev) -> float:
     """ssd_scan against its plain version on the card over SSD_CASES, with
-    model-style strided views and contiguous inputs; two launches must
-    give bitwise-equal outputs.  Returns the largest absolute difference
-    of y."""
+    model-style strided views and contiguous inputs, through the wrapper
+    and (bf16 cases) the bf16 route; two launches must give bitwise-equal
+    outputs.  Returns the largest absolute difference of y."""
     from repro_torch.kernels import ssd_scan as ssd
 
     gen = torch.Generator(device=dev).manual_seed(9)
-    worst = 0.0
+    worst, n = 0.0, 0
     for i, (b, s, h, g, q, dt_name, what) in enumerate(SSD_CASES):
-        args = ssd_inputs(torch, dev, b, s, h, g, getattr(torch, dt_name),
-                          gen, views=i % 2 == 0)
-        before = ssd.KERNEL.launches
-        y, fin = ssd.ssd_scan(*args, q)
-        y2, fin2 = ssd.ssd_scan(*args, q)
+        dtype = getattr(torch, dt_name)
+        args = ssd_inputs(torch, dev, b, s, h, g, dtype, gen,
+                          views=i % 2 == 0)
         want_y, want_fin = ssd.ssd_scan_plain(*args, q)
-        torch.cuda.synchronize()
-        _check_launched({"ssd_scan": ssd.KERNEL.launches - before - 1},
-                        ["ssd_scan"], f"the ssd_scan case {what}")
-        if not (torch.equal(y, y2) and torch.equal(fin, fin2)):
-            raise AssertionError(f"ssd_scan: two launches differ ({what})")
-        chk = _ssd_check(torch, y, want_y, fin, want_fin)
-        if not (chk["within"] and torch.isfinite(y.float()).all()):
-            raise AssertionError(f"ssd_scan differs from the plain version "
-                                 f"({what}): {chk}")
-        log(f"ssd_scan {what}: {chk}")
-        worst = max(worst, chk["max_abs_err"])
-    log(f"ssd_scan: {len(SSD_CASES)} cases within tolerance, two launches "
+        calls = {"wrapper, f32 route": lambda: ssd.ssd_scan(*args, q)}
+        if dtype == torch.bfloat16:
+            calls["bf16 route"] = lambda: ssd.ops.launch(*args, q, "bf16")
+        for route, call in calls.items():
+            case = f"{what} ({route})"
+            before = ssd.KERNEL.launches
+            y, fin = call()
+            y2, fin2 = call()
+            torch.cuda.synchronize()
+            _check_launched({"ssd_scan": ssd.KERNEL.launches - before - 1},
+                            ["ssd_scan"], f"the ssd_scan case {case}")
+            if not (torch.equal(y, y2) and torch.equal(fin, fin2)):
+                raise AssertionError(f"ssd_scan: two launches differ "
+                                     f"({case})")
+            chk = _ssd_check(torch, y, want_y, fin, want_fin)
+            if not (chk["within"] and torch.isfinite(y.float()).all()):
+                raise AssertionError(f"ssd_scan differs from the plain "
+                                     f"version ({case}): {chk}")
+            log(f"ssd_scan {case}: {chk}")
+            worst = max(worst, chk["max_abs_err"])
+            n += 1
+    log(f"ssd_scan: {n} cases and routes within tolerance, two launches "
         f"bitwise equal (max abs {worst:.3g})")
     return worst
 
@@ -1144,13 +1174,35 @@ def ssd_scan_rounded_m(torch, xs, dt, a_log, bs, cs, chunk: int):
     return torch.cat(ys, dim=1), state
 
 
+def ssd_routes_timed(torch, args, q: int) -> dict:
+    """Both routes of ssd_scan on the same bf16 inputs: event time of one
+    call, profiler device time, kernels per call and device time by
+    kernel."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    out = {}
+    for route in ("bf16", "f32"):
+        call = lambda: ops.launch(*args, q, route)  # noqa: E731
+        by_kernel = {}
+        dev_ms, per_call = device_ms(torch, call, 20, "ssd_", by_kernel)
+        out[route] = {"ms": cuda_ms(call, 20, torch), "device_ms": dev_ms,
+                      "kernels_per_call": per_call, "by_kernel": by_kernel}
+        torch.cuda.empty_cache()
+    b, d = out["bf16"]["device_ms"], out["f32"]["device_ms"]
+    out["f32_over_bf16_device"] = d / b if b and d else None
+    return out
+
+
 def ssd_scan_at_main_shape(torch, dev, err: float) -> dict:
-    """Time the kernel and its plain version at the serve prefill shape of
+    """Time the wrapper and its plain version at the serve prefill shape of
     Mamba2-370m (batch 8 x 1024 tokens, 32 heads, P 64, N 128, Q 256, one
-    group, bf16 views of the conv output), after the two-ulp check against
-    the plain version and the rounded-m control under the same check."""
+    group, bf16 views of the conv output), after the two-ulp check of both
+    routes against the plain version and the rounded-m control under the
+    same check; both routes on the same inputs, there and at batch 1 x
+    4096 (SSD_LONG)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels._build import BUILDER
 
     cfg = get_config(SSM_ARCH)
     sc = cfg.ssm
@@ -1159,23 +1211,31 @@ def ssd_scan_at_main_shape(torch, dev, err: float) -> dict:
     gen = torch.Generator(device=dev).manual_seed(10)
     args = ssd_inputs(torch, dev, SERVE_BATCH, SERVE_PROMPT, h, g_,
                       torch.bfloat16, gen)
-    y, fin = ssd.ssd_scan(*args, q)
     want_y, want_fin = ssd.ssd_scan_plain(*args, q)
+    chks = {}
+    for route in ("f32", "bf16"):
+        y, fin = ssd.ops.launch(*args, q, route)
+        chks[route] = _ssd_check(torch, y, want_y, fin, want_fin)
+        del y, fin
     ctl_y, ctl_fin = ssd_scan_rounded_m(torch, *args, q)
-    torch.cuda.synchronize()
-    kchk = _ssd_check(torch, y, want_y, fin, want_fin)
     cchk = _ssd_check(torch, ctl_y, want_y, ctl_fin, want_fin)
-    log(f"ssd_scan serve shape vs plain: {kchk}; rounded-m control: {cchk}")
-    if not kchk["within"]:
-        raise AssertionError(f"ssd_scan off the plain version at the serve "
-                             f"shape: {kchk}")
+    log(f"ssd_scan serve shape vs plain: {chks}; rounded-m control: {cchk}")
+    for route, chk in chks.items():
+        if not chk["within"]:
+            raise AssertionError(f"ssd_scan's {route} route off the plain "
+                                 f"version at the serve shape: {chk}")
     if cchk["within"]:
         raise AssertionError(f"the check passed the rounded-m control: "
                              f"{cchk}")
-    del y, fin, want_y, want_fin, ctl_y, ctl_fin
+    kchk = chks["f32"]
+    del want_y, want_fin, ctl_y, ctl_fin
     torch.cuda.empty_cache()
     ms = cuda_ms(lambda: ssd.ssd_scan(*args, q), 20, torch)
     plain_ms = cuda_ms(lambda: ssd.ssd_scan_plain(*args, q), 3, torch)
+    routes = ssd_routes_timed(torch, args, q)
+    routes["bf16"]["check"] = chks["bf16"]
+    routes["bf16"]["scratch_bytes"] = ssd.ops.scratch_bytes(
+        SERVE_BATCH, SERVE_PROMPT, h, q)
     xs, dt, a_log, bs, cs = args
     b, s, _, p = xs.shape
     n = bs.shape[-1]
@@ -1194,26 +1254,43 @@ def ssd_scan_at_main_shape(torch, dev, err: float) -> dict:
         flops += b * g_ * 2 * tri * n
         flops += b * h * (2 * tri * p + 2 * qc * n * p * (2 if c0 else 1))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    del args, xs, dt, a_log, bs, cs
+    torch.cuda.empty_cache()
+    lb, ls = SSD_LONG
+    long_args = ssd_inputs(torch, dev, lb, ls, h, g_, torch.bfloat16, gen)
+    long_q = min(sc.chunk_size, ls)
+    long_routes = ssd_routes_timed(torch, long_args, long_q)
+    long_routes["bf16"]["scratch_bytes"] = ssd.ops.scratch_bytes(
+        lb, ls, h, long_q)
+    del long_args
+    torch.cuda.empty_cache()
+    ptxas = ptxas_report(BUILDER.logs.get("ssd_scan", ""))
     out = {"name": "ssd_scan", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan/kernel.py:83",
-           "max_abs_err": max(err, kchk["max_abs_err"]), "ms": ms,
+           "max_abs_err": max(err, *(c["max_abs_err"]
+                                     for c in chks.values())), "ms": ms,
            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": None,
            "library_note": "no single PyTorch call computes the SSD chunk "
                            "scan",
+           "kernel_route": "f32",
+           "device_ms": routes["f32"]["device_ms"],
+           "kernels_per_call": routes["f32"]["kernels_per_call"],
+           "routes": routes,
+           "long": {"shape": f"x ({lb},{ls},{h},{p}) bf16 views, Q {long_q}",
+                    **long_routes},
            "bytes": nbytes, "flops": flops,
            "worst_of_limit": kchk["worst_of_limit"],
            "mismatch_share": kchk["mismatch_share"],
            "state_rel_err": kchk["state_rel_err"],
-           "control_rounded_m": cchk,
+           "control_rounded_m": cchk, "ptxas": ptxas,
            "shape": f"x ({b},{s},{h},{p}) bf16 views, B/C ({b},{s},{g_},"
                     f"{n}), Q {q}"}
     log(f"ssd_scan at the serve prefill shape: {ms:.4f} ms (bound "
-        f"{out['bound_ms']:.4f}, {out['bound_by']}; plain {plain_ms:.3f})")
-    del args, xs, dt, a_log, bs, cs
-    torch.cuda.empty_cache()
+        f"{out['bound_ms']:.4f}, {out['bound_by']}; plain {plain_ms:.3f}); "
+        f"routes {routes}; batch {lb} x {ls}: {long_routes}; ptxas {ptxas}")
     return out
 
 
@@ -2496,14 +2573,16 @@ def report(record: dict, path) -> None:
             "prefill_seconds", "decode_tokens_per_s", "peak_device_bytes",
             "allocated_before_bytes", "launches", "decode_vs_prefill",
             "decode_profile")}}
-    print(json.dumps({"main_path": summary}))
+    card = {"card": record["card"]}
+    print(json.dumps({"main_path": summary | card}))
     st = mp_d["store"]
     print(json.dumps({"serve": {
         "cold_load_step4": {k: st["cold_load_step4"][k]
                             for k in ("seconds", "bytes_read", "h2d_bytes")},
         "full_restore_bytes_step4": st["full_restore_bytes_step4"],
         "weights_bytes": st["weights_bytes"],
-        **{k: st[k] for k in ("swap_4_to_8", "swap_to_10", "swap_to_12")}}}))
+        **{k: st[k] for k in ("swap_4_to_8", "swap_to_10", "swap_to_12")},
+        **card}}))
     et, es, ev = mp_e["train"], mp_e["store"], mp_e["serve"]
     for e in et["save_events"]:
         log(f"3e event {e['step']}: stall {e['stall_seconds']:.3f} s "
@@ -2534,7 +2613,7 @@ def report(record: dict, path) -> None:
             "config", "prefill_seconds", "decode_tokens_per_s",
             "peak_device_bytes", "launches", "decode_vs_prefill",
             "decode_vs_prefill_float32", "prefill_vs_plain_scan",
-            "decode_profile")}}}))
+            "decode_profile")}, **card}}))
     mp_f = mp["3f"]
     for e in mp_f["save_events"]:
         log(f"3f event {e['step']}: {e['seconds']:.3f} s, d2h "
@@ -2549,8 +2628,8 @@ def report(record: dict, path) -> None:
            "restore_bytes": mp_f["restore_on_resume"]["bytes_read"],
            "restore_h2d_bytes": mp_f["restore_on_resume"]["h2d_bytes"],
            "event_seconds": {e["step"]: e["seconds"]
-                             for e in mp_f["save_events"]}}}))
-    print(json.dumps({"kernels": kernels}))
+                             for e in mp_f["save_events"]}} | card}))
+    print(json.dumps({"kernels": [k | card for k in kernels]}))
 
 
 def main() -> int:

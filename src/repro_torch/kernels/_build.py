@@ -51,7 +51,8 @@ def library_path(name: str) -> Path:
 
 class _Builder:
     """Builds each library at most once per process and keeps the loaded
-    handles (and the compiler's resource report) for the process."""
+    handles and the compiler's resource report (saved beside each library,
+    so a library built by an earlier process still has it)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -64,6 +65,10 @@ class _Builder:
         names = list(dict.fromkeys(names))
         paths = {n: library_path(n) for n in names}
         todo = [n for n in names if not paths[n].is_file()]
+        for n in names:   # a library built earlier: its compiler report
+            log = paths[n].with_suffix(".log")
+            if n not in todo and n not in self.logs and log.is_file():
+                self.logs[n] = log.read_text()
         if not todo:
             return paths
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -83,6 +88,7 @@ class _Builder:
                               f":\n{self.logs[n]}")
                 tmp.unlink(missing_ok=True)
             else:
+                paths[n].with_suffix(".log").write_text(self.logs[n])
                 os.replace(tmp, paths[n])
         if errors:
             raise KernelBuildError("\n".join(errors))

@@ -11,12 +11,15 @@ squares bit-equal to block_fp's (the same device code); flash_attention
 rtol = 2e-2 in bf16 and 2e-5 in float32 of its plain version (one float32
 function summed in another order), and at Yi-9B's heads within two bf16
 ulps of it per element with at most 1% of the elements differing;
-ssd_scan's bf16 y within two bf16 ulps of its plain version's per element
-(|d| <= 2**-6 |want| + 1e-5) with at most 1% of the elements differing at
-all, the check of chip_smoke.py's serve shapes, which a plain version that
-rounds its decayed scores to bf16 fails; its float32 y within 1e-4 (the
-JAX package's kernel-test bound), its float32 final state within 1e-4 of
-the plain version's largest magnitude, and two launches bitwise equal;
+ssd_scan's bf16 y (through the wrapper, which takes the CUDA-core f32
+route, and through the tensor-core bf16 route) within two bf16 ulps of
+its plain version's per element (|d| <= 2**-6 |want| + 1e-5) with at most
+1% of the elements differing at all, the check of chip_smoke.py's serve
+shapes, which a plain version that rounds its decayed scores to bf16
+fails; its float32 y within 1e-4 (the JAX package's kernel-test bound),
+its float32 final state within 1e-4 of the plain version's largest
+magnitude, two launches bitwise equal, and each route launching its own
+kernels;
 quantize and dequantize bitwise equal to their plain versions (q of a NaN
 block aside: its int8 cast is platform-defined), and an int8 save's
 objects on the card byte-identical to the CPU path's.
@@ -333,24 +336,71 @@ def _ssd_inputs(dev, b, s, h, g, dtype, seed, views):
     return xs, dt, a_log, bs, cs
 
 
-@pytest.mark.parametrize("b,s,h,g,q,dtype,views", [
-    (2, 512, 8, 1, 256, torch.bfloat16, True),    # full chunks, G = 1
-    (1, 1025, 4, 1, 256, torch.bfloat16, False),  # ragged S = 4 x 256 + 1
-    (2, 300, 4, 4, 37, torch.float32, True),      # odd Q, G = H
-    (1, 200, 8, 2, 64, torch.float32, False),     # G = 2, ragged S
-    (3, 100, 32, 1, 100, torch.bfloat16, True),   # Q = S, 32 heads
-    (2, 77, 4, 4, 256, torch.float32, False),     # S < Q
-    (2, 256, 8, 8, 128, torch.bfloat16, True),    # G = H
-    (1, 64, 2, 1, 1, torch.float32, True),        # Q = 1
+def _kernel_names(fn) -> list:
+    """Names of the device kernels one call of ``fn`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+# The kernels each route launches, in order: the bf16 route's three
+# tensor-core kernels, and the f32 route's one CUDA-core kernel (one
+# instantiation per input dtype).
+SSD_ROUTE_KERNELS = {
+    "bf16": ["ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+             "ssd_chunk_out_kernel"],
+    "f32": ["ssd_scan_kernel<"],
+}
+
+
+# route None: the wrapper (which takes the f32 route for every dtype);
+# "bf16": the bf16 route, named through ops.launch
+@pytest.mark.parametrize("b,s,h,g,q,dtype,views,route", [
+    (2, 512, 8, 1, 256, torch.bfloat16, True, None),    # full chunks, G = 1
+    (2, 512, 8, 1, 256, torch.bfloat16, True, "bf16"),
+    (1, 1025, 4, 1, 256, torch.bfloat16, False, None),  # ragged S = 4 x 256
+    (1, 1025, 4, 1, 256, torch.bfloat16, False, "bf16"),  # + 1
+    (2, 300, 4, 4, 37, torch.float32, True, None),      # odd Q, G = H
+    (1, 200, 8, 2, 64, torch.float32, False, None),     # G = 2, ragged S
+    (3, 100, 32, 1, 100, torch.bfloat16, True, None),   # Q = S, 32 heads
+    (3, 100, 32, 1, 100, torch.bfloat16, True, "bf16"),
+    (2, 77, 4, 4, 256, torch.float32, False, None),     # S < Q
+    (2, 256, 8, 8, 128, torch.bfloat16, True, None),    # G = H
+    (2, 256, 8, 8, 128, torch.bfloat16, True, "bf16"),
+    (1, 64, 2, 1, 1, torch.float32, True, None),        # Q = 1
+    (8, 1024, 32, 1, 256, torch.bfloat16, True, None),  # the serve prefill
+    (8, 1024, 32, 1, 256, torch.bfloat16, True, "bf16"),
+    (1, 4096, 32, 1, 256, torch.bfloat16, True, None),  # batch 1 x 4096
+    (1, 4096, 32, 1, 256, torch.bfloat16, True, "bf16"),
+    (2, 77, 4, 4, 256, torch.bfloat16, False, "bf16"),  # S < Q
+    (1, 300, 4, 2, 37, torch.bfloat16, True, "bf16"),   # S % Q != 0, odd Q
+    (2, 333, 4, 1, 256, torch.float32, True, None),     # ragged S
 ])
-def test_ssd_scan_kernel_matches_plain(dev, b, s, h, g, q, dtype, views):
+def test_ssd_scan_kernel_matches_plain(dev, b, s, h, g, q, dtype, views,
+                                       route):
     args = _ssd_inputs(dev, b, s, h, g, dtype, s + q, views)
+    if route is None:
+        call, route = (lambda: ssd.ssd_scan(*args, q)), "f32"
+    else:
+        call = lambda: ssd.ops.launch(*args, q, route)  # noqa: E731
     before = ssd.KERNEL.launches
-    y, fin = ssd.ssd_scan(*args, q)
-    y2, fin2 = ssd.ssd_scan(*args, q)
+    y, fin = call()
+    y2, fin2 = call()
     torch.cuda.synchronize()
     assert ssd.KERNEL.launches == before + 2
     assert torch.equal(y, y2) and torch.equal(fin, fin2)
+    names = _kernel_names(call)
+    wants = SSD_ROUTE_KERNELS[route]
+    assert len(names) == len(wants) and all(
+        w in n for w, n in zip(wants, names)), names
     want_y, want_fin = ssd.ssd_scan_plain(*args, q)
     assert y.dtype == dtype and fin.dtype == torch.float32
     if dtype == torch.bfloat16:
@@ -360,6 +410,23 @@ def test_ssd_scan_kernel_matches_plain(dev, b, s, h, g, q, dtype, views):
     else:
         torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
     assert (fin - want_fin).abs().max() <= 1e-4 * want_fin.abs().max()
+
+
+def test_ssd_scan_routes_agree_on_one_input(dev):
+    """The f32 route reads bf16 inputs as their float32 values (bitwise
+    the same result as on float32 copies), and the bf16 route computes
+    the same function: y within two bf16 ulps, states within 1e-4."""
+    args = _ssd_inputs(dev, 2, 600, 8, 1, torch.bfloat16, 5, True)
+    f32 = [a.float() for a in args]
+    y, fin = ssd.ops.launch(*args, 256, "bf16")
+    yf, finf = ssd.ops.launch(*f32, 256, "f32")
+    yb, finb = ssd.ops.launch(*args, 256, "f32")
+    assert torch.equal(yb, yf.to(torch.bfloat16)) and torch.equal(finb, finf)
+    d = (y.float() - yf).abs()
+    assert (d <= 2.0 ** -6 * yf.abs() + 1e-5).all()
+    assert (fin - finf).abs().max() <= 1e-4 * finf.abs().max()
+    with pytest.raises(TypeError):
+        ssd.ops.launch(*f32, 256, "bf16")
 
 
 def test_ssd_scan_kernel_rejects_what_it_does_not_take(dev):

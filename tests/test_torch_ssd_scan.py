@@ -10,6 +10,14 @@ within atol = rtol = 1e-4, as the JAX package's kernel tests hold its
 Pallas kernel (one float32 function summed in another order); bf16 y
 within 2e-2 (a few bf16 ulps at |y| < 4); gradients within 1e-4 relative
 to the largest one.
+
+The CUDA kernel's bf16 route feeds its float32 operands (the decayed
+scores m, the carried state and the weighted x) to bf16 tensor cores as
+three bf16 pieces.  Here an emulation of that arithmetic, written apart
+from the port (numpy, bf16 pieces, products summed in float32), is held to
+the JAX package's functions within 1e-4 and to the plain version within
+5e-7 of its largest |y|, a bound that two pieces miss (their ~3e-6 at
+these sizes) and three meet (~1e-7).
 """
 import jax
 import jax.numpy as jnp
@@ -141,6 +149,126 @@ def test_gradients_match_jax():
         scale = np.abs(want).max()
         np.testing.assert_allclose(t.grad.numpy() / scale, want / scale,
                                    atol=1e-4, rtol=0, err_msg=name)
+
+
+def _pieces(v, k):
+    """k bf16 pieces of float32 values: p1 = bf16(v), p2 = bf16(v - p1),
+    ... (each difference exact in float32), as float32 arrays."""
+    out, r = [], np.asarray(v, np.float32)
+    for _ in range(k):
+        p = r.astype(ml_dtypes.bfloat16).astype(np.float32)
+        out.append(p)
+        r = r - p
+    return out
+
+
+@pytest.mark.parametrize("lo,hi", [(-30, -20), (-20, -10), (-10, 0),
+                                   (0, 3)])
+def test_three_bf16_pieces_sum_to_the_float32_value(lo, hi):
+    """The split the bf16 route applies to its float32 operands: three
+    pieces hold all 24 bits of a float32 exactly, over the magnitudes m,
+    the state and w x take (1e-30 to 1e3, both signs); two do not."""
+    rs = np.random.RandomState(lo + 40)
+    mag = 10.0 ** rs.uniform(lo, hi, 20000)
+    v = (mag * rs.choice([-1.0, 1.0], mag.size)).astype(np.float32)
+    three = _pieces(v, 3)
+    assert all(np.all(np.isfinite(p)) for p in three)
+    got = three[0].astype(np.float64) + three[1] + three[2]
+    np.testing.assert_array_equal(got, v.astype(np.float64))
+    two = _pieces(v, 2)
+    assert np.any(two[0].astype(np.float64) + two[1] != v)
+
+
+def _pdot(a, b, k, split_a):
+    """a @ b with the float32 operand (a if split_a, else b) as k bf16
+    pieces: bf16 x bf16 products summed in float32, piece by piece."""
+    if split_a:
+        return sum(p @ b for p in _pieces(a, k)).astype(np.float32)
+    return sum(a @ p for p in _pieces(b, k)).astype(np.float32)
+
+
+def _emulate_bf16_route(xs, dt, a_log, bs, cs, q, k):
+    """The bf16 route's arithmetic per (b, h) and chunk, with m, the
+    entering state and w x as k bf16 pieces; x, B, C are bf16 values.  L
+    comes from torch.cumsum, as the plain version takes it on this
+    device (the kernel's serial float32 sum equals it on the card)."""
+    b, s, h, p = xs.shape
+    g, n = bs.shape[2:]
+    f = np.float32
+    y = np.zeros((b, s, h, p), f)
+    fin = np.zeros((b, h, p, n), f)
+    for bi in range(b):
+        for hi in range(h):
+            gi = hi // (h // g)
+            a = -np.exp(f(a_log[hi]))
+            st = np.zeros((p, n), f)
+            for c0 in range(0, s, q):
+                x = xs[bi, c0:c0 + q, hi].astype(f)
+                bb = bs[bi, c0:c0 + q, gi].astype(f)
+                cc = cs[bi, c0:c0 + q, gi].astype(f)
+                d = dt[bi, c0:c0 + q, hi]
+                lc = torch.cumsum(torch.from_numpy(d * a), 0).numpy()
+                causal = np.tril(np.ones((len(lc), len(lc)), bool))
+                rel = np.minimum(lc[:, None] - lc[None], 0)
+                m = np.where(causal, (cc @ bb.T) * np.exp(rel), 0) * d
+                y[bi, c0:c0 + q, hi] = (
+                    _pdot(cc, st.T, k, False) * np.exp(lc)[:, None]
+                    + _pdot(m.astype(f), x, k, True))
+                w = np.exp(lc[-1] - lc) * d
+                st = st * np.exp(lc[-1]) + _pdot((w[:, None] * x).T, bb, k,
+                                                 True)
+            fin[bi, hi] = st
+    return y, fin
+
+
+@pytest.mark.parametrize("b,s,h,g,p,n,q", [
+    (1, 128, 2, 1, 32, 64, 64),
+    (2, 96, 4, 2, 16, 32, 32),
+])
+def test_bf16_route_arithmetic_emulated(b, s, h, g, p, n, q):
+    """Three pieces: within 1e-4 of the JAX package's oracle and Pallas
+    kernel (interpret mode), and within 5e-7 of the plain version's
+    largest |y|; two pieces miss the 5e-7."""
+    xs, dt, a_log, bs, cs = _inputs(s + n, b, s, h, g, p, n, "bfloat16")
+    y3, fin3 = _emulate_bf16_route(xs, dt, a_log, bs, cs, q, 3)
+    y2, _ = _emulate_bf16_route(xs, dt, a_log, bs, cs, q, 2)
+    f32 = [a.astype(np.float32) for a in (xs, dt, a_log, bs, cs)]
+    py, pfin = ssd.ssd_scan_plain(*(torch.from_numpy(a) for a in f32), q)
+    py, pfin = py.numpy(), pfin.numpy()
+    scale = np.abs(py).max()
+    assert np.abs(y3 - py).max() <= 5e-7 * scale
+    assert np.abs(y2 - py).max() > 5e-7 * scale
+    assert np.abs(fin3 - pfin).max() <= 5e-7 * np.abs(pfin).max()
+    jargs = (f32[0], f32[1], f32[2], _per_head(f32[3], h),
+             _per_head(f32[4], h))
+    jy, jfin = jax_ssd_scan(*map(jnp.asarray, jargs), chunk=q,
+                            interpret=True)
+    _close(y3, jy)
+    _close(fin3, jfin)
+    ry, rfin = ssd_ref(*map(jnp.asarray, jargs))
+    _close(y3, ry)
+    _close(fin3, rfin)
+
+
+def test_bf16_route_scratch():
+    # the bf16 route's scratch: per-chunk f32 states, their bf16 pieces
+    # (three of P x N) and L, for NC = ceil(S / Q) chunks
+    nc = 5
+    want = 8 * 32 * nc * (64 * 128 * 4 + 3 * 64 * 128 * 2 + 256 * 4)
+    assert ssd.ops.scratch_bytes(8, 1025, 32, 256) == want
+
+
+def test_launch_rejects_an_unknown_route():
+    args = [_to_torch(a) for a in _inputs(1, 1, 20, 2, 1, 64, 128)]
+    with pytest.raises(ValueError, match="no route 'tf32'"):
+        ssd.ops.launch(*args, 8, "tf32")
+
+
+def test_launch_takes_cuda_tensors_only():
+    args = [_to_torch(a) for a in _inputs(1, 1, 20, 2, 1, 64, 128,
+                                          "bfloat16")]
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ops.launch(*args, 8, "bf16")
 
 
 def test_cpu_tensors_never_launch_the_kernel():
