@@ -110,8 +110,26 @@ which exits non-zero:
       moves 0 bytes; (f) a weights-only cold load of step 4 and a swap to
       6, bit-identical to a cold load of 6; quantize and dequantize
       launched;
+   g. the explicit merge (``repro_torch.core.tailor``), right after 3a on
+      its store: (a) ``python -m repro_torch.core.tailor`` in a child
+      process assembles step 4's implicit merge from a recipe (base @4,
+      the units @4 carries over from step 2 taken from @2), with entries
+      equal to @4's and objects equal to the source's byte for byte; a
+      resume from it to step 6 gives 3a's resumed losses within MODE_TOL
+      and @6's digests; (b) a Frankenstein (base @6, block_001 and embed
+      from @2, weights only), restored weights-only, fingerprints to each
+      unit's source table on the card, and serves (batch 8 x 1024, 128
+      tokens) the tokens of its zero-copy variant served from the run
+      (``variant_select``); a ``VariantSet`` serves @2's block_001 bit for
+      bit; (c) a source whose final_norm object (copied; every other
+      object a hard link) has a payload byte flipped under a recomputed
+      crc32 fails the verifying merge with ``ChunkCorruption`` and commits
+      no manifest, while ``verify=False`` copies it; ``block_fp`` launched
+      by the merges, ``fused_adamw`` by the resume, ``flash_attention`` by
+      the serves;
 4. print the main paths' step/save/restore times, the serve line, the
-   Mamba line, the int8 line, the kernels line, the card line, and last
+   Mamba line, the int8 line, the merge line, the kernels line, the card
+   line, and last
    the ``{"ok": true, "device": ...}`` line; each phase logs its wall
    time; with ``--record PATH``, the full record of every phase also goes
    to PATH (written even when a check fails).
@@ -125,12 +143,14 @@ import argparse
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1447,6 +1467,279 @@ def phase_3a(torch, dev, store: Path, out: dict) -> dict:
     return ref
 
 
+def flip_payload_byte(path: Path, digest: str) -> None:
+    """Rewrite the full object at ``path`` with one payload byte of its
+    first record flipped and that record's crc32 recomputed: the envelope,
+    its fingerprint table and so its address stay, and only a recompute of
+    the table from the tensors can see the change."""
+    from repro_torch.checkpoint import _msgpack, workers
+
+    env = workers.parse_envelope(path.read_bytes(), digest)
+    if env["format"] != "full":
+        raise AssertionError(f"{digest} is a {env['format']} object")
+    meta, items = workers.decode_chunk_items(env["payload"])
+    name, shape, dtype, raw = items[0]
+    data = bytearray(raw)
+    data[0] ^= 0x01
+    items[0] = (name, shape, dtype, memoryview(data))
+    env["payload"] = workers.encode_chunk_blob(items, meta)
+    path.write_bytes(b"".join(bytes(p) for p in _msgpack.pack_parts(env)))
+
+
+def _write_recipe(path: Path, base: str, output: Path, select,
+                  optimizer: bool = True) -> Path:
+    from repro_torch.core import yamlish
+
+    path.write_text(yamlish.dumps({
+        "base": base, "output": str(output), "optimizer": optimizer,
+        "select": [{"units": list(u), "from": f} for u, f in select]}) + "\n")
+    return path
+
+
+def _tailor_cli(recipe: Path, dev) -> dict:
+    """``python -m repro_torch.core.tailor RECIPE`` in a child process on
+    ``dev``; returns its stats line and the child's ``block_fp`` launch
+    count (the merge's own: nothing else runs there)."""
+    code = ("import json, runpy, sys\n"
+            "from repro_torch.kernels import block_fp\n"
+            "sys.argv = ['tailor', *sys.argv[1:]]\n"
+            "runpy.run_module('repro_torch.core.tailor', "
+            "run_name='__main__')\n"
+            "print(json.dumps({'block_fp': block_fp.KERNEL.launches}))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code, str(recipe),
+                          "--workers", "4", "--device", str(dev)],
+                         capture_output=True, text=True, env=env,
+                         timeout=900)
+    if out.returncode != 0:
+        raise AssertionError(f"the merge CLI failed ({out.returncode}):\n"
+                             f"{out.stdout}\n{out.stderr}")
+    lines = out.stdout.strip().splitlines()
+    log(lines[0])
+    return {"stats": json.loads(lines[-2]),
+            "block_fp_launches": json.loads(lines[-1])["block_fp"]}
+
+
+def _entry_digests(root: Path, step: int) -> dict:
+    from repro_torch.core.manifest import ManifestStore
+
+    m = ManifestStore(root).load(step)
+    return {(u, k): r.digest for u, kinds in m.entries.items()
+            for k, r in kinds.items()}
+
+
+def _files_equal(a: Path, b: Path) -> bool:
+    return subprocess.run(["cmp", "-s", str(a), str(b)]).returncode == 0
+
+
+def phase_3g(torch, dev, store: Path, resumed_3a, out: dict) -> None:
+    """The explicit merge on 3a's store (``store / "run"``: parity, events
+    2, 4 and 6), with the launch counts set to 0 before it and read after:
+    (a) the merge CLI, in a child process on the card, assembles the
+    implicit merge of step 4 from a recipe (base @4, the units @4 carries
+    over from step 2 taken from @2): its entries equal @4's and every
+    object equals the source's byte for byte; a resume from it to step 6
+    repeats 3a's resumed losses within MODE_TOL and commits @6's digests;
+    (b) a Frankenstein (base @6, block_001 and embed from @2, weights
+    only) restores to each unit's source table on the card, and serves the
+    tokens of its zero-copy variant (``variant_select``); a ``VariantSet``
+    serves @2's block_001 bit for bit; (c) a source whose final_norm
+    object has a payload byte flipped under a recomputed crc32 fails the
+    verifying merge with ``ChunkCorruption`` and no manifest, and
+    ``verify=False`` copies it."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.checkpoint.serial import ChunkCorruption
+    from repro_torch.checkpoint import fingerprint as fputil
+    from repro_torch.checkpoint.swap import VariantSet
+    from repro_torch.core import Recipe, merge
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.core.manifest import ManifestStore
+    from repro_torch.core.policies import make_policy
+    from repro_torch.kernels import block_fp as bfp
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
+
+    run = store / "run"
+    t0 = time.perf_counter()
+    _release(torch)
+    _zero_counts()
+    # (a) the implicit merge of step 4, made explicit
+    m4 = ManifestStore(run).load(4)
+    carried = sorted({u for u, kinds in m4.entries.items()
+                      for r in kinds.values() if r.step == 2})
+    merged_a = store / "merged_a"
+    marks = [time.perf_counter()]
+    cli = _tailor_cli(_write_recipe(store / "a.yaml", f"{run}@4", merged_a,
+                                    [(carried, f"{run}@2")]), dev)
+    if _entry_digests(merged_a, 4) != _entry_digests(run, 4):
+        raise AssertionError("the explicit merge's entries differ from the "
+                             "implicit merge of step 4")
+    marks.append(time.perf_counter())
+    objs = sorted((merged_a / "objects").glob("*/*.chunk"))
+    # one ``cmp`` per object, 8 at a time: ~27 GB of reads
+    with ThreadPoolExecutor(8) as pool:
+        same = list(pool.map(
+            lambda p: _files_equal(p, run / p.relative_to(merged_a)), objs))
+    if not objs or not all(same):
+        raise AssertionError("a merged object differs from its source")
+    marks.append(time.perf_counter())
+    kw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
+              batch=BATCH, seq_len=SEQ, policy_name="parity", seed=SEED,
+              device=str(dev), ckpt_async=False)
+    res = train(ckpt_dir=str(merged_a), total_steps=STEPS,
+                ckpt_interval=CKPT_INTERVAL, resume=True, **kw)
+    marks.append(time.perf_counter())
+    diffs = {s: abs(l - dict(resumed_3a)[s]) for s, l in res["losses"]}
+    out["a"] = {"recipe_carried_units": carried, "merge": cli["stats"],
+                "merge_block_fp_launches": cli["block_fp_launches"],
+                "objects": len(objs),
+                # wall seconds: the CLI child (start-up included), the
+                # byte compare, the resume (restore, 2 steps, event 6)
+                "seconds": dict(zip(("cli", "compare", "resume"),
+                                    (b - a for a, b in zip(marks,
+                                                           marks[1:])))),
+                "resume_restore": res["restore_stats"],
+                "losses_vs_3a_resumed": diffs}
+    log(f"3g (a) merge {cli['stats']}, {len(objs)} objects; resumed losses "
+        f"vs 3a: {diffs}")
+    if [s for s, _ in res["losses"]] != [s for s, _ in resumed_3a] or \
+            not all(d <= MODE_TOL for d in diffs.values()):
+        raise AssertionError(f"the resume from the merged root left 3a's "
+                             f"losses: {diffs}")
+    if _entry_digests(merged_a, STEPS) != _entry_digests(run, STEPS):
+        raise AssertionError("the merged root's step-6 digests differ from "
+                             "the run's")
+    _check_launched({"block_fp": cli["block_fp_launches"]}, ["block_fp"],
+                    "the merge CLI")
+    shutil.rmtree(merged_a)
+    _release(torch)
+
+    # (b) a Frankenstein and its zero-copy variant
+    model = _model()
+    registry = LayerRegistry(model)
+    like = steps.state_specs(model)
+    wlike = {"params": like["params"]}
+    select = [(["block_001", "embed"], f"{run}@2")]
+    merged_b = store / "merged_b"
+    tb = time.perf_counter()
+    n0 = bfp.KERNEL.launches
+    stats_b = merge(Recipe.load(_write_recipe(
+        store / "b.yaml", f"{run}@6", merged_b, select, optimizer=False)),
+        device=dev)
+    merge_b_launches = bfp.KERNEL.launches - n0
+    mgr_b = CheckpointManager(merged_b, registry, make_policy(
+        "parity", model.layer_units()), async_save=False)
+    params = mgr_b.restore(wlike, device=dev, parts=("params",))["params"]
+    mgr_b.close()
+    mgr = CheckpointManager(run, registry, make_policy(
+        "parity", model.layer_units()), async_save=False)
+    for unit in registry.unit_names():
+        src = 2 if unit in select[0][0] else 6
+        digest = mgr.manifests.load(src).entries[unit]["weights"].digest
+        cur = bfp.tree_to_host(bfp.fingerprint_tree(
+            registry.extract_unit(params, unit)))
+        if fputil.pack_table(cur) != fputil.pack_table(
+                mgr.store.load_fp_table(digest)):
+            raise AssertionError(f"3g (b): {unit}'s device fingerprints "
+                                 f"differ from step {src}'s table")
+    del params
+    skw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
+               batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+               new_tokens=SERVE_NEW, seed=SEED, device=str(dev))
+    explicit = serve(from_ckpt=str(merged_b), **skw)
+    variant = serve(from_ckpt=str(run), variant_base_step=STEPS,
+                    variant_select=["block_001,embed@2"], **skw)
+    vs = VariantSet(mgr, like, device=dev)
+    vs.materialize("base", base_step=STEPS)
+    vs.materialize("mix", base_step=STEPS,
+                   select=[(["block_001", "embed"], 2)])
+    cold2 = mgr.restore(wlike, device=dev, parts=("params",), step=2)
+    mix_is_step2 = _params_equal(
+        torch, registry.extract_unit(vs.params("mix"), "block_001"),
+        registry.extract_unit(cold2["params"], "block_001"))
+    base_differs = not _params_equal(
+        torch, registry.extract_unit(vs.params("base"), "block_001"),
+        registry.extract_unit(cold2["params"], "block_001"))
+    vstats = vs.stats()
+    del vs, cold2
+    mgr.close()
+    out["b"] = {"merge": stats_b, "merge_block_fp_launches": merge_b_launches,
+                "seconds": time.perf_counter() - tb,
+                "tokens_digest": {"merged": explicit["tokens_digest"],
+                                  "variant": variant["tokens_digest"]},
+                "serve_prefill_seconds": {
+                    "merged": explicit["prefill_seconds"],
+                    "variant": variant["prefill_seconds"]},
+                "variant_set": {"backend_reads": vstats["backend_reads"],
+                                "cache": vstats["cache"],
+                                "restore_seconds": {
+                                    n: v["seconds"] for n, v in
+                                    vstats["variants"].items()}}}
+    log(f"3g (b) merge {stats_b}; digests {out['b']['tokens_digest']}")
+    if explicit["tokens_digest"] != variant["tokens_digest"]:
+        raise AssertionError("the Frankenstein and its zero-copy variant "
+                             "serve different tokens")
+    if not (mix_is_step2 and base_differs):
+        raise AssertionError(f"VariantSet: mix's block_001 equals step 2's: "
+                             f"{mix_is_step2}; base's differs: "
+                             f"{base_differs}")
+    _check_launched({"block_fp": merge_b_launches}, ["block_fp"],
+                    "the merge of (b)")
+    shutil.rmtree(merged_b)
+    _release(torch)
+
+    # (c) a flipped byte under a recomputed crc32
+    tc = time.perf_counter()
+    scr = store / "corrupt_src"
+    (scr / "manifests").mkdir(parents=True)
+    for f in (run / "manifests").glob("*.json"):
+        shutil.copyfile(f, scr / "manifests" / f.name)
+    shutil.copyfile(run / "LATEST", scr / "LATEST")
+    bad = ManifestStore(run).load(STEPS).entries["final_norm"]["weights"]
+    for f in (run / "objects").glob("*/*.chunk"):
+        dst = scr / f.relative_to(run)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        if f.stem == bad.digest:
+            shutil.copyfile(f, dst)
+        else:
+            os.link(f, dst)
+    bad_path = scr / bad.relpath
+    flip_payload_byte(bad_path, bad.digest)
+    merged_c = store / "merged_c"
+    recipe_c = Recipe.load(_write_recipe(
+        store / "c.yaml", f"{scr}@{STEPS}", merged_c,
+        [(["block_001", "embed"], f"{scr}@2")], optimizer=False))
+    try:
+        merge(recipe_c, device=dev)
+        caught = None
+    except ChunkCorruption as e:
+        caught = str(e)
+    committed = ManifestStore(merged_c).all_steps()
+    shutil.rmtree(merged_c)
+    merge(recipe_c, verify=False, device=dev)
+    copied = _files_equal(merged_c / bad.relpath, bad_path)
+    shutil.rmtree(merged_c)
+    shutil.rmtree(scr)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    out["c"] = {"caught": caught, "manifests_committed": committed,
+                "unverified_copy_equal": copied,
+                "seconds": time.perf_counter() - tc}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"3g (c) caught: {caught}; phase 3g in {out['seconds']:.1f} s, "
+        f"launches {launches}")
+    if caught is None or "fingerprint mismatch" not in caught or committed:
+        raise AssertionError(f"3g (c): the flipped byte was not caught by "
+                             f"the table recompute ({caught!r}), or a "
+                             f"manifest was committed ({committed})")
+    if not copied:
+        raise AssertionError("3g (c): --no-verify did not copy the object")
+    _check_launched(launches, ("block_fp", "fused_adamw", "flash_attention"),
+                    "phase 3g")
+
+
 _EVENT_KEYS = ("step", "selected_units", "snapshot_seconds", "stage_seconds",
                "writeback_seconds", "commit_seconds", "gc_seconds",
                "stall_seconds", "seconds", "d2h_bytes",
@@ -2545,6 +2838,10 @@ def report(record: dict, path) -> None:
             k["launches"] = mp_b["launches"][k["name"]]
             k["launches_sync_path"] = mp_a["launches"][k["name"]]
             k["launches_mamba_path"] = mp_e["train"]["launches"][k["name"]]
+        # the merge path (3g); its CLI's block_fp launches are the child's
+        k["launches_merge_path"] = mp["3g"]["launches"][k["name"]] + (
+            mp["3g"]["a"]["merge_block_fp_launches"]
+            if k["name"] == "block_fp" else 0)
     write_record(record, path)
     a_secs = {e["step"]: e["seconds"] for e in mp_a["save_events"]}
     ctl_secs = {e["step"]: e["seconds"]
@@ -2629,6 +2926,17 @@ def report(record: dict, path) -> None:
            "restore_h2d_bytes": mp_f["restore_on_resume"]["h2d_bytes"],
            "event_seconds": {e["step"]: e["seconds"]
                              for e in mp_f["save_events"]}} | card}))
+    mp_g = mp["3g"]
+    print(json.dumps({"merge": {
+        "a_implicit_step4": {k: mp_g["a"][k] for k in (
+            "merge", "merge_block_fp_launches", "objects",
+            "losses_vs_3a_resumed", "seconds")}
+        | {"resume_restore_seconds": mp_g["a"]["resume_restore"]["seconds"]},
+        "b_frankenstein": {k: mp_g["b"][k] for k in (
+            "merge", "merge_block_fp_launches", "tokens_digest",
+            "variant_set", "seconds")},
+        "c_corruption": mp_g["c"], "launches": mp_g["launches"],
+        "seconds": mp_g["seconds"]} | card}))
     print(json.dumps({"kernels": [k | card for k in kernels]}))
 
 
@@ -2682,13 +2990,16 @@ def main() -> int:
               "main_path": {"3a": {}, "3b": {}, "3c": {},
                             "3d": {"serve": {}, "store": {}},
                             "3e": {"train": {}, "store": {}, "serve": {}},
-                            "3f": {}}}
+                            "3f": {}, "3g": {}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
+        log(f"phase 3a done at {time.perf_counter() - t_start:.1f} s")
+        phase_3g(torch, dev, store / "3a", mp["3a"]["losses_resumed"],
+                 mp["3g"])
         shutil.rmtree(store / "3a", ignore_errors=True)
         torch.cuda.empty_cache()
-        log(f"phase 3a done at {time.perf_counter() - t_start:.1f} s")
+        log(f"phase 3g done at {time.perf_counter() - t_start:.1f} s")
         phase_3b(torch, dev, store / "3b", ref, mp["3b"])
         kernels.append(block_gather_at_main_shape(torch, dev,
                                                   store / "3b" / "run"))

@@ -146,6 +146,9 @@ class ChunkStore:
                         "decode": 0.0}
         self.stats: Dict[str, int] = {}
         self.reset_stats()
+        # Object reads that reached the backend (the JAX store's counter of
+        # the same name), for the whole life of the store.
+        self.backend_reads = 0
 
     # ---- addressing ----
     def object_relpath(self, digest: str) -> str:
@@ -198,26 +201,54 @@ class ChunkStore:
                                   "codec": env.get("codec"),
                                   "nbytes": nbytes}
 
+    def _read_blob(self, digest: str,
+                   alloc: Optional[Callable[[int], Any]] = None
+                   ) -> memoryview:
+        t0 = time.perf_counter()
+        blob = self.backend.read_into(digest, alloc or bytearray)
+        self._add_seconds("read_io", time.perf_counter() - t0)
+        with self._lock:
+            self.backend_reads += 1
+        return blob
+
     def read_envelope(self, digest: str,
                       alloc: Optional[Callable[[int], Any]] = None
                       ) -> Dict[str, Any]:
         """Parsed envelope of ``digest``; its bins are views into a buffer
         from ``alloc(nbytes)`` (a bytearray by default)."""
-        t0 = time.perf_counter()
-        blob = self.backend.read_into(digest, alloc or bytearray)
-        self._add_seconds("read_io", time.perf_counter() - t0)
+        blob = self._read_blob(digest, alloc)
         env = workers.parse_envelope(blob, digest)
         self._remember(digest, env, blob.nbytes)
         return env
 
-    def object_info(self, digest: str) -> Dict[str, Any]:
+    def object_info(self, digest: str, blob=None) -> Dict[str, Any]:
+        """``{"stored", "base", "codec", "nbytes"}`` of an object: cached,
+        else parsed from ``blob`` (the object's bytes, already read) or
+        from a read of the object."""
         with self._lock:
             info = self._info.get(digest)
         if info is None:
-            self.read_envelope(digest)
+            if blob is None:
+                self.read_envelope(digest)
+            else:
+                blob = memoryview(blob).cast("B")
+                self._remember(digest, workers.parse_envelope(blob, digest),
+                               blob.nbytes)
             with self._lock:
                 info = self._info[digest]
         return dict(info)
+
+    # ---- blob-level copy (the merge engine) ----
+    def read_object_bytes(self, digest: str) -> memoryview:
+        """The raw envelope blob of ``digest``: no decode, no verify.  The
+        merge moves objects between stores with this and
+        ``write_object_bytes`` without materializing tensors."""
+        return self._read_blob(digest)
+
+    def write_object_bytes(self, digest: str, blob) -> int:
+        """Store a pre-encoded envelope blob under its digest (atomic and
+        idempotent: content addressing makes equal digests equal bytes)."""
+        return self.backend.write(digest, blob)
 
     def _write_object(self, digest: str, env: Dict[str, Any]) -> int:
         parts = _msgpack.pack_parts(env)
@@ -450,6 +481,17 @@ class ChunkStore:
                     self._refcounts.pop(digest, None)
                     self._fp_tables.pop(digest, None)
         return freed
+
+    # ---- durability (one tier) ----
+    def drain_spill(self) -> None:
+        """Durability barrier before a manifest commit: the ``local``
+        backend is the durable tier, so nothing is ever owed."""
+
+    def durability(self) -> Dict[str, Any]:
+        """What a manifest commit records under ``meta["storage"]``: the
+        JAX store's answer for its ``local`` backend."""
+        return {"durable_tier": "local", "pending_spill": 0,
+                "durable_on": "durable", "backend": self.backend.name}
 
     def close(self) -> None:
         self.backend.close()

@@ -66,9 +66,6 @@ log = logging.getLogger("repro_torch.checkpoint")
 PyTree = Any
 
 _TIMINGS = ("fingerprint_seconds", "d2h_seconds", "write_seconds")
-# The port's store has one tier: every commit is durable on local disk.
-_STORAGE = {"durable_tier": "local", "pending_spill": 0,
-            "durable_on": "durable", "backend": "local"}
 # Above this dirty fraction a block-sparse delta stops paying (index
 # overhead plus a near-full payload): write a full object instead.
 MAX_DIRTY_FRAC = 0.5
@@ -297,7 +294,7 @@ class CheckpointManager:
         reserved when it began; the counter itself only moves forward.
         ``durability_barrier`` has nothing to wait for on one tier."""
         del durability_barrier
-        storage = dict(_STORAGE)
+        storage = self.store.durability()
         idx = self._event_index if event_index is None else int(event_index)
         manifest = Manifest(step=step, entries=entries,
                             meta=dict(meta or {}, event_index=idx,

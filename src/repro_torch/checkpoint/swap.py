@@ -42,9 +42,15 @@ lives in the stacked ``blocks`` leaves, so swapping any one layer stages a
 second copy of every stacked leaf it touches until the publish frees the
 old one.  At full depth that is close to twice the weights' memory.
 
+Variants: :class:`VariantSet` serves K named weight variants from one
+store, each a zero-copy composite manifest
+(``core.tailor.variant_manifest``) cold-loaded as its own
+:class:`WeightService`.
+
 Not ported yet: swapping a sharded (shard-set) entry, which raises
-``SwapError`` (ROADMAP A3), and ``VariantSet`` with the block cache (A2,
-A6).
+``SwapError`` (sharded checkpoints are ROADMAP A4), and the block cache
+under the store's reads that lets variants share each digest's read
+(ROADMAP A3): every variant reads its objects from the store.
 """
 from __future__ import annotations
 
@@ -60,6 +66,7 @@ from repro_torch.checkpoint.chunk_store import ReadSession
 from repro_torch.checkpoint.restore import place_leaves, verify_placed
 from repro_torch.checkpoint.serial import flatten_with_paths
 from repro_torch.core.manifest import Manifest
+from repro_torch.core.tailor import variant_manifest
 from repro_torch.devices import resolve_device
 from repro_torch.dtypes import torch_dtype
 
@@ -354,3 +361,46 @@ class WeightService:
                                             for path, t in want])
         if fp_blob is not None:
             verify_placed(dst, fp_blob, digest)
+
+
+class VariantSet:
+    """K named weight variants served from one store.
+
+    Each :meth:`materialize` builds a zero-copy composite manifest
+    (``variant_manifest``) and cold-loads it as a :class:`WeightService`
+    through the shared manager onto ``device``; every variant keeps its
+    service's hot-swap.  Without the block cache (ROADMAP A3) each variant
+    reads its own objects: ``stats()["cache"]`` is None and
+    ``backend_reads`` counts every object read of the store.
+    """
+
+    def __init__(self, manager, state_like: Dict[str, PyTree], *,
+                 device=None):
+        self.mgr = manager
+        self.state_like = state_like
+        self.device = resolve_device(device)
+        self.services: Dict[str, WeightService] = {}
+
+    def materialize(self, name: str, *, base_step: Optional[int] = None,
+                    select: Any = ()) -> WeightService:
+        manifest = variant_manifest(self.mgr.manifests,
+                                    base_step=base_step, select=select,
+                                    name=name)
+        svc = WeightService(self.mgr, self.state_like, device=self.device,
+                            manifest=manifest)
+        self.services[name] = svc
+        return svc
+
+    def __getitem__(self, name: str) -> WeightService:
+        return self.services[name]
+
+    def params(self, name: str) -> PyTree:
+        return self.services[name].current()
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "variants": {n: dict(s.restore_stats)
+                         for n, s in self.services.items()},
+            "cache": None,
+            "backend_reads": self.mgr.store.backend_reads,
+        }

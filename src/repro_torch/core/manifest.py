@@ -17,12 +17,24 @@ from __future__ import annotations
 import dataclasses
 from collections import Counter
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from repro_torch.checkpoint.backends.localfs import atomic_write
 from repro_torch.checkpoint.chunk_store import ChunkRef
 from repro_torch.checkpoint.faults import crash_point
 from repro_torch.core import jsonutil
+
+
+def is_sharded(entry) -> bool:
+    """Whether a manifest entry is a shard set (a tuple of refs).  The
+    port reads no shard set (``Manifest.from_json`` raises), so its entries
+    are single refs; the merge keeps the JAX engine's shape all the same."""
+    return isinstance(entry, (tuple, list))
+
+
+def entry_refs(entry) -> Tuple[ChunkRef, ...]:
+    """The refs behind an entry (a 1-tuple for a single object)."""
+    return tuple(entry) if is_sharded(entry) else (entry,)
 
 
 @dataclasses.dataclass
@@ -50,7 +62,7 @@ class Manifest:
         def dec(e) -> ChunkRef:
             if isinstance(e, list):
                 raise ValueError("sharded manifest entries are not ported "
-                                 "to repro_torch yet")
+                                 "to repro_torch yet (ROADMAP A4)")
             return ChunkRef.from_json(e)
 
         return Manifest(

@@ -1,0 +1,322 @@
+"""LLMTailor explicit merge engine of the port, and its CLI.
+
+    python -m repro_torch.core.tailor RECIPE [--workers N] [--no-verify] \\
+        [--device cpu]
+
+Assembles a resumable "Frankenstein" checkpoint from layer units of
+several source checkpoints per a YAML/JSON recipe (``core/recipe.py``):
+the weights objects, the per-layer optimizer groups (master/m/v) unless
+the recipe says ``optimizer: false``, and the step-level metadata, taken
+from the base (newest) source.  The output is a normal checkpoint root
+(one manifest and content-addressed objects) that a restore, a resumed
+run or a server of either package consumes directly.  It is the JAX
+package's ``repro/core/tailor.py`` on the port's single ``local`` tier, and
+writes the same manifest and object bytes.
+
+Digest-level copy: an object moves as its opaque envelope blob
+(``ChunkStore.read_object_bytes``/``write_object_bytes``) under the same
+content digest, read once from its source.  Units that share content land
+as one object (the first claimant copies, later ones wait for it), and a
+delta object brings its full base along, once.  A thread pool of
+``workers`` overlaps the reads and writes.
+
+Verification (``verify=True``, the default) reads every copied object back
+from the output store: the crc32 of each record and the table->digest or
+payload->digest checks of ``ChunkStore.read_items``, and then, where the
+JAX package recomputes the object's fingerprint table (every fp-addressed
+object but a lossy full one), the object's tensors are placed on
+``device`` and fingerprinted there (``restore.verify_placed``: the
+``block_fp`` kernel on the card, its plain version on the CPU).  A
+mismatch raises ``ChunkCorruption`` and no manifest is committed.  An
+object whose encoding the port cannot decode (an XOR ``delta``, zstd
+compression) raises ``CodecUnavailable`` (ROADMAP A2); ``verify=False``
+(``--no-verify``) copies it blob for blob, as the JAX merge does.  Device
+memory of the verification is one object's tensors per worker, freed after
+its check.
+
+``device`` is resolved by ``devices.resolve_device``: the card by default,
+the CPU only when asked for.  Not ported: merging from or into the JAX
+package's RAM tiers (its ``stores=``/``out_store=``, ROADMAP A3).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.checkpoint import workers as workers_lib
+from repro_torch.checkpoint.chunk_store import ChunkRef, ChunkStore
+from repro_torch.checkpoint.restore import (host_buffer_alloc, place_leaves,
+                                            verify_placed)
+from repro_torch.checkpoint.serial import unflatten_from_paths
+from repro_torch.core.manifest import (Manifest, ManifestStore, entry_refs,
+                                       is_sharded)
+from repro_torch.core.recipe import CheckpointRef, Recipe, expand_patterns
+from repro_torch.devices import resolve_device
+from repro_torch.dtypes import from_bytes, torch_dtype
+
+# Codecs of full fp-addressed objects whose tensors are what their table
+# describes (the JAX package's rule): a lossy full object decodes to other
+# tensors, and its record crc32s are its check.
+_TABLE_CHECKED_FULL_CODECS = ("none", "zstd")
+
+
+class MergeError(RuntimeError):
+    pass
+
+
+def variant_manifest(manifests: ManifestStore, *,
+                     base_step: Optional[int] = None,
+                     select: Any = (),
+                     name: str = "variant") -> Manifest:
+    """The zero-copy sibling of :func:`merge` for serving variants.
+
+    A synthetic in-memory :class:`Manifest` whose entries are picked from
+    several committed manifests of one store: no object is copied, no
+    manifest is committed, and every entry keeps its digest.  Hand it to
+    ``WeightService(manifest=...)`` (or a restore's ``manifest=``).
+
+    ``select`` is a sequence of ``(patterns, step)`` pairs (or dicts with
+    ``units``/``step`` keys, the recipe-YAML shape); patterns use the
+    recipe syntax and later rules win.  Unselected units come from
+    ``base_step`` (LATEST when None).
+    """
+    base = manifests.load(base_step)
+    if base is None:
+        raise MergeError(f"no manifest at step {base_step!r} "
+                         f"under {manifests.root}")
+    all_units = sorted(base.entries)
+    assignment: Dict[str, int] = {u: base.step for u in all_units}
+    for item in select:
+        if isinstance(item, dict):
+            pats, step = item["units"], int(item["step"])
+        else:
+            pats, step = item[0], int(item[1])
+        if isinstance(pats, str):
+            pats = [pats]
+        for u in expand_patterns(list(pats), all_units):
+            assignment[u] = step
+    sources: Dict[int, Manifest] = {base.step: base}
+    entries: Dict[str, Dict[str, Any]] = {}
+    for unit in all_units:
+        step = assignment[unit]
+        m = sources.get(step)
+        if m is None:
+            m = manifests.load(step)
+            if m is None:
+                raise MergeError(f"variant {name!r}: no manifest at step "
+                                 f"{step} under {manifests.root}")
+            sources[step] = m
+        if unit not in m.entries:
+            raise MergeError(f"variant {name!r}: unit {unit!r} missing "
+                             f"from manifest {step}")
+        entries[unit] = dict(m.entries[unit])
+    return Manifest(
+        step=base.step,
+        entries=entries,
+        meta=dict(base.meta,
+                  variant={"name": name, "assignment": assignment}),
+        saved_units=[],
+    )
+
+
+def _load_manifest(ref: CheckpointRef) -> Tuple[Manifest, ChunkStore]:
+    m = ManifestStore(ref.root).load(ref.step)
+    if m is None:
+        raise MergeError(f"no manifest at {ref}")
+    return m, ChunkStore(ref.root)
+
+
+def table_checked(env: Dict[str, Any]) -> bool:
+    """Whether verifying an object recomputes its fingerprint table (the
+    JAX package's rule, ``repro/checkpoint/chunk_store.py:676-680``): every
+    fp-addressed object but a full one of a lossy codec."""
+    return env.get("fp") is not None and (
+        env.get("format") != "full"
+        or env.get("codec") in _TABLE_CHECKED_FULL_CODECS)
+
+
+def verify_object(store: ChunkStore, digest: str,
+                  device: torch.device) -> None:
+    """Read ``digest`` back from ``store`` and check it: crc32 per record
+    and the address checks (``read_items``), then, where
+    :func:`table_checked`, its tensors placed on ``device`` against the
+    stored table.  Raises ``ChunkCorruption`` or ``CodecUnavailable``."""
+    alloc = host_buffer_alloc(device)
+    envelopes: Dict[str, Dict[str, Any]] = {}
+
+    def envelope(d: str) -> Dict[str, Any]:
+        env = envelopes.get(d)
+        if env is None:
+            env = envelopes[d] = store.read_envelope(d, alloc)
+        return env
+
+    try:
+        items, _ = store.read_items(digest, envelope=envelope)
+    except workers_lib.CodecUnavailable as e:
+        raise workers_lib.CodecUnavailable(
+            f"cannot verify object {digest}: {e} (ROADMAP A2; --no-verify "
+            "copies it unverified)") from e
+    env = envelopes[digest]
+    if not table_checked(env):
+        return
+    leaves, pairs = {}, []
+    for name, shape, dtype, raw in items:
+        leaves[name] = torch.empty(tuple(shape), dtype=torch_dtype(dtype),
+                                   device=device)
+        pairs.append((leaves[name],
+                      raw if isinstance(raw, workers_lib.Int8Record)
+                      else from_bytes(raw, shape, dtype)))
+    place_leaves(pairs)
+    verify_placed(unflatten_from_paths(leaves), bytes(env["fp"]), digest)
+
+
+def merge(recipe: Recipe, *, workers: int = 4, verify: bool = True,
+          device=None) -> Dict[str, Any]:
+    """Execute a recipe; returns the JAX merge's stats (``units``,
+    ``bytes`` written, ``chunks``, ``shared_chunks``, ``sources``,
+    ``seconds``) and ``verify_seconds`` (summed over the workers)."""
+    dev = resolve_device(device)
+    t0 = time.time()
+    base_manifest, _ = _load_manifest(recipe.base)
+    all_units = sorted(base_manifest.entries)
+    assignment = recipe.assignment(all_units)
+
+    # Open every distinct source once.
+    sources: Dict[str, Tuple[Manifest, ChunkStore]] = {}
+    for ref in {str(r): r for r in assignment.values()}.values():
+        sources[str(ref)] = _load_manifest(ref)
+
+    out_root = Path(recipe.output)
+    out_store = ChunkStore(out_root)
+    out_step = base_manifest.step
+    kinds = ("weights", "opt") if recipe.optimizer else ("weights",)
+
+    stats: Dict[str, Any] = {"units": len(all_units), "bytes": 0,
+                             "chunks": 0, "shared_chunks": 0,
+                             "sources": len(sources), "verify_seconds": 0.0}
+    # Two units (or a delta and its base) may resolve to the same digest;
+    # the first claimant copies, later ones block until the object landed.
+    claims: Dict[str, threading.Event] = {}
+    lock = threading.Lock()
+
+    def copy_object(src_store: ChunkStore, digest: str) -> int:
+        """Copy one object (and, for a delta, its full base) by digest.
+        Returns the bytes newly written into the output store."""
+        with lock:
+            done = claims.get(digest)
+            owner = done is None
+            if owner:
+                done = claims[digest] = threading.Event()
+        if not owner:
+            done.wait()
+            return 0
+        try:
+            if out_store.has(digest):
+                return 0
+            if not src_store.has(digest):
+                raise MergeError(f"source object {digest} missing "
+                                 f"under {src_store.root}")
+            blob = src_store.read_object_bytes(digest)
+            info = src_store.object_info(digest, blob)
+            written = 0
+            if info["stored"] != "full" and info["base"]:
+                # XOR or block-sparse delta: the base is always a full
+                # object, so this is one level of recursion
+                written += copy_object(src_store, info["base"])
+            out_store.write_object_bytes(digest, blob)
+            return written + info["nbytes"]
+        finally:
+            done.set()
+
+    def copy_unit(unit: str) -> List[Tuple]:
+        """Copy (and verify) every object behind one unit before its
+        entries are emitted."""
+        src_manifest, src_store = sources[str(assignment[unit])]
+        if unit not in src_manifest.entries:
+            raise MergeError(f"unit {unit!r} missing from "
+                             f"{assignment[unit]}")
+        out_entries = []
+        for kind in kinds:
+            entry = src_manifest.entries[unit][kind]
+            written = shared = 0
+            out_refs = []
+            for ref in entry_refs(entry):
+                if not ref.digest:
+                    raise MergeError(
+                        f"unit {unit!r} in {assignment[unit]} is a legacy "
+                        "(pre-content-addressing) chunk; re-save it first")
+                w = copy_object(src_store, ref.digest)
+                written += w
+                shared += 0 if w else 1
+                if verify:
+                    tv = time.perf_counter()
+                    verify_object(out_store, ref.digest, dev)
+                    with lock:
+                        stats["verify_seconds"] += time.perf_counter() - tv
+                out_refs.append(ChunkRef(
+                    out_step, unit, kind,
+                    out_store.object_relpath(ref.digest),
+                    ref.nbytes, digest=ref.digest, stored=ref.stored,
+                    delta_base=ref.delta_base))
+            out_entry = (tuple(out_refs) if is_sharded(entry)
+                         else out_refs[0])
+            out_entries.append((unit, kind, out_entry, written, shared,
+                                len(out_refs)))
+        return out_entries
+
+    entries: Dict[str, Dict[str, Any]] = {}
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for refs in pool.map(copy_unit, all_units):
+            for unit, kind, entry, written, shared, n_objects in refs:
+                entries.setdefault(unit, {})[kind] = entry
+                stats["bytes"] += written
+                stats["chunks"] += n_objects
+                stats["shared_chunks"] += shared
+
+    # Every copied object is durable before the manifest naming it exists.
+    out_store.drain_spill()
+    # The configuration and metadata come from the base (newest) source.
+    manifest = Manifest(
+        step=out_step,
+        entries=entries,
+        meta=dict(base_manifest.meta,
+                  merged_from={u: str(r) for u, r in assignment.items()},
+                  recipe_optimizer=recipe.optimizer,
+                  storage=out_store.durability()),
+        saved_units=all_units,
+    )
+    ManifestStore(out_root).commit(manifest)
+    stats["seconds"] = time.time() - t0
+    return stats
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(
+        description="LLMTailor: assemble a resumable Frankenstein checkpoint")
+    ap.add_argument("recipe", help="YAML or JSON recipe path")
+    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--no-verify", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="where copied objects are verified: 'cuda' "
+                         "(default) or 'cpu'")
+    args = ap.parse_args()
+    recipe = Recipe.load(args.recipe)
+    stats = merge(recipe, workers=args.workers, verify=not args.no_verify,
+                  device=args.device)
+    print(f"[llmtailor] merged {stats['units']} units "
+          f"({stats['chunks']} chunks, {stats['shared_chunks']} shared, "
+          f"{stats['bytes']/2**20:.1f} MiB written) "
+          f"from {stats['sources']} checkpoints "
+          f"in {stats['seconds']:.2f}s -> {recipe.output}")
+    print(json.dumps(stats))
+
+
+if __name__ == "__main__":
+    main()

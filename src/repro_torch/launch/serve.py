@@ -3,7 +3,9 @@ autoregressive decode against the KV cache, on the card by default.
 
     python -m repro_torch.launch.serve --arch yi-9b [--full] \\
         [--num-layers N] --batch 8 --prompt-len 1024 --new-tokens 128 \\
-        [--from-ckpt ROOT [--from-step S] [--hot-swap]] [--device cpu]
+        [--from-ckpt ROOT [--from-step S] [--hot-swap] \\
+         [--variant-base-step S --variant-select PATTERNS@STEP ...]] \\
+        [--device cpu]
 
 Attention in prefill and decode runs the flash-attention kernel
 (``kernels/flash_attention``, CUDA on the card).  Weights come from random
@@ -15,13 +17,18 @@ partial restore that never opens an optimizer object:
 - ``--hot-swap`` then waits for a newer manifest and promotes it by digest
   diff (``checkpoint/swap.py``): unchanged units move nothing, block-delta
   units scatter only their dirty blocks; the result's ``swap`` key carries
-  the swap's stats.
+  the swap's stats;
+- ``--variant-select "PATTERNS@STEP"`` (repeatable, later rules win; comma
+  separates recipe patterns in one spec) with ``--variant-base-step``
+  serves a zero-copy composite variant assembled by
+  ``core.tailor.variant_manifest`` in place of a committed manifest: the
+  same weights as an explicit weights-only merge of that selection.
 
 ``--smoke`` (the default) serves the reduced config, ``--full`` the
 published one; ``--num-layers`` cuts the depth; ``--device cpu`` is the
-only way onto the CPU.  The block cache and variant serving of the JAX
-server (``--cache-mb``, ``--variant-*``) and its other store and IO
-backends are not ported yet.
+only way onto the CPU.  The block cache of the JAX server (``--cache-mb``,
+``--cache-shm``) and its other store and IO backends are not ported yet
+(ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ import hashlib
 import json
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,12 +53,28 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def parse_variant_select(specs: Sequence[str]) -> List[Tuple[List[str], int]]:
+    """``"block_000..block_003@900"`` -> ``([patterns], step)`` pairs;
+    comma separates multiple patterns in one spec."""
+    out: List[Tuple[List[str], int]] = []
+    for spec in specs:
+        pats, sep, step = spec.rpartition("@")
+        if not sep or not pats:
+            raise ValueError(
+                f"variant select {spec!r} must look like PATTERNS@STEP")
+        out.append(([p.strip() for p in pats.split(",") if p.strip()],
+                    int(step)))
+    return out
+
+
 def serve(*, arch: str, reduced: bool = True, batch: int = 4,
           prompt_len: int = 64, new_tokens: int = 32,
           from_ckpt: Optional[str] = None, seed: int = 0,
           from_step: Optional[int] = None, hot_swap: bool = False,
           swap_wait: float = 30.0, swap_poll: float = 0.2, device=None,
-          num_layers: Optional[int] = None) -> Dict[str, Any]:
+          num_layers: Optional[int] = None,
+          variant_base_step: Optional[int] = None,
+          variant_select: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     dev = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
     if num_layers is not None:
@@ -64,14 +87,21 @@ def serve(*, arch: str, reduced: bool = True, batch: int = 4,
         from repro_torch.checkpoint.swap import WeightService
         from repro_torch.core.layer_registry import LayerRegistry
         from repro_torch.core.policies import make_policy
+        from repro_torch.core.tailor import variant_manifest
 
         registry = LayerRegistry(model)
         mgr = CheckpointManager(Path(from_ckpt), registry,
                                 make_policy("full", model.layer_units()),
                                 async_save=False)
         try:
+            manifest = None
+            if variant_select:
+                manifest = variant_manifest(
+                    mgr.manifests, base_step=variant_base_step,
+                    select=parse_variant_select(variant_select), name="cli")
             svc = WeightService(mgr, steps_lib.state_specs(model),
-                                device=dev, step=from_step)
+                                device=dev, step=from_step,
+                                manifest=manifest)
             restore_stats = dict(svc.restore_stats)
             if hot_swap:
                 # Follow the manifest chain until a newer checkpoint lands,
@@ -161,6 +191,15 @@ def main() -> None:
                     help="--hot-swap: seconds to wait for a newer manifest")
     ap.add_argument("--swap-poll", type=float, default=0.2,
                     help="--hot-swap: manifest poll interval (seconds)")
+    ap.add_argument("--variant-base-step", type=int,
+                    help="variant serving: base manifest step for units "
+                         "no --variant-select rule names")
+    ap.add_argument("--variant-select", action="append", default=None,
+                    metavar="PATTERNS@STEP",
+                    help="serve a zero-copy composite variant: take units "
+                         "matching PATTERNS (comma-separated recipe "
+                         "patterns, e.g. block_000..block_003) from "
+                         "manifest STEP; repeatable, later rules win")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
@@ -172,7 +211,9 @@ def main() -> None:
                            from_step=args.from_step, hot_swap=args.hot_swap,
                            swap_wait=args.swap_wait,
                            swap_poll=args.swap_poll, device=args.device,
-                           num_layers=args.num_layers), indent=2))
+                           num_layers=args.num_layers,
+                           variant_base_step=args.variant_base_step,
+                           variant_select=args.variant_select), indent=2))
 
 
 if __name__ == "__main__":

@@ -545,3 +545,72 @@ def test_int8_save_moves_records_and_restores_on_the_card(dev, tmp_path):
             assert torch.equal(byte_view(x).cpu(), byte_view(y)), p
     for m in mgrs.values():
         m.close()
+
+
+def _flip_payload_byte(path, digest):
+    """Flip one payload byte of a full object and recompute its record's
+    crc32 (table and address unchanged: only a table recompute sees it)."""
+    from repro_torch.checkpoint import _msgpack, workers
+
+    env = workers.parse_envelope(path.read_bytes(), digest)
+    assert env["format"] == "full"
+    meta, items = workers.decode_chunk_items(env["payload"])
+    name, shape, dtype, raw = items[0]
+    data = bytearray(raw)
+    data[0] ^= 0x01
+    items[0] = (name, shape, dtype, memoryview(data))
+    env["payload"] = workers.encode_chunk_blob(items, meta)
+    path.write_bytes(b"".join(bytes(p) for p in _msgpack.pack_parts(env)))
+
+
+def test_merge_verifies_on_the_card_and_catches_a_flipped_byte(dev,
+                                                               tmp_path):
+    """The merge's verification fingerprints each copied object on the
+    card (block_fp launches), writes the CPU merge's bytes, and raises on
+    a flipped payload byte whose crc32 was recomputed, committing no
+    manifest."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.checkpoint.serial import ChunkCorruption
+    from repro_torch.configs import get_config
+    from repro_torch.core import CheckpointRef, Recipe, SelectRule, merge
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.core.manifest import ManifestStore
+    from repro_torch.core.policies import make_policy
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("yi-9b", reduced=True))
+    state = steps.init_state(model, 0, torch.device("cpu"))
+    state = {k: (v if k == "step" else _to(v, dev)) for k, v in state.items()}
+    src = tmp_path / "src"
+    mgr = CheckpointManager(src, LayerRegistry(model),
+                            make_policy("parity", model.layer_units()),
+                            async_save=False, fp_block_bytes=4096)
+    mgr.save(state, step=2)
+    with torch.no_grad():
+        state["params"]["blocks"]["mlp"]["w_gate"][1, 0, :5] += 1
+    mgr.save(state, step=4)
+    mgr.close()
+
+    def recipe(root, out):
+        return Recipe(base=CheckpointRef(root, 4), output=tmp_path / out,
+                      select=[SelectRule(["block_000", "lm_head"],
+                                         CheckpointRef(root, 2))])
+
+    n0 = bfp.KERNEL.launches
+    stats = merge(recipe(src, "card"), device=dev)
+    assert bfp.KERNEL.launches > n0
+    assert stats["chunks"] == 2 * len(model.layer_units())
+    merge(recipe(src, "cpu"), device="cpu")
+    card = {p.relative_to(tmp_path / "card"): p.read_bytes()
+            for p in (tmp_path / "card").rglob("*.chunk")}
+    assert card and card == {
+        p.relative_to(tmp_path / "cpu"): p.read_bytes()
+        for p in (tmp_path / "cpu").rglob("*.chunk")}
+    ref = ManifestStore(src).load(4).entries["final_norm"]["weights"]
+    _flip_payload_byte(src / ref.relpath, ref.digest)
+    n0 = bfp.KERNEL.launches
+    with pytest.raises(ChunkCorruption, match="fingerprint mismatch"):
+        merge(recipe(src, "bad"), device=dev)
+    assert bfp.KERNEL.launches > n0
+    assert ManifestStore(tmp_path / "bad").all_steps() == []

@@ -1,5 +1,7 @@
 """The port stands alone: repro_torch and chip_smoke.py import neither jax
-nor the JAX package, nor msgpack, pydantic or ml_dtypes."""
+nor the JAX package, nor msgpack, pydantic or ml_dtypes, also not when
+they train, resume, serve and merge (``python -m repro_torch.core.tailor``)
+in one process."""
 import ast
 import os
 import subprocess
@@ -58,6 +60,15 @@ s = serve(arch={arch!r}, batch=2, prompt_len=8, new_tokens=2, device="cpu",
           num_layers=2, from_ckpt=kw["ckpt_dir"], from_step=2,
           hot_swap=True, swap_wait=0.0)
 assert s["served_step"] == 4 and s["swap"]["step_to"] == 4, s
+import json, pathlib, runpy
+recipe = pathlib.Path({str(tmp_path / 'recipe.json')!r})
+merged = pathlib.Path({str(tmp_path / 'merged')!r})
+recipe.write_text(json.dumps({{
+    "base": kw["ckpt_dir"] + "@4", "output": str(merged),
+    "select": [{{"units": "embed", "from": kw["ckpt_dir"] + "@2"}}]}}))
+sys.argv = ["tailor", str(recipe), "--device", "cpu", "--workers", "2"]
+runpy.run_module("repro_torch.core.tailor", run_name="__main__")
+assert (merged / "LATEST").read_text() == "4"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r})
 print("BAD", bad)
