@@ -127,9 +127,29 @@ which exits non-zero:
       no manifest, while ``verify=False`` copies it; ``block_fp`` launched
       by the merges, ``fused_adamw`` by the resume, ``flash_attention`` by
       the serves;
+   h. the canonical save path (``ckpt_fingerprint=False``) in 3a's
+      configuration, after 3g, the counts set to 0 before each part:
+      (c) on 3a's store, a resume to step 8 whose event writes canonical
+      objects over fp bases (their tables checked by ``block_fp``), its
+      losses recorded against 3a's reference run; a weights-only cold load
+      of 6 hot-swapped to 8 equals a cold load of 8, and a hot-swapped and
+      a cold-loaded server give one ``tokens_digest``; then 3a's store is
+      removed; (a) 3a's failing run and resume on the canonical path: the
+      resumed losses within MODE_TOL of 3a's, step 4's objects holding
+      3a's step-4 tensors (their canonical digests), no ``block_fp``
+      launch, the events recorded beside 3a's; (b) the unchanged re-save
+      of step 6's embed unit, from one restore of a hard-linked copy of
+      3a's step-6 store: fingerprinted on that copy (moves 0 B) and
+      canonical on (a)'s root (moves and hashes the unit, writes 0 B,
+      both objects dedup hits); (d) the merge CLI copies (a)'s step-4
+      XOR-delta weights units and their bases into step 6 (weights only),
+      verified, byte for byte; (e) one canonical int8 event and
+      its restore: ``quantize`` and ``dequantize`` launched, block_000's
+      objects equal to the CPU path's, the restored leaves to their
+      records dequantized;
 4. print the main paths' step/save/restore times, the serve line, the
-   Mamba line, the int8 line, the merge line, the kernels line, the card
-   line, and last
+   Mamba line, the int8 line, the merge line, the canonical path's
+   ``{"legacy": ...}`` line, the kernels line, the card line, and last
    the ``{"ok": true, "device": ...}`` line; each phase logs its wall
    time; with ``--record PATH``, the full record of every phase also goes
    to PATH (written even when a check fails).
@@ -140,6 +160,7 @@ end.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -214,7 +235,9 @@ SSD_PREFILL_TOL = 1e-3
 # A swap of a few 64 KiB blocks moves under 1% of the weights to the card.
 SWAP_H2D_FRAC = 0.01
 PROFILE_STEPS = 4    # decode steps traced for the device's busy time
-STORE_BYTES_NEEDED = 26e9
+# the stores' peak: 3h (a)'s canonical run beside a hard-linked copy of
+# 3a's step-6 store (3h's ``store_bytes`` records it)
+STORE_BYTES_NEEDED = 40e9
 CHAIN_ARCH = "llama3.2-3b"   # phase 3c, reduced config
 SSM_ARCH = "mamba2-370m"     # phase 3e, full width and depth
 SSM_BATCH = 4
@@ -1415,6 +1438,26 @@ def _check_losses(ref, res, tol_of, what: str) -> dict:
     return diffs
 
 
+@contextlib.contextmanager
+def _counts_at_restore(into: dict):
+    """Copy the launch counts into ``into`` as each
+    ``CheckpointManager.restore`` (a trainer's resume) returns."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+
+    plain = CheckpointManager.restore
+
+    def restore(self, *args, **kwargs):
+        state = plain(self, *args, **kwargs)
+        into.update(_read_counts())
+        return state
+
+    CheckpointManager.restore = restore
+    try:
+        yield into
+    finally:
+        CheckpointManager.restore = plain
+
+
 def _check_launched(launches: dict, names, what: str) -> None:
     for name in names:
         if launches[name] <= 0:
@@ -1740,6 +1783,355 @@ def phase_3g(torch, dev, store: Path, resumed_3a, out: dict) -> None:
                     "phase 3g")
 
 
+_CANON_EVENT_KEYS = ("step", "stall_seconds", "d2h_bytes", "hashed_bytes",
+                     "written_bytes", "delta_chunks", "full_chunks",
+                     "dedup_hits", "encode_seconds", "write_io_seconds")
+
+
+def _event_rows(events) -> list:
+    return [{k: e[k] for k in _CANON_EVENT_KEYS} for e in events]
+
+
+def _link_copy(src: Path, dst: Path, step: int) -> None:
+    """A store at ``dst`` holding ``src``'s step-``step`` manifest (as
+    LATEST) and the objects it references, hard-linked: it keeps them
+    when ``src`` is removed, and neither store's writes touch the other's
+    files."""
+    from repro_torch.core.manifest import ManifestStore
+
+    m = ManifestStore(src).load(step)
+    ManifestStore(dst).commit(m)
+    for digest in set(m.referenced_digests()):
+        rel = Path("objects") / digest[:2] / f"{digest}.chunk"
+        (dst / rel).parent.mkdir(parents=True, exist_ok=True)
+        os.link(src / rel, dst / rel)
+
+
+def _used_bytes(store: Path) -> int:
+    """Bytes the files under ``store`` take (a hard-linked file once)."""
+    seen, total = set(), 0
+    for p in store.rglob("*"):
+        st = p.lstat()
+        if p.is_file() and st.st_ino not in seen:
+            seen.add(st.st_ino)
+            total += st.st_size
+    return total
+
+
+def _canonical_digests(root: Path, step: int) -> dict:
+    """(unit, kind) -> the blake2b of the canonical payload of the
+    tensors the step-``step`` entry decodes to (read, crc32-checked and
+    re-framed on the host, 4 objects at a time)."""
+    from repro_torch.checkpoint import workers
+    from repro_torch.checkpoint.chunk_store import ChunkStore, content_digest
+    from repro_torch.core.manifest import ManifestStore
+
+    store = ChunkStore(root)
+    refs = {(u, k): r for u, kinds in ManifestStore(root).load(
+        step).entries.items() for k, r in kinds.items()}
+
+    def digest(ref):
+        items, _ = store.read_items(ref.digest)
+        return content_digest(workers.encode_chunk_blob(items, {}))
+
+    with ThreadPoolExecutor(4) as pool:
+        return dict(zip(refs, pool.map(digest, refs.values())))
+
+
+def _state_bytes(state) -> int:
+    from repro_torch.checkpoint.serial import flatten_with_paths
+
+    return sum(x.numel() * x.element_size()
+               for part in ("params", "opt")
+               for _, x in flatten_with_paths(state[part]))
+
+
+def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
+             out: dict) -> None:
+    """The canonical save path (``ckpt_fingerprint=False``) at 3a's
+    configuration, the launch counts set to 0 before each part and read
+    after it: (c) on 3a's store, a resume to step 8 whose event writes
+    canonical objects over fp bases (their tables checked by ``block_fp``),
+    then a weights-only cold load of 6 hot-swapped to 8, equal to a cold
+    load of 8, and hot vs cold ``tokens_digest``; (a) 3a's run on the
+    canonical path (fail at 5, resume to 6): resumed losses equal to 3a's
+    within MODE_TOL, step 4's objects decoding to 3a's step-4 tensors, no
+    ``block_fp`` launch; (b) the unchanged re-save of step 6's embed unit
+    from one restore of a hard-linked copy of 3a's step-6 store taken
+    before (c): fingerprint path on that copy, canonical on (a)'s root;
+    (d) the merge CLI copies (a)'s XOR-delta weights objects and their
+    bases (weights only), verified, byte for byte; (e) one canonical int8 event and
+    its restore (``quantize``, ``dequantize``), block_000's objects equal
+    to the CPU path's and the restored leaves to their records
+    dequantized.  ``ref`` is 3a's reference run and ``rec_a`` 3a's record.
+    3a's store is removed after (c).  ``out["store_bytes"]`` records the
+    bytes under ``store`` at each part's peak.  Fills ``out`` before its
+    checks."""
+    from repro_torch.checkpoint import workers
+    from repro_torch.checkpoint.chunk_store import ChunkStore
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.checkpoint.serial import flatten_with_paths
+    from repro_torch.checkpoint.swap import WeightService
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.core.manifest import ManifestStore
+    from repro_torch.core.policies import make_policy
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import SimulatedFailure, train
+
+    t0 = time.perf_counter()
+    run3a = store / "3a" / "run"
+    root = store / "3h"
+    kw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
+              batch=BATCH, seq_len=SEQ, policy_name="parity", seed=SEED,
+              device=str(dev), ckpt_async=False, ckpt_fingerprint=False)
+    model = _model()
+    registry = LayerRegistry(model)
+    like = steps.state_specs(model)
+    wlike = {"params": like["params"]}
+    policy = make_policy("parity", model.layer_units())
+    launches = out["launches"] = {}
+    _release(torch)
+    # 3a's store at step 6 for (b)'s fingerprint re-save, before (c)
+    _link_copy(run3a, root / "fp_resave", STEPS)
+    disk = out["store_bytes"] = {"start": _used_bytes(store)}
+
+    # (c) from the fingerprint path to the canonical one, on 3a's store
+    tc = time.perf_counter()
+    _zero_counts()
+    with _counts_at_restore({}) as at_restore:
+        res_c = train(ckpt_dir=str(run3a), total_steps=REF_STEPS,
+                      ckpt_interval=CKPT_INTERVAL, resume=True, **kw)
+    torch.cuda.synchronize()
+    launches["c_train"] = _read_counts()
+    ref_loss = dict(ref["losses"])
+    m8 = ManifestStore(run3a).load(REF_STEPS)
+    store3a = ChunkStore(run3a)
+    # event 8's XOR deltas whose base is a fingerprint-addressed object
+    xd01_fp = sorted(f"{u}/{k}" for u, kinds in m8.entries.items()
+                     for k, r in kinds.items()
+                     if r.step == REF_STEPS and r.stored == "delta"
+                     and store3a.load_fp_table(r.delta_base) is not None)
+    out["c"] = {"losses": res_c["losses"],
+                "loss_diffs_vs_3a_reference": {
+                    s + 1: abs(l - ref_loss[s]) for s, l in res_c["losses"]},
+                "event": _event_rows(res_c["save_events"]),
+                "restore": res_c["restore_stats"],
+                "event8_xd01": sorted(f"{u}/{k}" for u, kinds in
+                                      m8.entries.items()
+                                      for k, r in kinds.items()
+                                      if r.step == REF_STEPS
+                                      and r.stored == "delta"),
+                "event8_xd01_over_fp_bases": xd01_fp,
+                "launches_when_the_resume_restore_ended": dict(at_restore)}
+    log(f"3h (c) resumed losses {res_c['losses']}, event "
+        f"{out['c']['event']}, launches {launches['c_train']} "
+        f"({at_restore} when the resume's restore ended)")
+    _check_launched(launches["c_train"], ("fused_adamw",), "3h (c)")
+    # the base checks come after the resume's restore, which checks its
+    # own objects by block_fp too
+    _check_launched({"block_fp": launches["c_train"]["block_fp"]
+                     - at_restore.get("block_fp", 0)}, ("block_fp",),
+                    "3h (c)'s canonical event over fp bases")
+    if not xd01_fp:
+        raise AssertionError("3h (c): event 8 wrote no XOR delta over a "
+                             "fingerprint-addressed base")
+    _release(torch)
+    _zero_counts()
+    mgr = CheckpointManager(run3a, registry, policy, async_save=False,
+                            fingerprint=False)
+    svc = WeightService(mgr, wlike, device=dev, step=STEPS)
+    swap = svc.swap(m8)
+    cold8 = mgr.restore(wlike, device=dev, parts=("params",),
+                        step=REF_STEPS)
+    swapped_equal = _params_equal(torch, svc.current(), cold8["params"])
+    del svc, cold8
+    mgr.close()
+    _release(torch)
+    skw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
+               batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+               new_tokens=SERVE_NEW, seed=SEED, device=str(dev),
+               from_ckpt=str(run3a))
+    hot = serve(from_step=STEPS, hot_swap=True, swap_wait=0.0, **skw)
+    cold = serve(**skw)
+    torch.cuda.synchronize()
+    launches["c_serve"] = _read_counts()
+    out["c"].update({"swap_6_to_8": swap, "swap_equals_cold_load":
+                     swapped_equal,
+                     "tokens_digest": {"hot_swapped": hot["tokens_digest"],
+                                       "cold_loaded": cold["tokens_digest"]},
+                     "seconds": time.perf_counter() - tc})
+    log(f"3h (c) swap 6 -> 8 {swap}; digests {out['c']['tokens_digest']}")
+    if not swapped_equal:
+        raise AssertionError("3h (c): the swap to 8 is not a cold load of 8")
+    if not (hot["served_step"] == cold["served_step"] == REF_STEPS
+            and hot["tokens_digest"] == cold["tokens_digest"]):
+        raise AssertionError(f"3h (c): hot-swapped and cold-loaded servers "
+                             f"differ: {out['c']['tokens_digest']}")
+    _check_launched(launches["c_serve"], ("flash_attention",), "3h (c)")
+    _release(torch)
+    # 3a's step-4 tensors, as (a) must store them; then 3a's store goes
+    canon_3a = _canonical_digests(run3a, 4)
+    disk["after_c"] = _used_bytes(store)
+    shutil.rmtree(store / "3a")
+
+    # (a) 3a's run on the canonical path
+    ta = time.perf_counter()
+    run = root / "run"
+    _zero_counts()
+    try:
+        train(ckpt_dir=str(run), total_steps=STEPS,
+              ckpt_interval=CKPT_INTERVAL, fail_at=FAIL_AT, **kw)
+        raise AssertionError("3h (a): the checkpointed run did not fail")
+    except SimulatedFailure as e:
+        failed = e
+    res_a = train(ckpt_dir=str(run), total_steps=STEPS,
+                  ckpt_interval=CKPT_INTERVAL, resume=True, **kw)
+    torch.cuda.synchronize()
+    launches["a"] = _read_counts()
+    disk["after_a"] = _used_bytes(store)
+    events = failed.save_events + res_a["save_events"]
+    del failed
+    m4 = ManifestStore(run).load(4)
+    xd01_4 = sorted(f"{u}/{k}" for u, kinds in m4.entries.items()
+                    for k, r in kinds.items()
+                    if r.step == 4 and r.stored == "delta")
+    want = dict(rec_a["losses_resumed"])
+    diffs = {s: abs(l - want[s]) for s, l in res_a["losses"]}
+    out["a"] = {"losses_resumed": res_a["losses"],
+                "loss_diffs_vs_3a_resumed": diffs,
+                "events": _event_rows(events),
+                "events_3a": _event_rows(rec_a["save_events"]),
+                "restore_on_resume": res_a["restore_stats"],
+                "event4_xd01": xd01_4}
+    log(f"3h (a) resumed losses vs 3a: {diffs}; XD01 at event 4: {xd01_4}")
+    for e, e3 in zip(out["a"]["events"], out["a"]["events_3a"]):
+        log(f"3h (a) event {e['step']}: {e} | 3a: {e3}")
+    if [s for s, _ in res_a["losses"]] != [s for s, _ in want.items()] \
+            or not all(d <= MODE_TOL for d in diffs.values()):
+        raise AssertionError(f"3h (a): resumed losses off 3a's: {diffs}")
+    if launches["a"]["block_fp"] != 0:
+        raise AssertionError(f"3h (a): block_fp launched on the canonical "
+                             f"path: {launches['a']}")
+    _check_launched(launches["a"], ("fused_adamw",), "3h (a)")
+    got4 = {(u, k): r.digest for u, kinds in m4.entries.items()
+            for k, r in kinds.items()}
+    out["a"]["step4_equal_3a"] = canon_3a == got4
+    out["a"]["seconds"] = time.perf_counter() - ta
+    if canon_3a != got4:
+        raise AssertionError("3h (a): step 4's objects do not decode to 3a's "
+                             "step-4 tensors: " + str(sorted(
+                                 k for k in got4 if got4[k] != canon_3a.get(k))))
+    _release(torch)
+
+    # (b) the unchanged re-save of the embed unit, both paths, from one
+    # restore of the step-6 state (from the fingerprint root: the
+    # canonical re-save's dedup hits prove it is (a)'s step 6 as well)
+    tb = time.perf_counter()
+    _zero_counts()
+    fp_root = root / "fp_resave"
+    mgr = CheckpointManager(fp_root, registry, policy, async_save=False)
+    state = mgr.restore(like, device=dev, step=STEPS)
+    resave = {}
+    for path, where in (("fingerprint", fp_root), ("canonical", run)):
+        if path == "canonical":
+            mgr = CheckpointManager(where, registry, policy,
+                                    async_save=False, fingerprint=False)
+        mgr.save(state, step=STEPS + 1, units=["embed"])
+        resave[path] = dict(mgr.last_save_stats, unit_bytes=sum(
+            x.numel() * x.element_size() for tree in (
+                registry.extract_unit(state["params"], "embed"),
+                registry.extract_opt_unit(state["opt"], "embed"))
+            for _, x in flatten_with_paths(tree)))
+        mgr.close()
+    del state
+    _release(torch)
+    torch.cuda.synchronize()
+    launches["b"] = _read_counts()
+    out["b"] = {p: {k: r[k] for k in _CANON_EVENT_KEYS + ("unit_bytes",
+                                                         "seconds")}
+                for p, r in resave.items()}
+    out["b"]["roots"] = ("the embed unit re-saved at step 7 from one "
+                         "restore of 3a's step-6 store (a hard-linked "
+                         "copy taken before (c)): fingerprint path on "
+                         "that copy, canonical path on (a)'s root")
+    out["b"]["seconds"] = time.perf_counter() - tb
+    log(f"3h (b) re-saves: {out['b']}")
+    rc, rf = resave["canonical"], resave["fingerprint"]
+    if not (rc["d2h_bytes"] == rc["unit_bytes"]
+            and rc["hashed_bytes"] == rc["logical_bytes"] > rc["d2h_bytes"]
+            and rc["written_bytes"] == 0 and rc["dedup_hits"] == 2):
+        raise AssertionError(f"3h (b): the canonical re-save {rc}")
+    if not (rf["d2h_bytes"] == 0 and rf["written_bytes"] == 0
+            and rf["dedup_hits"] == 2):
+        raise AssertionError(f"3h (b): the fingerprint re-save {rf}")
+    shutil.rmtree(fp_root)
+
+    # (d) the merge of canonical objects: XOR deltas and their bases
+    td = time.perf_counter()
+    _zero_counts()
+    picked = sorted({u.split("/")[0] for u in xd01_4})
+    if not picked:
+        raise AssertionError("3h (d): event 4 wrote no XD01 object to merge")
+    merged = root / "merged"
+    cli = _tailor_cli(_write_recipe(root / "d.yaml", f"{run}@{STEPS}",
+                                    merged, [(picked, f"{run}@4")],
+                                    optimizer=False), dev)
+    objs = sorted((merged / "objects").glob("*/*.chunk"))
+    fmts = [workers.parse_envelope(p.read_bytes(), p.stem)["format"]
+            for p in objs]
+    with ThreadPoolExecutor(8) as pool:
+        same = list(pool.map(
+            lambda p: _files_equal(p, run / p.relative_to(merged)), objs))
+    launches["d"] = _read_counts()
+    disk["after_d"] = _used_bytes(store)
+    out["d"] = {"recipe_units_from_step4": picked, "merge": cli["stats"],
+                "merge_block_fp_launches": cli["block_fp_launches"],
+                "objects": len(objs), "xd01_objects": fmts.count("delta"),
+                "seconds": time.perf_counter() - td}
+    log(f"3h (d) merge {cli['stats']}, {len(objs)} objects, "
+        f"{fmts.count('delta')} XD01")
+    if not fmts.count("delta") or not objs or not all(same):
+        raise AssertionError(f"3h (d): no XD01 object merged ({fmts}), or a "
+                             "merged object differs from its source")
+    shutil.rmtree(merged)
+    shutil.rmtree(root)
+    _release(torch)
+
+    # (e) canonical int8: one event and its restore
+    te = time.perf_counter()
+    root_e = store / "3h_e"
+    _zero_counts()
+    res_e = train(ckpt_dir=str(root_e), total_steps=CKPT_INTERVAL,
+                  ckpt_interval=CKPT_INTERVAL, codec="int8", **kw)
+    torch.cuda.synchronize()
+    launches["e_save"] = _read_counts()
+    _release(torch)
+    _zero_counts()
+    mgr = CheckpointManager(root_e, registry, policy, async_save=False,
+                            codec="int8", fingerprint=False)
+    state = mgr.restore(like, device=dev)
+    torch.cuda.synchronize()
+    launches["e_restore"] = _read_counts()
+    out["e"] = {"event": _event_rows(res_e["save_events"]),
+                "restore": dict(mgr.last_restore_stats)}
+    disk["after_e_save"] = _used_bytes(store)
+    _check_launched(launches["e_save"], ("quantize",), "3h (e)'s save")
+    _check_launched(launches["e_restore"], ("dequantize",),
+                    "3h (e)'s restore")
+    out["e"]["restored_vs_records"] = _check_int8_restore(
+        torch, dev, mgr, state, CKPT_INTERVAL)
+    mgr.close()
+    del state
+    _release(torch)
+    out["e"]["cpu_path_objects"] = _check_cpu_path_objects(
+        torch, dev, root_e, store / "3h_e_cpu", fingerprint=False)
+    out["e"]["seconds"] = time.perf_counter() - te
+    shutil.rmtree(root_e)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 3h in {out['seconds']:.1f} s; launches {launches}")
+
+
 _EVENT_KEYS = ("step", "selected_units", "snapshot_seconds", "stage_seconds",
                "writeback_seconds", "commit_seconds", "gc_seconds",
                "stall_seconds", "seconds", "d2h_bytes",
@@ -1871,19 +2263,23 @@ def _step2_state(torch, dev):
     return model, registry, state
 
 
-def _check_cpu_path_objects(torch, dev, run: Path, scratch: Path) -> dict:
-    """3f (a): event 2's block_000 objects (weights, opt) equal, byte for
-    byte, those the port's CPU path (plain quantize, plain fingerprints)
-    writes from the same unit copied to the host."""
+def _check_cpu_path_objects(torch, dev, run: Path, scratch: Path,
+                            fingerprint: bool = True) -> dict:
+    """3f (a), and 3h (e) with ``fingerprint=False``: event 2's block_000
+    objects (weights, opt) of an int8 store equal, byte for byte, those the
+    port's CPU path (plain quantize, plain fingerprints) writes on the same
+    save path from the same unit copied to the host."""
     from repro_torch.checkpoint.saver import CheckpointManager
     from repro_torch.core.manifest import ManifestStore
     from repro_torch.core.policies import make_policy
 
+    what = "3f (a)" if fingerprint else "3h (e)"
     model, registry, state = _step2_state(torch, dev)
     event2 = ManifestStore(run).load(2).entries["block_000"]
     cpu = CheckpointManager(scratch, registry,
                             make_policy("parity", model.layer_units()),
-                            async_save=False, codec="int8")
+                            async_save=False, codec="int8",
+                            fingerprint=fingerprint)
     out = {}
     for kind in ("weights", "opt"):
         tree = (registry.extract_unit(state["params"], "block_000")
@@ -1893,14 +2289,18 @@ def _check_cpu_path_objects(torch, dev, run: Path, scratch: Path) -> dict:
         acc = {"d2h_bytes": 0, "blocks_moved": 0, "blocks_total": 0,
                "fingerprint_seconds": 0.0, "d2h_seconds": 0.0,
                "write_seconds": 0.0}
-        ref, _ = cpu._save_unit_fp(2, "block_000", kind, host, None, acc)
+        if fingerprint:
+            ref, _ = cpu._save_unit_fp(2, "block_000", kind, host, None, acc)
+        else:
+            ref = cpu._save_unit_canonical(2, "block_000", kind, host, None,
+                                           acc)
         want = event2[kind]
         if ref.digest != want.digest:
-            raise AssertionError(f"3f (a): the replayed step-2 block_000 "
+            raise AssertionError(f"{what}: the replayed step-2 block_000 "
                                  f"{kind} is not event 2's content")
         got = cpu.store.object_path(ref.digest).read_bytes()
         if got != (run / want.relpath).read_bytes():
-            raise AssertionError(f"3f (a): event 2's block_000 {kind} "
+            raise AssertionError(f"{what}: event 2's block_000 {kind} "
                                  "object differs from the CPU path's")
         out[kind] = {"object_bytes": len(got),
                      "cpu_path_d2h_bytes": acc["d2h_bytes"]}
@@ -1909,7 +2309,7 @@ def _check_cpu_path_objects(torch, dev, run: Path, scratch: Path) -> dict:
     shutil.rmtree(scratch, ignore_errors=True)
     del state
     _release(torch)
-    log(f"3f (a): event 2's block_000 objects equal the CPU path's: {out}")
+    log(f"{what}: event 2's block_000 objects equal the CPU path's: {out}")
     return out
 
 
@@ -2842,6 +3242,11 @@ def report(record: dict, path) -> None:
         k["launches_merge_path"] = mp["3g"]["launches"][k["name"]] + (
             mp["3g"]["a"]["merge_block_fp_launches"]
             if k["name"] == "block_fp" else 0)
+        # the canonical path (3h), summed over its parts
+        k["launches_canonical_path"] = sum(
+            c[k["name"]] for c in mp["3h"]["launches"].values()) + (
+            mp["3h"]["d"]["merge_block_fp_launches"]
+            if k["name"] == "block_fp" else 0)
     write_record(record, path)
     a_secs = {e["step"]: e["seconds"] for e in mp_a["save_events"]}
     ctl_secs = {e["step"]: e["seconds"]
@@ -2937,6 +3342,21 @@ def report(record: dict, path) -> None:
             "variant_set", "seconds")},
         "c_corruption": mp_g["c"], "launches": mp_g["launches"],
         "seconds": mp_g["seconds"]} | card}))
+    mp_h = mp["3h"]
+    print(json.dumps({"legacy": {
+        "c_fp_to_canonical": {k: mp_h["c"][k] for k in (
+            "loss_diffs_vs_3a_reference", "event", "event8_xd01",
+            "event8_xd01_over_fp_bases",
+            "launches_when_the_resume_restore_ended", "swap_6_to_8", "tokens_digest", "seconds")},
+        "a_canonical_run": {k: mp_h["a"][k] for k in (
+            "loss_diffs_vs_3a_resumed", "events", "events_3a",
+            "event4_xd01", "step4_equal_3a", "seconds")}
+        | {"restore_seconds": mp_h["a"]["restore_on_resume"]["seconds"]},
+        "b_resave": mp_h["b"], "d_merge": mp_h["d"],
+        "e_int8": {k: mp_h["e"][k] for k in (
+            "event", "restored_vs_records", "cpu_path_objects", "seconds")}
+        | {"restore_seconds": mp_h["e"]["restore"]["seconds"]},
+        "launches": mp_h["launches"], "seconds": mp_h["seconds"]} | card}))
     print(json.dumps({"kernels": [k | card for k in kernels]}))
 
 
@@ -2985,21 +3405,24 @@ def main() -> int:
     log(f"{free / 1e9:.1f} GB free under {store}")
     if free < STORE_BYTES_NEEDED:
         raise RuntimeError(f"only {free / 1e9:.1f} GB free under {store}; "
-                           f"the main paths write about 25 GB at a time")
+                           "the main paths hold up to "
+                           f"{STORE_BYTES_NEEDED / 1e9:.0f} GB at a time")
     record = {"card": card, "kernels": kernels,
               "main_path": {"3a": {}, "3b": {}, "3c": {},
                             "3d": {"serve": {}, "store": {}},
                             "3e": {"train": {}, "store": {}, "serve": {}},
-                            "3f": {}, "3g": {}}}
+                            "3f": {}, "3g": {}, "3h": {}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
         log(f"phase 3a done at {time.perf_counter() - t_start:.1f} s")
         phase_3g(torch, dev, store / "3a", mp["3a"]["losses_resumed"],
                  mp["3g"])
+        log(f"phase 3g done at {time.perf_counter() - t_start:.1f} s")
+        phase_3h(torch, dev, store, ref, mp["3a"], mp["3h"])
         shutil.rmtree(store / "3a", ignore_errors=True)
         torch.cuda.empty_cache()
-        log(f"phase 3g done at {time.perf_counter() - t_start:.1f} s")
+        log(f"phase 3h done at {time.perf_counter() - t_start:.1f} s")
         phase_3b(torch, dev, store / "3b", ref, mp["3b"])
         kernels.append(block_gather_at_main_shape(torch, dev,
                                                   store / "3b" / "run"))

@@ -1,5 +1,5 @@
-"""Content-addressed chunk store with cross-step dedup and block-sparse
-deltas — the fingerprint-pipeline half of the JAX package's store.
+"""Content-addressed chunk store with cross-step dedup and delta encoding:
+the JAX package's store on its ``local`` backend.
 
 On-disk layout (identical to the JAX package's ``local`` backend):
 
@@ -8,29 +8,49 @@ On-disk layout (identical to the JAX package's ``local`` backend):
       manifests/manifest-00000100.json
       LATEST
 
-An object is a msgpack envelope.  Objects written by ``write_fp`` are
-addressed by the blake2b of their fingerprint table (carried in the
-envelope under ``"fp"``) and hold either a ``full`` chunk payload or a
-``block_delta`` (BD02) of the dirty blocks against a full base object.
+An object is a msgpack envelope, addressed in one of two ways that share
+one digest namespace and never dedup against each other:
+
+- ``write_fp`` (the fingerprint path): the blake2b of the unit's
+  fingerprint table, carried in the envelope under ``"fp"``.  The object
+  holds a ``full`` chunk payload or a ``block_delta`` (BD02) of the dirty
+  blocks against a full base object.
+- ``write`` (the canonical path, ``CheckpointManager(fingerprint=False)``):
+  the blake2b of the unit's *canonical* payload, the codec-none chunk of
+  its tensors with empty metadata.  The object holds a ``full`` payload in
+  the store codec, or a ``delta``: a sparse XOR diff (XD01,
+  ``workers.delta_encode``) of the canonical payload against the canonical
+  payload of the unit's previous full object, written when it is smaller
+  than ``DELTA_RATIO`` of a full write and fewer than ``REBASE_EVERY``
+  deltas of the unit precede it.
+
 The store's codec (``none`` or ``int8``) is the envelope's ``codec``; an
 int8 store's full objects hold int8 records for the leaves the saver
-quantized.  Such objects are lossy: they never anchor a delta, and since
-they decode to other tensors than their table describes (the table is of
-the content before quantization, which is what dedup compares), a read
-returns no table for them and the reader checks them by crc32 alone.
-Canonically addressed objects (no table) are read with codec none only.
-Lifetimes are refcounted from the committed manifests; ``gc_objects``
-deletes objects no manifest references.
+quantized.  Such objects are lossy: they never anchor a delta, a read
+returns their int8 records as ``Int8Record`` items, and they are checked
+by crc32 alone (an fp object's table describes the tensors before
+quantization; a canonical object's digest hashes them), as in the JAX
+package.  Canonical bytes of an fp object (an XOR delta's base, when a
+store switched paths across a restart) or of a lossy object are rebuilt
+through the reader's ``materialize`` hook, which places the tensors on the
+caller's device, dequantizing there, and checks an fp object's table
+there (``restore.device_materializer``).  zstd-compressed objects raise
+``CodecUnavailable``.  Lifetimes are refcounted from the committed
+manifests; ``gc_objects`` deletes objects no manifest references.
 
 Writes run on the async writer's threads while the training thread makes
-the next event's decisions, so ``write_fp``, ``note_dedup`` and ``has``
-may be called concurrently: every shared table (stats, stage seconds,
-object info, delta runs, fingerprint tables, refcounts) is updated under
-one lock, and object files are published by atomic rename.
+the next event's decisions, so ``write``, ``write_fp``, ``note_dedup`` and
+``has`` may be called concurrently: every shared table (stats, stage
+seconds, object info, delta runs, fingerprint tables, the canonical cache,
+refcounts) is updated under one lock, writers of one digest dedup through
+an in-flight claim instead of racing, and object files are published by
+atomic rename.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
 import threading
 import time
 from collections import Counter
@@ -44,10 +64,36 @@ from repro_torch.checkpoint.serial import (ChunkCorruption,
                                            unflatten_from_paths)
 from repro_torch.dtypes import from_bytes
 
+log = logging.getLogger(__name__)
+
 OBJECT_VERSION = workers.OBJECT_VERSION
+# An XOR delta must beat a full write by this factor to be stored; the
+# margin rebases drifted units (their diffs grow until a full wins).
+DELTA_RATIO = 0.9
 # Force a full rebase after this many consecutive deltas of one unit, so
 # one full base never underpins a unit's whole retention window.
 REBASE_EVERY = 4
+# Canonical payloads kept for the next event's XOR delta (least recently
+# used first out); a larger payload is re-read when it anchors a delta.
+CANON_CACHE_BYTES = 64 << 20
+
+Materialize = Callable[[workers.Items, Optional[bytes], str], workers.Items]
+
+
+def content_digest(blob) -> str:
+    """blake2b-160 of a buffer or of a ``Blob``'s parts back to back."""
+    return workers.blake2_hex(blob)
+
+
+@contextlib.contextmanager
+def _decoding(digest: str):
+    """Raise an error of parsing or decoding ``digest``'s bytes as
+    ``ChunkCorruption``, which the restore's fallback catches.  Only decode
+    steps run under it: never a session's hook, nor the read of a base."""
+    try:
+        yield
+    except (ValueError, KeyError, TypeError, IndexError, OverflowError) as e:
+        raise ChunkCorruption(f"unreadable object {digest}: {e!r}") from e
 
 
 def _ref_stored(fmt: str) -> str:
@@ -78,43 +124,74 @@ class ChunkRef:
 
 
 class ReadSession:
-    """Read-once memo over one logical read pass (a hot-swap).
+    """Read-once memo over one logical read pass (a hot-swap, a restore's
+    or a merge's read of one object).
 
-    Envelopes and decoded trees are memoized per digest, so a digest two
-    units share, or a full base that several block deltas patch, is read
-    off the disk once.  A tree's leaves are host tensors, or the
-    ``Int8Record`` of an int8-coded leaf (dequantized only where it is
-    placed).  ``stats`` counts the real object I/O:
+    Envelopes, canonical payloads and decoded trees are memoized per
+    digest, so a digest two units share, or a full base that several
+    deltas patch, is read off the disk once.  A tree's leaves are host
+    tensors, or the ``Int8Record`` of an int8-coded leaf (dequantized only
+    where it is placed).  ``stats`` counts the real object I/O:
     ``object_reads`` envelope reads and ``bytes_read`` object-file bytes.
-    The crc32 of every record and the table's hash to the address are
-    checked on read; the fingerprint table itself is returned with the tree
-    and held against the placed tensors on the device by the caller
-    (``restore.verify_placed``).  A session is used by one thread.
+    Envelopes are read into buffers from ``alloc(nbytes)`` (a bytearray by
+    default).  The crc32 of every record and the table's or payload's
+    hash to the address are checked on read; an fp object's table itself
+    is returned with the tree and held against the placed tensors on the
+    device by the caller (``restore.verify_placed``), except where its
+    canonical bytes are needed, which ``materialize`` checks (see the
+    module doc).  An object whose chain of bases leads back to itself
+    raises ``ChunkCorruption``.  A session is used by one thread.
     """
 
-    def __init__(self, store: "ChunkStore"):
+    def __init__(self, store: "ChunkStore", *,
+                 alloc: Optional[Callable[[int], Any]] = None,
+                 materialize: Optional[Materialize] = None):
         self.store = store
+        self.alloc = alloc
+        self.materialize = materialize
         self._envelopes: Dict[str, Dict[str, Any]] = {}
+        self._canon: Dict[str, Any] = {}
         self._trees: Dict[str, Tuple[Any, Optional[bytes]]] = {}
+        self._busy: set = set()
         self.stats = {"object_reads": 0, "bytes_read": 0}
+
+    @contextlib.contextmanager
+    def guard(self, what: str, digest: str):
+        """Raise ``ChunkCorruption`` if ``(what, digest)`` is already being
+        resolved further up this thread's stack (a base cycle)."""
+        key = (what, digest)
+        if key in self._busy:
+            raise ChunkCorruption(f"object dependency cycle at {digest}")
+        self._busy.add(key)
+        try:
+            yield
+        finally:
+            self._busy.discard(key)
 
     def envelope(self, digest: str) -> Dict[str, Any]:
         env = self._envelopes.get(digest)
         if env is None:
-            env = self.store.read_envelope(digest)
+            env = self.store.read_envelope(digest, self.alloc)
             self.stats["object_reads"] += 1
             self.stats["bytes_read"] += self.store.object_info(
                 digest)["nbytes"]
             self._envelopes[digest] = env
         return env
 
+    def canonical(self, digest: str):
+        """The canonical payload of ``digest`` (``read_canonical``)."""
+        canon = self._canon.get(digest)
+        if canon is None:
+            canon = self._canon[digest] = self.store.read_canonical(
+                digest, session=self)
+        return canon
+
     def read(self, digest: str) -> Tuple[Any, Optional[bytes]]:
         """(tree of host tensors, fingerprint table blob) of an object."""
         hit = self._trees.get(digest)
         if hit is not None:
             return hit
-        items, fp_blob = self.store.read_items(digest,
-                                               envelope=self.envelope)
+        items, fp_blob = self.store.read_items(digest, session=self)
         tree = unflatten_from_paths({
             name: (raw if isinstance(raw, workers.Int8Record)
                    else from_bytes(raw, shape, dtype))
@@ -132,6 +209,12 @@ class ChunkStore:
         self.codec = workers.resolve_codec(codec)
         self.backend = LocalFSBackend(self.root / "objects")
         self._lock = threading.RLock()
+        # digest -> Event of a write in flight: writer threads persisting
+        # one digest dedup instead of racing
+        self._inflight: Dict[str, threading.Event] = {}
+        # digest -> canonical payload (LRU, at most CANON_CACHE_BYTES)
+        self._canon_cache: Dict[str, bytes] = {}
+        self._canon_cache_bytes = 0
         self._refcounts: Counter = Counter()
         # digest -> {"stored", "base", "codec", "nbytes"}
         self._info: Dict[str, Dict[str, Any]] = {}
@@ -191,6 +274,35 @@ class ChunkStore:
     def stats_snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self.stats)
+
+    # ---- canonical-payload LRU cache (the XOR delta's bases) ----
+    def _canon_cached(self, digest: str):
+        with self._lock:
+            canon = self._canon_cache.pop(digest, None)
+            if canon is not None:
+                self._canon_cache[digest] = canon  # most recently used
+            return canon
+
+    def _canon_remember(self, digest: str, canon) -> None:
+        nbytes = (canon.nbytes if isinstance(canon, _msgpack.Blob)
+                  else memoryview(canon).nbytes)
+        if nbytes > CANON_CACHE_BYTES:
+            return
+        with self._lock:
+            if digest in self._canon_cache:
+                return
+        # a copy: ``canon`` may view a staging or read buffer
+        canon = (b"".join(canon.parts) if isinstance(canon, _msgpack.Blob)
+                 else bytes(canon))
+        with self._lock:
+            if digest in self._canon_cache:
+                return
+            while (self._canon_cache_bytes + nbytes > CANON_CACHE_BYTES
+                   and self._canon_cache):
+                lru = next(iter(self._canon_cache))
+                self._canon_cache_bytes -= len(self._canon_cache.pop(lru))
+            self._canon_cache[digest] = canon
+            self._canon_cache_bytes += nbytes
 
     # ---- object io ----
     def _remember(self, digest: str, env: Dict[str, Any],
@@ -286,6 +398,124 @@ class ChunkStore:
         self._bump(logical_bytes=logical_bytes)
         return self._dedup_ref(step, unit, kind, digest, prev_ref=prev_ref)
 
+    def _claim(self, digest: str) -> Optional[threading.Event]:
+        """Claim the right to write ``digest``, or None when the object
+        exists (a dedup hit).  A writer of a digest already in flight waits
+        for it and then sees it on disk; the existence check and the claim
+        are made under one lock."""
+        while True:
+            with self._lock:
+                other = self._inflight.get(digest)
+                if other is None:
+                    if self.backend.has(digest):
+                        return None
+                    claim = self._inflight[digest] = threading.Event()
+                    return claim
+            other.wait()
+
+    def _release(self, digest: str, claim: threading.Event) -> None:
+        with self._lock:
+            self._inflight.pop(digest, None)
+        claim.set()
+
+    def write(self, step: int, unit: str, kind: str, items: workers.Items,
+              *, full_items: Optional[workers.Items] = None,
+              prev_ref: Optional[ChunkRef] = None,
+              materialize: Optional[Materialize] = None) -> ChunkRef:
+        """Persist a unit on the canonical path: dedup by content, XOR delta
+        when smaller (the JAX store's ``write``).
+
+        ``items`` are the unit's leaves as raw little-endian bytes in
+        flatten order: their codec-none chunk is the canonical payload,
+        hashed from its framing parts (never joined) and, with codec
+        ``none``, written as the full payload.  ``full_items`` are the
+        records of an ``int8`` store's full object (``Int8Record`` for the
+        quantized leaves), required there.  ``prev_ref`` is the unit's
+        previous manifest entry: its object (or, for a delta, its full
+        base) is the delta base, and an unchanged unit's dedup hit reads no
+        envelope.  ``materialize`` rebuilds an fp or lossy base's canonical
+        bytes (see the module doc)."""
+        if self.codec != "none" and full_items is None:
+            raise ValueError(f"a {self.codec} store writes the unit's "
+                             "records: pass full_items")
+        t0 = time.perf_counter()
+        canon = workers.encode_chunk_blob(items, {})
+        digest = content_digest(canon)
+        self._add_seconds("encode", time.perf_counter() - t0)
+        self._bump(logical_bytes=canon.nbytes, hashed_bytes=canon.nbytes)
+        claim = self._claim(digest)
+        if claim is None:
+            # the content is stored (this event or an earlier one)
+            self._canon_remember(digest, canon)
+            return self._dedup_ref(step, unit, kind, digest,
+                                   prev_ref=prev_ref)
+        try:
+            return self._write_new(
+                step, unit, kind, canon, digest,
+                full_items if self.codec != "none" else None,
+                prev_ref.digest if prev_ref is not None else None,
+                materialize)
+        finally:
+            self._release(digest, claim)
+
+    def _write_new(self, step: int, unit: str, kind: str, canon, digest: str,
+                   full_items: Optional[workers.Items],
+                   delta_base: Optional[str],
+                   materialize: Optional[Materialize]) -> ChunkRef:
+        t0 = time.perf_counter()
+        full_payload = (canon if full_items is None
+                        else workers.encode_chunk_blob(full_items, {}))
+        self._add_seconds("encode", time.perf_counter() - t0)
+        # An XOR delta against the previous entry's full base.  Never for a
+        # lossy codec (a delta restores exact canonical bytes), and never
+        # past the rebase bound.
+        with self._lock:
+            run = self._delta_runs.get((unit, kind), 0)
+        if (delta_base and run < REBASE_EVERY
+                and self.codec not in workers.LOSSY_CODECS):
+            try:
+                base_digest = delta_base
+                info = self.object_info(base_digest)
+                if info["stored"] != "full" and info["base"]:
+                    base_digest = info["base"]  # delta or block_delta
+                base_canon = self.read_canonical(
+                    base_digest,
+                    session=ReadSession(self, materialize=materialize))
+            except (FileNotFoundError, ChunkCorruption,
+                    workers.CodecUnavailable) as e:
+                # an unreadable base (missing, corrupt, or in a codec the
+                # port lacks): write full
+                log.warning("%s/%s: delta base %s unreadable (%s); writing "
+                            "a full object", unit, kind, delta_base, e)
+                base_canon = None
+            if base_canon is not None:
+                t1 = time.perf_counter()
+                limit = DELTA_RATIO * full_payload.nbytes
+                dblob = workers.delta_encode(canon, base_canon, limit=limit)
+                self._add_seconds("encode", time.perf_counter() - t1)
+                if dblob is not None and dblob.nbytes < limit:
+                    nbytes = self._write_object(digest, {
+                        "v": OBJECT_VERSION, "format": "delta",
+                        "base": base_digest, "payload": dblob})
+                    self._canon_remember(digest, canon)
+                    with self._lock:
+                        self._delta_runs[(unit, kind)] = run + 1
+                    self._bump(written_bytes=nbytes, delta_chunks=1)
+                    return ChunkRef(step=step, unit=unit, kind=kind,
+                                    relpath=self.object_relpath(digest),
+                                    nbytes=nbytes, digest=digest,
+                                    stored="delta", delta_base=base_digest)
+        nbytes = self._write_object(digest, {
+            "v": OBJECT_VERSION, "format": "full", "codec": self.codec,
+            "base": None, "payload": full_payload})
+        self._canon_remember(digest, canon)
+        with self._lock:
+            self._delta_runs[(unit, kind)] = 0
+        self._bump(written_bytes=nbytes, full_chunks=1)
+        return ChunkRef(step=step, unit=unit, kind=kind,
+                        relpath=self.object_relpath(digest), nbytes=nbytes,
+                        digest=digest, stored="full", delta_base=None)
+
     def write_fp(self, step: int, unit: str, kind: str,
                  packet: fputil.FingerprintPacket, *,
                  prev_ref: Optional[ChunkRef] = None) -> ChunkRef:
@@ -295,9 +525,18 @@ class ChunkStore:
         digest = packet.digest
         self._bump(logical_bytes=packet.logical_bytes,
                    hashed_bytes=len(packet.table))
-        if self.backend.has(digest):
+        claim = self._claim(digest)
+        if claim is None:
             return self._dedup_ref(step, unit, kind, digest,
                                    prev_ref=prev_ref)
+        try:
+            return self._write_fp_new(step, unit, kind, packet)
+        finally:
+            self._release(digest, claim)
+
+    def _write_fp_new(self, step: int, unit: str, kind: str,
+                      packet: fputil.FingerprintPacket) -> ChunkRef:
+        digest = packet.digest
         t0 = time.perf_counter()
         table = fputil.unpack_table(packet.table)
         if packet.full:
@@ -377,40 +616,50 @@ class ChunkStore:
             self._fp_tables[digest] = tbl
         return tbl
 
-    def read_items(self, digest: str,
-                   alloc: Optional[Callable[[int], Any]] = None, *,
-                   envelope: Optional[Callable[[str], Dict[str, Any]]] = None
+    def read_items(self, digest: str, *,
+                   session: Optional[ReadSession] = None
                    ) -> Tuple[workers.Items, Optional[bytes]]:
         """Decoded ``(items, fp_table_blob)`` of an object, delta bases
         resolved and verified: per-record crc32, and the table must hash to
-        the digest (fp objects) or the payload must (canonical objects).
-        Recomputing the table from the tensors is the caller's half of the
-        check: the restore does it on the device after placement.  The
-        blob is None where there is no such half: canonical objects, and
-        lossy (int8) full objects, whose table describes the tensors before
-        quantization; their int8 records come as ``Int8Record`` items.
-        ``envelope(digest)`` replaces the envelope reads (a ``ReadSession``
-        routes them through its memo)."""
-        if envelope is None:
-            envelope = lambda d: self.read_envelope(d, alloc)  # noqa: E731
-        try:
-            env = envelope(digest)
+        the digest (fp objects) or the canonical payload must (canonical
+        objects: a full one of codec none, and an XOR delta's
+        reconstruction).  Recomputing the table from the tensors is the
+        caller's half of the check: the restore does it on the device after
+        placement.  The blob is None where there is no such half: canonical
+        objects, and lossy (int8) full objects, whose table describes the
+        tensors before quantization; int8 records come as ``Int8Record``
+        items, and a lossy canonical object is checked by crc32 alone, as
+        the JAX package's ``read_digest`` checks it.  ``session`` (by
+        default a new one, with no ``materialize``) memoizes the envelopes
+        and canonical bases read.  Bytes that do not decode raise
+        ``ChunkCorruption``; an error of the session's hooks passes as it
+        is."""
+        s = session if session is not None else ReadSession(self)
+        with s.guard("items", digest):
+            return self._read_items(digest, s)
+
+    def _read_items(self, digest: str, s: ReadSession
+                    ) -> Tuple[workers.Items, Optional[bytes]]:
+        with _decoding(digest):
+            env = s.envelope(digest)
             fmt = env.get("format")
             fp_blob = env.get("fp")
-            if fp_blob is not None:
+        if fp_blob is not None:
+            with _decoding(digest):
                 fp_blob = bytes(fp_blob)
                 if fputil.fp_digest(fp_blob) != digest:
                     raise ChunkCorruption(
                         f"fingerprint digest mismatch for {digest}")
-                # The table hashes to the address: the next save's compare
-                # needs no second read of this object.
                 tbl = fputil.unpack_table(fp_blob)
-                with self._lock:
-                    self._fp_tables[digest] = tbl
-                if fmt == "block_delta":
-                    base_items, _ = self.read_items(env["base"], alloc,
-                                                    envelope=envelope)
-                t0 = time.perf_counter()
+                base = env["base"] if fmt == "block_delta" else None
+            # The table hashes to the address: the next save's compare
+            # needs no second read of this object.
+            with self._lock:
+                self._fp_tables[digest] = tbl
+            if base is not None:
+                base_items, _ = self.read_items(base, session=s)
+            t0 = time.perf_counter()
+            with _decoding(digest):
                 if fmt == "full":
                     _, items = workers.decode_chunk_items(env["payload"])
                 elif fmt == "block_delta":
@@ -418,24 +667,75 @@ class ChunkStore:
                     items = workers.patch_items(base_items, records)
                 else:
                     raise ChunkCorruption(f"unknown object format {fmt!r}")
-                self._add_seconds("decode", time.perf_counter() - t0)
-                if env.get("codec") in workers.LOSSY_CODECS:
-                    return items, None
-                return items, fp_blob
-            if fmt == "full" and env.get("codec") == "none":
-                payload = env["payload"]
-                if workers.blake2_hex(payload) != digest:
-                    raise ChunkCorruption(f"digest mismatch for {digest}")
-                _, items = workers.decode_chunk_items(payload)
+            self._add_seconds("decode", time.perf_counter() - t0)
+            if env.get("codec") in workers.LOSSY_CODECS:
                 return items, None
-        except (ChunkCorruption, workers.CodecUnavailable):
-            raise
-        except (ValueError, KeyError, TypeError) as e:
-            raise ChunkCorruption(f"unreadable object {digest}: {e!r}") \
-                from e
-        raise workers.CodecUnavailable(
-            f"object {digest} ({fmt}, codec {env.get('codec')!r}) uses an "
-            "encoding not ported to repro_torch yet")
+            return items, fp_blob
+        if fmt == "full":
+            with _decoding(digest):
+                payload = env["payload"]
+                if (env.get("codec") == "none"
+                        and content_digest(payload) != digest):
+                    raise ChunkCorruption(f"digest mismatch for {digest}")
+        elif fmt == "delta":
+            payload = s.canonical(digest)
+        else:
+            raise ChunkCorruption(f"unknown object format {fmt!r}")
+        t0 = time.perf_counter()
+        with _decoding(digest):
+            _, items = workers.decode_chunk_items(payload)
+        self._add_seconds("decode", time.perf_counter() - t0)
+        return items, None
+
+    def read_canonical(self, digest: str, *,
+                       session: Optional[ReadSession] = None):
+        """The canonical payload of ``digest`` (the codec-none chunk of its
+        tensors, a buffer or a ``Blob``), deltas resolved, checked against
+        the digest (a canonical object) or by its table on the device (an
+        fp object, through the session's ``materialize``).  A lossy
+        canonical object decodes to other tensors than it was addressed
+        by, so it raises "digest mismatch", as in the JAX package (a lossy
+        object never anchors a delta).  Errors as in ``read_items``."""
+        cached = self._canon_cached(digest)
+        if cached is not None:
+            return cached
+        s = session if session is not None else ReadSession(self)
+        with s.guard("canon", digest):
+            canon = self._canonical(digest, s)
+        self._canon_remember(digest, canon)
+        return canon
+
+    def _canonical(self, digest: str, s: ReadSession):
+        with _decoding(digest):
+            env = s.envelope(digest)
+            fmt = env.get("format")
+            fp = env.get("fp") is not None
+        if fp or (fmt == "full" and env.get("codec") != "none"):
+            # decode (and, for an fp object, resolve its block delta),
+            # place on the device, check the table there, re-frame
+            items, fp_blob = self.read_items(digest, session=s)
+            if s.materialize is None:
+                raise RuntimeError(f"the canonical bytes of {digest} ({fmt}, "
+                                   f"codec {env.get('codec')!r}) are rebuilt "
+                                   "on a device: pass materialize")
+            items = s.materialize(items, fp_blob, digest)
+            canon = workers.encode_chunk_blob(items, {})
+        elif fmt == "full":
+            with _decoding(digest):
+                canon = env["payload"]
+        elif fmt == "delta":
+            with _decoding(digest):
+                base_digest = env["base"]
+            base = s.canonical(base_digest)
+            t0 = time.perf_counter()
+            with _decoding(digest):
+                canon = workers.delta_decode(env["payload"], base)
+            self._add_seconds("decode", time.perf_counter() - t0)
+        else:
+            raise ChunkCorruption(f"unknown object format {fmt!r}")
+        if not fp and content_digest(canon) != digest:
+            raise ChunkCorruption(f"digest mismatch for {digest}")
+        return canon
 
     # ---- delta runs ----
     def delta_run(self, unit: str, kind: str) -> int:
@@ -480,6 +780,9 @@ class ChunkStore:
                     self._info.pop(digest, None)
                     self._refcounts.pop(digest, None)
                     self._fp_tables.pop(digest, None)
+                    old = self._canon_cache.pop(digest, None)
+                    if old is not None:
+                        self._canon_cache_bytes -= len(old)
         return freed
 
     # ---- durability (one tier) ----

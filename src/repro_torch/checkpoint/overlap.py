@@ -179,6 +179,10 @@ class OverlappedSaver:
 
     def __init__(self, mgr: CheckpointManager, *, spread_steps: int = 2,
                  margin: float = 1.5):
+        if not mgr.fingerprint:
+            raise ValueError(
+                "overlapped saves require the fingerprint pipeline "
+                "(CheckpointManager(fingerprint=True))")
         self.mgr = mgr
         self.spread_steps = max(1, int(spread_steps))
         self.predictor = DirtyPredictor(margin=margin)

@@ -14,8 +14,13 @@ blake2 is the object's address.  An int8 record crosses to the device as
 it is stored (q and scales) and the ``dequantize`` kernel writes the
 destination leaf; a lossy object is checked by its crc32s alone (its table
 describes the tensors before quantization), as in the JAX package.  A
-candidate that fails falls through to the next one; a unit with no good
-candidate raises ``RestoreError``.
+canonically addressed object (the ``fingerprint=False`` path: a full
+object, or an XOR delta rebuilt against its base's canonical payload) is
+checked by the blake2 of its canonical payload; where that base is an fp
+object, its tensors are placed on the target device and its table checked
+there first (:func:`device_materializer`).  A candidate that fails falls
+through to the next one; a unit with no good candidate raises
+``RestoreError``.
 """
 from __future__ import annotations
 
@@ -27,13 +32,15 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import fingerprint as fputil
-from repro_torch.checkpoint.chunk_store import ChunkRef, ChunkStore
+from repro_torch.checkpoint.chunk_store import (ChunkRef, ChunkStore,
+                                                ReadSession)
 from repro_torch.checkpoint.serial import (ChunkCorruption,
-                                           flatten_with_paths)
-from repro_torch.checkpoint.workers import Int8Record
+                                           flatten_with_paths,
+                                           unflatten_from_paths)
+from repro_torch.checkpoint.workers import Int8Record, Items
 from repro_torch.core.layer_registry import OPT_KINDS, LayerRegistry
 from repro_torch.core.manifest import Manifest, ManifestStore
-from repro_torch.dtypes import dtype_name, from_bytes
+from repro_torch.dtypes import byte_view, dtype_name, from_bytes, torch_dtype
 from repro_torch.kernels import block_fp as bfp
 from repro_torch.kernels import quantize as qz
 from repro_torch.optim.groups import tree_map
@@ -154,6 +161,42 @@ def verify_placed(tree: PyTree, fp_blob: bytes, digest: str) -> None:
                               f"{digest}")
 
 
+def place_items(items: Items, device: torch.device) -> Dict[str, torch.Tensor]:
+    """New tensors on ``device`` holding decoded items (an ``Int8Record``
+    dequantized there), by path."""
+    leaves, pairs = {}, []
+    for name, shape, dtype, raw in items:
+        leaves[name] = torch.empty(tuple(shape), dtype=torch_dtype(dtype),
+                                   device=device)
+        pairs.append((leaves[name], raw if isinstance(raw, Int8Record)
+                      else from_bytes(raw, shape, dtype)))
+    place_leaves(pairs)
+    return leaves
+
+
+def device_materializer(device: torch.device):
+    """The store's ``materialize`` hook on ``device``: place an object's
+    items there (int8 records dequantized by the ``dequantize`` kernel on
+    the card), check an fp object's table there (``verify_placed``, the
+    ``block_fp`` kernel on the card) and return the items with every
+    record as raw host bytes (the dequantized leaves copied back).  The
+    store calls it where it needs the canonical payload of an fp or lossy
+    object: an XOR delta's base."""
+    def materialize(items: Items, fp_blob: Optional[bytes],
+                    digest: str) -> Items:
+        leaves = place_items(items, device)
+        if fp_blob is not None:
+            verify_placed(unflatten_from_paths(leaves), fp_blob, digest)
+        out = []
+        for name, shape, dtype, raw in items:
+            if isinstance(raw, Int8Record):
+                raw = memoryview(byte_view(leaves[name]).cpu().numpy())
+            out.append((name, shape, dtype, raw))
+        return out
+
+    return materialize
+
+
 class RestoreEngine:
     def __init__(self, store: ChunkStore, manifests: ManifestStore,
                  registry: LayerRegistry):
@@ -163,11 +206,13 @@ class RestoreEngine:
         self.last_stats: Dict[str, Any] = {}
 
     def _place(self, digest: str, state: Dict[str, PyTree], name: str,
-               kind: str, alloc, timings: Dict[str, float]) -> int:
+               kind: str, alloc, materialize,
+               timings: Dict[str, float]) -> int:
         """Read, decode, insert into the state and verify one object;
         returns the bytes copied to the device."""
         t0 = time.perf_counter()
-        items, fp_blob = self.store.read_items(digest, alloc)
+        items, fp_blob = self.store.read_items(digest, session=ReadSession(
+            self.store, alloc=alloc, materialize=materialize))
         t1 = time.perf_counter()
         if kind == "weights":
             dst = self.registry.extract_unit(state["params"], name)
@@ -224,6 +269,7 @@ class RestoreEngine:
         if "opt" in state and set(state["opt"]) != set(OPT_KINDS):
             raise RestoreError("opt state must hold master, m and v")
         alloc = host_buffer_alloc(device)
+        materialize = device_materializer(device)
         timings = {"read_seconds": 0.0, "h2d_seconds": 0.0,
                    "verify_seconds": 0.0}
         fallbacks: Dict[str, int] = {}
@@ -235,7 +281,7 @@ class RestoreEngine:
             for cand_step, ref in chain:
                 try:
                     h2d += self._place(ref.digest, state, name, kind, alloc,
-                                       timings)
+                                       materialize, timings)
                 except (FileNotFoundError, ChunkCorruption) as e:
                     log.warning("chunk %s/%s from manifest %s unreadable "
                                 "(%s); falling back", name, kind, cand_step, e)

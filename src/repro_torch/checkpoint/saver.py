@@ -1,7 +1,7 @@
 """CheckpointManager — LLMTailor's selective, layer-wise checkpointing in
-the port (the fingerprint path).
+the port.
 
-Save path, per event:
+Save path (the fingerprint path, the default), per event:
   1. the policy picks this event's layer units (every unit on the first
      event, so later manifests always reference a complete base),
   2. for each selected (unit, kind) the ``block_fp`` kernel reduces the
@@ -28,6 +28,19 @@ Save path, per event:
   5. refcounted GC drops manifests beyond ``keep`` and unreferenced
      objects.
 
+``fingerprint=False`` selects the canonical (legacy full-gather) path of
+step 2: each selected unit crosses to the host whole, in one batched copy
+into pinned memory (with ``codec="int8"``, its eligible leaves are also
+quantized on the device and their records copied beside it), and the
+store addresses the object by the blake2b of the unit's canonical payload
+and writes it full or as an XOR delta (XD01) against the unit's previous
+full object (``ChunkStore.write``); no fingerprint is taken.  Where that
+base is an fp object (a store that switched paths across a restart), its
+table is checked on the unit's device before the XOR
+(``restore.device_materializer``).  Objects of both paths coexist in one
+store and restore alike; the overlapped saver takes the fingerprint path
+only.
+
 Restore (``restore``) is the planned full-state restore of
 ``repro_torch.checkpoint.restore``.
 
@@ -52,7 +65,8 @@ from repro_torch.checkpoint.async_io import (AsyncWriter, PendingResult,
                                              TransferPool)
 from repro_torch.checkpoint.chunk_store import (REBASE_EVERY, ChunkRef,
                                                 ChunkStore)
-from repro_torch.checkpoint.restore import PARTS, RestoreEngine
+from repro_torch.checkpoint.restore import (PARTS, RestoreEngine,
+                                            device_materializer)
 from repro_torch.checkpoint.serial import flatten_with_paths
 from repro_torch.core.layer_registry import LayerRegistry
 from repro_torch.core.manifest import Manifest, ManifestStore
@@ -139,10 +153,11 @@ class CheckpointManager:
                  policy: CheckpointPolicy, *, keep: int = 8,
                  fp_block_bytes: int = fputil.DEFAULT_BLOCK_BYTES,
                  async_save: bool = True, writer_threads: int = 2,
-                 codec: str = "auto"):
+                 codec: str = "auto", fingerprint: bool = True):
         self.root = Path(root)
         self.registry = registry
         self.policy = policy
+        self.fingerprint = fingerprint
         self.store = ChunkStore(self.root, codec=codec)
         self.manifests = ManifestStore(self.root)
         self.keep = keep
@@ -235,9 +250,13 @@ class CheckpointManager:
                         if kind == "weights" else
                         self.registry.extract_opt_unit(state["opt"], name))
                 pref = self._prev_entry(prev, name, kind)
-                res, cur = self._save_unit_fp(step, name, kind, tree, pref,
-                                              acc)
-                new_fps[(name, kind)] = cur
+                if self.fingerprint:
+                    res, cur = self._save_unit_fp(step, name, kind, tree,
+                                                  pref, acc)
+                    new_fps[(name, kind)] = cur
+                else:
+                    res = self._save_unit_canonical(step, name, kind, tree,
+                                                    pref, acc)
                 if isinstance(res, PendingResult):
                     pending[(name, kind)] = res
                 else:
@@ -341,8 +360,8 @@ class CheckpointManager:
             "seconds": timings["total_seconds"],
             "d2h_bytes": d2h_bytes,
             "hashed_bytes": io["hashed_bytes"],
-            "dirty_block_frac": (blocks_moved / blocks_total
-                                 if blocks_total else 0.0),
+            "dirty_block_frac": (blocks_moved / blocks_total if blocks_total
+                                 else 0.0 if self.fingerprint else 1.0),
             "logical_bytes": io["logical_bytes"],
             "written_bytes": io["written_bytes"],
             "dedup_hits": io["dedup_hits"],
@@ -435,6 +454,49 @@ class CheckpointManager:
         ref = self.store.write_fp(step, name, kind, packet, prev_ref=pref)
         acc["write_seconds"] += time.perf_counter() - t2
         return ref, cur
+
+    def _save_unit_canonical(self, step: int, name: str, kind: str,
+                             tree: Any, pref: Optional[ChunkRef],
+                             acc: Dict[str, Any]):
+        """Canonical save path for one (unit, kind): the whole unit crosses
+        to the host in one batched copy (under codec int8, with its
+        eligible leaves' records, quantized on the device) and the store
+        writes it (``ChunkStore.write``).  Returns the chunk ref or the
+        pending write."""
+        t1 = time.perf_counter()
+        flat = flatten_with_paths(tree)
+        srcs = [byte_view(a.detach()) for _, a in flat]
+        quant, recs = [], []
+        if self.store.codec != "none":
+            qsrcs, recs = full_sources(flat, self.store.codec, clone=False)
+            quant = [q for q, r in zip(qsrcs, recs) if r is not None]
+        staged = stage_to_host(srcs + quant)
+        acc["d2h_bytes"] += sum(len(m) for m in staged)
+        del srcs, quant
+        items = [(path, tuple(a.shape), dtype_name(a.dtype), data)
+                 for (path, a), data in zip(flat, staged)]
+        full_items = None
+        if recs:
+            qdata = iter(staged[len(flat):])
+            full_items = [
+                (path, shape, dtype, data if rec is None
+                 else workers.Int8Record(next(qdata), rec[0], rec[1], shape,
+                                         dtype))
+                for (path, shape, dtype, data), rec in zip(items, recs)]
+        materialize = device_materializer(flat[0][1].device)
+        # The unit has crossed device->host; nothing is written yet.
+        faults.crash_point("gather")
+        t2 = time.perf_counter()
+        acc["d2h_seconds"] += t2 - t1
+        if self.writer is not None:
+            return self.writer.submit(self.store.write, step, name, kind,
+                                      items, full_items=full_items,
+                                      prev_ref=pref, materialize=materialize)
+        ref = self.store.write(step, name, kind, items,
+                               full_items=full_items, prev_ref=pref,
+                               materialize=materialize)
+        acc["write_seconds"] += time.perf_counter() - t2
+        return ref
 
     def _delta_base(self, name: str, kind: str, pref: Optional[ChunkRef],
                     metas) -> Tuple[Optional[str], Optional[list]]:

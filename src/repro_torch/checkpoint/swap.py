@@ -10,8 +10,10 @@ moved:
 - **block-delta unit whose base is exactly what is served**: read only the
   BD02 object (never its base: the device holds those bytes) and scatter
   its dirty blocks onto the unit's tensors;
-- **anything else** (a full object, a delta against another base):
-  a verified read of the unit through the session, copied in whole; an
+- **anything else** (a full object, a block delta against another base,
+  an XOR delta of the canonical path, whose base bytes are not the
+  tensors' bytes): a verified read of the unit through the session (a
+  full base that several deltas share is read once), copied in whole; an
   int8 leaf crosses as its q and scales and is dequantized on the device
   (``restore.place_leaves``, the cold load's route, so a swap stays
   bit-identical to a cold load), and a lossy object is checked by crc32.
@@ -63,7 +65,8 @@ import torch
 
 from repro_torch.checkpoint import faults, workers
 from repro_torch.checkpoint.chunk_store import ReadSession
-from repro_torch.checkpoint.restore import place_leaves, verify_placed
+from repro_torch.checkpoint.restore import (device_materializer,
+                                            place_leaves, verify_placed)
 from repro_torch.checkpoint.serial import flatten_with_paths
 from repro_torch.core.manifest import Manifest
 from repro_torch.core.tailor import variant_manifest
@@ -240,7 +243,8 @@ class WeightService:
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
-        session = ReadSession(self.store)
+        session = ReadSession(self.store,
+                              materialize=device_materializer(self.device))
         stats = _fresh_stats()
         step_from = self.step
         staged = _copy_dicts(self.current())

@@ -1,6 +1,6 @@
 """Byte-level codecs of the checkpoint format: chunk payloads with a crc32
-per tensor record, block-sparse deltas (BD02), object envelopes, and the
-blake2 digests.
+per tensor record, sparse XOR deltas (XD01), block-sparse deltas (BD02),
+object envelopes, and the blake2 digests.
 
 Codecs ``none`` and ``int8`` are ported: the port writes exactly the bytes
 the JAX package writes with ``codec="none"``, and with ``codec="int8"``
@@ -10,18 +10,19 @@ bfloat16 tensor of at least 256 elements as its ``q`` (int8, 256 per
 block) followed by one float32 scale per block; the quantizing itself is
 the card's (``kernels/quantize``), so here a record is framed from, and
 decoded to, those bytes (:class:`Int8Record`).  ``zstd`` (and int8 records
-whose ``comp`` is ``zstd``) raise ``CodecUnavailable``: the port does not
-use ``zstandard``.  Large byte fields travel as zero-copy buffers
+whose ``comp`` is ``zstd``, and compressed XD01 and BD02 deltas) raise
+``CodecUnavailable``: the port does not use ``zstandard``.  Large byte fields travel as zero-copy buffers
 (``_msgpack.Blob`` on the way out, memoryviews on the way in), so a
 multi-GB unit is never copied to build its object.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import hashlib
 import math
 import zlib
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -31,6 +32,12 @@ CHUNK_FORMAT_VERSION = 1
 OBJECT_VERSION = 1
 DIGEST_BYTES = 20  # blake2b-160
 BLOCK_DELTA_MAGIC = b"BD02"
+DELTA_MAGIC = b"XD01"
+# XOR runs closer than this many bytes share one delta segment.
+DELTA_MERGE_GAP = 32
+# The XOR delta encoder diffs this many bytes at a time, so its scratch
+# memory does not grow with the payload or with the bytes that differ.
+DELTA_WINDOW = 1 << 24
 
 QUANT_BLOCK = 256
 # Lossy codecs: their objects decode to other tensors than were
@@ -89,7 +96,11 @@ def int8_eligible(dtype: str, shape: Sequence[int]) -> bool:
 
 
 def blake2_hex(blob, digest_size: int = DIGEST_BYTES) -> str:
-    return hashlib.blake2b(blob, digest_size=digest_size).hexdigest()
+    """blake2b of a buffer, or of a ``Blob``'s parts back to back."""
+    h = hashlib.blake2b(digest_size=digest_size)
+    for part in (blob.parts if isinstance(blob, Blob) else (blob,)):
+        h.update(part)
+    return h.hexdigest()
 
 
 def _crc(buf) -> int:
@@ -137,7 +148,8 @@ def decode_chunk_items(blob) -> Tuple[Dict, Items]:
     for t in payload["tensors"]:
         if t["codec"] not in ("none", "int8"):
             raise CodecUnavailable(f"tensor {t['name']} uses codec "
-                                   f"{t['codec']!r}, not ported yet")
+                                   f"{t['codec']!r}: reading it needs "
+                                   "zstandard, which the port does not use")
         if _crc(t["data"]) != t["crc"]:
             raise CorruptObject(f"crc mismatch for tensor {t['name']}")
         shape = tuple(t["shape"])
@@ -168,6 +180,200 @@ def _int8_record(t: Dict[str, Any], shape: Tuple[int, ...]) -> Int8Record:
                             f"{n_scale} scales do not fit shape "
                             f"{list(shape)}")
     return Int8Record(t["data"], n_q, n_scale, shape, t["dtype"])
+
+
+# ---------------------------------------------------- XOR delta (XD01)
+def _parts(buf) -> List[memoryview]:
+    """The non-empty byte pieces of a buffer or a ``Blob``, in order."""
+    parts = (buf.parts if isinstance(buf, Blob)
+             else (memoryview(buf).cast("B"),))
+    return [p for p in parts if p.nbytes]
+
+
+def _reader(buf):
+    """(nbytes, read) of a buffer or a ``Blob``: ``read(off, end)`` gives
+    its bytes [off, end) as a uint8 array, a view where they lie in one
+    piece and a copy of that span alone where they do not."""
+    parts = _parts(buf)
+    starts = [0]
+    for p in parts:
+        starts.append(starts[-1] + p.nbytes)
+
+    def read(off: int, end: int) -> np.ndarray:
+        i = bisect.bisect_right(starts, off) - 1
+        if end <= starts[i + 1]:
+            return np.frombuffer(parts[i][off - starts[i]:end - starts[i]],
+                                 np.uint8)
+        out = np.empty(end - off, np.uint8)
+        pos = off
+        while pos < end:
+            stop = min(end, starts[i + 1])
+            out[pos - off:stop - off] = np.frombuffer(
+                parts[i][pos - starts[i]:stop - starts[i]], np.uint8)
+            pos, i = stop, i + 1
+        return out
+
+    return starts[-1], read
+
+
+def _windows(cur, base, window: int):
+    """(offset, XOR of the piece of ``cur`` at offset against ``base``)
+    over ``cur`` in order, no piece longer than ``window`` bytes; ``base``
+    is zero-padded past its end.  Either may be a buffer or a ``Blob``."""
+    n_base, read_base = _reader(base)
+    off = 0
+    for part in _parts(cur):
+        for i in range(0, part.nbytes, window):
+            a = np.frombuffer(part[i:i + window], np.uint8)
+            end = off + a.size
+            if end <= n_base:
+                x = a ^ read_base(off, end)
+            else:
+                x = a.copy()
+                if off < n_base:
+                    x[:n_base - off] ^= read_base(off, n_base)
+            yield off, x
+            off = end
+
+
+def _runs(x: np.ndarray, gap: int):
+    """(starts, ends) of the runs of ``x``'s nonzero bytes at most ``gap``
+    apart, or None when every byte is zero.
+
+    Two runs are split by a zero run of at least ``gap`` bytes, and a zero
+    run of at least 31 bytes holds an aligned all-zero 16-byte block.  So
+    for ``gap`` >= 31 only the runs of all-zero blocks are examined, each
+    widened by the zero bytes that end the block before it and start the
+    block after it: the work follows the zero blocks, not the nonzero
+    bytes (a densely changed unit has few).  A smaller ``gap`` takes the
+    nonzero positions."""
+    if gap < 31:
+        nz = np.flatnonzero(x)
+        if not nz.size:
+            return None
+        brk = np.flatnonzero(np.diff(nz) > gap)
+        return (nz[np.concatenate([[0], brk + 1])],
+                nz[np.concatenate([brk, [nz.size - 1]])] + 1)
+    nb = x.size // 16
+    words = x[:nb * 16].view(np.uint64).reshape(nb, 2)
+    live = (words[:, 0] != 0) | (words[:, 1] != 0)
+    live_blocks = np.flatnonzero(live)
+    tail = np.flatnonzero(x[nb * 16:])
+    if not live_blocks.size and not tail.size:
+        return None
+    blocks = x[:nb * 16].reshape(nb, 16)
+    if live_blocks.size:
+        b = live_blocks[0]
+        first = 16 * b + int(np.argmax(blocks[b] != 0))
+    else:
+        first = 16 * nb + int(tail[0])
+    if tail.size:
+        last_end = 16 * nb + int(tail[-1]) + 1
+    else:
+        b = live_blocks[-1]
+        last_end = 16 * b + 16 - int(np.argmax(blocks[b][::-1] != 0))
+    # runs [b0, b1) of dead (all-zero) blocks between live bytes: not the
+    # leading one, nor the trailing one unless the tail is live
+    d = np.diff(np.concatenate(([1], live.view(np.int8), [1])))
+    b0, b1 = np.flatnonzero(d == -1), np.flatnonzero(d == 1)
+    keep = (b0 > 0) & ((b1 < nb) | (tail.size > 0))
+    b0, b1 = b0[keep], b1[keep]
+    # widen each to its zero bytes: those ending block b0 - 1 and those
+    # starting block b1 (or the tail)
+    zs = 16 * b0 - np.argmax(blocks[b0 - 1][:, ::-1] != 0, axis=1)
+    inner = b1 < nb
+    ze = np.full(b1.size, 16 * nb + (int(tail[0]) if tail.size else 0))
+    ze[inner] = 16 * b1[inner] + np.argmax(blocks[b1[inner]] != 0, axis=1)
+    cut = ze - zs >= gap
+    return (np.concatenate([[first], ze[cut]]),
+            np.concatenate([zs[cut], [last_end]]))
+
+
+def _walk(cur, base, gap: int, window: int):
+    """(offset, XOR piece, run starts, run ends), offsets absolute, for each
+    window of ``cur`` against ``base`` that differs anywhere."""
+    for off, x in _windows(cur, base, window):
+        runs = _runs(x, gap)
+        if runs is not None:
+            yield off, x, runs[0] + off, runs[1] + off
+
+
+def delta_encode(cur, base, *, gap: int = DELTA_MERGE_GAP,
+                 limit: Optional[float] = None, window: int = DELTA_WINDOW):
+    """Sparse bytewise XOR diff of ``cur`` against ``base`` (each a buffer
+    or a ``Blob``, never joined), as a ``Blob``: the JAX package's
+    ``delta_encode`` bytes (uncompressed), ``{"n": n, "segs": [[offset,
+    xor bytes], ...]}`` in msgpack after the magic and a ``\x00``.
+    ``base`` is zero-padded or truncated to ``n``; nonzero XOR bytes at
+    most ``gap`` apart share one segment.
+
+    ``cur`` is diffed ``window`` bytes at a time, with the open segment and
+    the gap rule carried across each window edge, so the scratch memory is
+    a few windows whatever the number of differing bytes (the JAX encoder
+    holds the whole XOR and 8 bytes per differing byte).  With ``limit``, a
+    first pass adds up the segments' bytes without copying any and returns
+    None once they reach it: the encoded delta would be longer still."""
+    n = sum(p.nbytes for p in _parts(cur))
+    if limit is not None:
+        total, last_end = 0, None
+        for _, _, starts, ends in _walk(cur, base, gap, window):
+            total += int((ends - starts).sum())
+            if last_end is not None and starts[0] - (last_end - 1) <= gap:
+                total += int(starts[0]) - last_end
+            last_end = int(ends[-1])
+            if total >= limit:
+                return None
+    segs: List[list] = []
+    open_start = last_end = -1     # the open segment is [open_start, last_end)
+    chunks: List[bytes] = []
+
+    def close() -> None:
+        segs.append([open_start,
+                     chunks[0] if len(chunks) == 1 else Blob(chunks)])
+
+    for off, x, starts, ends in _walk(cur, base, gap, window):
+        for i, (s, e) in enumerate(zip(starts.tolist(), ends.tolist())):
+            if i == 0 and open_start >= 0 and s - (last_end - 1) <= gap:
+                # the run continues the segment left open at the window edge
+                chunks.append(bytes(s - last_end))
+            else:
+                if open_start >= 0:
+                    close()
+                open_start, chunks = s, []
+            chunks.append(x[s - off:e - off].tobytes())
+            last_end = e
+    if open_start >= 0:
+        close()
+    return Blob([DELTA_MAGIC + b"\x00",
+                 *pack_parts({"n": n, "segs": segs})])
+
+
+def delta_decode(blob, base) -> bytearray:
+    """The payload ``delta_encode`` diffed against ``base`` (a buffer or a
+    ``Blob``), built in one output buffer: ``base`` (zero-padded or
+    truncated) patched in place."""
+    mv = memoryview(blob).cast("B")
+    if bytes(mv[:4]) != DELTA_MAGIC:
+        raise ValueError("not a delta blob (bad magic)")
+    if mv[4] == 1:
+        raise CodecUnavailable("the XOR delta is compressed with zstd: "
+                               "reading it needs zstandard, which the port "
+                               "does not use")
+    d = unpackb(mv[5:], zero_copy=True)
+    n = d["n"]
+    out = bytearray(n)
+    off = 0
+    for part in _parts(base):
+        m = min(part.nbytes, n - off)
+        if m <= 0:
+            break
+        out[off:off + m] = part[:m]
+        off += m
+    o = np.frombuffer(out, np.uint8)
+    for off, data in d["segs"]:
+        seg = np.frombuffer(data, np.uint8)
+        o[off:off + len(seg)] ^= seg
+    return out
 
 
 # --------------------------------------------- block-sparse delta (BD02)

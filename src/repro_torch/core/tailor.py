@@ -22,17 +22,19 @@ delta object brings its full base along, once.  A thread pool of
 
 Verification (``verify=True``, the default) reads every copied object back
 from the output store: the crc32 of each record and the table->digest or
-payload->digest checks of ``ChunkStore.read_items``, and then, where the
-JAX package recomputes the object's fingerprint table (every fp-addressed
-object but a lossy full one), the object's tensors are placed on
-``device`` and fingerprinted there (``restore.verify_placed``: the
-``block_fp`` kernel on the card, its plain version on the CPU).  A
-mismatch raises ``ChunkCorruption`` and no manifest is committed.  An
-object whose encoding the port cannot decode (an XOR ``delta``, zstd
-compression) raises ``CodecUnavailable`` (ROADMAP A2); ``verify=False``
-(``--no-verify``) copies it blob for blob, as the JAX merge does.  Device
-memory of the verification is one object's tensors per worker, freed after
-its check.
+payload->digest checks of ``ChunkStore.read_items`` (an XOR ``delta`` is
+rebuilt on its base and its canonical payload hashed; a lossy canonical
+object is checked by crc32 alone), and then, where the JAX package
+recomputes an object's fingerprint table (every fp-addressed object but a
+lossy full one, and an fp object that anchors an XOR delta), the tensors
+are placed on ``device`` and fingerprinted there
+(``restore.verify_placed``: the ``block_fp`` kernel on the card, its plain
+version on the CPU).  A mismatch raises ``ChunkCorruption`` and no
+manifest is committed.  A zstd-compressed object raises
+``CodecUnavailable`` (the port does not use ``zstandard``);
+``verify=False`` (``--no-verify``) copies it blob for blob, as the JAX
+merge does.  Device memory of the verification is one object's tensors
+per worker, freed after its check.
 
 ``device`` is resolved by ``devices.resolve_device``: the card by default,
 the CPU only when asked for.  Not ported: merging from or into the JAX
@@ -51,15 +53,16 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.checkpoint import workers as workers_lib
-from repro_torch.checkpoint.chunk_store import ChunkRef, ChunkStore
-from repro_torch.checkpoint.restore import (host_buffer_alloc, place_leaves,
+from repro_torch.checkpoint.chunk_store import (ChunkRef, ChunkStore,
+                                                ReadSession)
+from repro_torch.checkpoint.restore import (device_materializer,
+                                            host_buffer_alloc, place_items,
                                             verify_placed)
 from repro_torch.checkpoint.serial import unflatten_from_paths
 from repro_torch.core.manifest import (Manifest, ManifestStore, entry_refs,
                                        is_sharded)
 from repro_torch.core.recipe import CheckpointRef, Recipe, expand_patterns
 from repro_torch.devices import resolve_device
-from repro_torch.dtypes import from_bytes, torch_dtype
 
 # Codecs of full fp-addressed objects whose tensors are what their table
 # describes (the JAX package's rule): a lossy full object decodes to other
@@ -144,36 +147,26 @@ def table_checked(env: Dict[str, Any]) -> bool:
 
 def verify_object(store: ChunkStore, digest: str,
                   device: torch.device) -> None:
-    """Read ``digest`` back from ``store`` and check it: crc32 per record
-    and the address checks (``read_items``), then, where
-    :func:`table_checked`, its tensors placed on ``device`` against the
-    stored table.  Raises ``ChunkCorruption`` or ``CodecUnavailable``."""
-    alloc = host_buffer_alloc(device)
-    envelopes: Dict[str, Dict[str, Any]] = {}
-
-    def envelope(d: str) -> Dict[str, Any]:
-        env = envelopes.get(d)
-        if env is None:
-            env = envelopes[d] = store.read_envelope(d, alloc)
-        return env
-
+    """Read ``digest`` back from ``store`` and check it as the JAX
+    package's ``read_digest(verify=True)`` does: crc32 per record and the
+    address checks (``read_items``: an fp object's table hashes to its
+    digest; a canonical object's payload does, an XOR delta's once rebuilt
+    on its base, whose own table, if it is an fp object, is checked on
+    ``device``), then, where :func:`table_checked`, its tensors placed on
+    ``device`` against the stored table.  Raises ``ChunkCorruption``, or
+    ``CodecUnavailable`` for a zstd-compressed object."""
+    session = ReadSession(store, alloc=host_buffer_alloc(device),
+                          materialize=device_materializer(device))
     try:
-        items, _ = store.read_items(digest, envelope=envelope)
+        items, _ = store.read_items(digest, session=session)
     except workers_lib.CodecUnavailable as e:
         raise workers_lib.CodecUnavailable(
-            f"cannot verify object {digest}: {e} (ROADMAP A2; --no-verify "
-            "copies it unverified)") from e
-    env = envelopes[digest]
+            f"cannot verify object {digest}: {e} (--no-verify copies it "
+            "unverified)") from e
+    env = session.envelope(digest)
     if not table_checked(env):
         return
-    leaves, pairs = {}, []
-    for name, shape, dtype, raw in items:
-        leaves[name] = torch.empty(tuple(shape), dtype=torch_dtype(dtype),
-                                   device=device)
-        pairs.append((leaves[name],
-                      raw if isinstance(raw, workers_lib.Int8Record)
-                      else from_bytes(raw, shape, dtype)))
-    place_leaves(pairs)
+    leaves = place_items(items, device)
     verify_placed(unflatten_from_paths(leaves), bytes(env["fp"]), digest)
 
 

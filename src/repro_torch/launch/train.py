@@ -6,10 +6,13 @@ checkpointing and Frankenstein resume, on the card by default.
         --ckpt-interval 2 --ckpt-spread-steps 2 --ckpt-dir /path/to/run \\
         [--fail-at 7 | --fail-at 7@spread_slice] [--resume]
 
-- selective checkpoints every ``ckpt_interval`` steps (policy-driven, on
-  the fingerprint path, local store); the object writes run on
-  ``--writer-threads`` writer threads unless ``--sync-save`` asks for
-  inline writes;
+- selective checkpoints every ``ckpt_interval`` steps (policy-driven,
+  local store), on the fingerprint path, or with ``--no-fingerprint``
+  (``ckpt_fingerprint=False``) on the canonical path: each selected unit
+  crosses to the host whole and is addressed by the blake2b of its
+  canonical payload, written full or as an XOR delta; the object writes
+  run on ``--writer-threads`` writer threads unless ``--sync-save`` asks
+  for inline writes;
 - ``--codec int8`` (``auto`` and ``none`` store raw bytes) composes
   selectivity with compression: the selected units' float leaves of at
   least 256 elements, weights and optimizer state alike, are quantized on
@@ -18,7 +21,8 @@ checkpointing and Frankenstein resume, on the card by default.
 - ``--ckpt-spread-steps N`` (N > 0) runs each event through the
   overlapped saver (``checkpoint/overlap.py``): the device work and the
   decisions at the step boundary, the device->host copies, encoding and
-  writes across the next N steps, the commit after them;
+  writes across the next N steps, the commit after them (fingerprint path
+  only: with ``--no-fingerprint`` it raises ``ValueError``);
 - ``--policy topk_delta`` selects the most-drifted blocks by the
   ``DeltaTracker`` scores (``core/delta.py``);
 - ``--fail-at N`` raises a simulated failure at the step-N boundary;
@@ -98,6 +102,7 @@ def train(
     ckpt_dir: str = "/tmp/repro_train",
     ckpt_async: bool = True,
     ckpt_spread_steps: int = 0,
+    ckpt_fingerprint: bool = True,
     codec: str = "auto",
     writer_threads: int = 2,
     resume: bool = False,
@@ -123,12 +128,17 @@ def train(
     policy = make_policy(policy_name, model.layer_units())
     mgr = CheckpointManager(Path(ckpt_dir), registry, policy,
                             async_save=ckpt_async,
-                            writer_threads=writer_threads, codec=codec)
+                            writer_threads=writer_threads, codec=codec,
+                            fingerprint=ckpt_fingerprint)
     tracker = DeltaTracker(registry) if policy_name == "topk_delta" else None
     # Zero-stall pipeline: events begin at the step boundary and run their
     # host-side copy/encode/write across the next ``ckpt_spread_steps``.
-    ov = (OverlappedSaver(mgr, spread_steps=ckpt_spread_steps)
-          if ckpt_spread_steps > 0 else None)
+    try:
+        ov = (OverlappedSaver(mgr, spread_steps=ckpt_spread_steps)
+              if ckpt_spread_steps > 0 else None)
+    except ValueError:
+        mgr.close()
+        raise
     data = SyntheticTokens(vocab_size=cfg.vocab_size, batch=batch,
                            seq_len=seq_len, seed=seed)
     train_step = steps_lib.make_train_step(model, tcfg, registry)
@@ -293,7 +303,13 @@ def main() -> None:
     ap.add_argument("--ckpt-dir", default="/tmp/repro_train")
     ap.add_argument("--ckpt-spread-steps", type=int, default=0,
                     help="N > 0: overlapped saves, each event's host work "
-                         "spread over the next N steps")
+                         "spread over the next N steps (fingerprint path "
+                         "only)")
+    ap.add_argument("--no-fingerprint", action="store_true",
+                    help="canonical save path: each selected unit crosses "
+                         "to the host whole, addressed by the blake2b of "
+                         "its canonical payload (full or XOR-delta "
+                         "objects)")
     ap.add_argument("--codec", default="auto",
                     choices=["auto", "none", "int8"],
                     help="object codec: auto/none store raw bytes, int8 "
@@ -319,6 +335,7 @@ def main() -> None:
                 policy_name=args.policy, ckpt_interval=args.ckpt_interval,
                 ckpt_dir=args.ckpt_dir, ckpt_async=not args.sync_save,
                 ckpt_spread_steps=args.ckpt_spread_steps,
+                ckpt_fingerprint=not args.no_fingerprint,
                 codec=args.codec,
                 writer_threads=args.writer_threads, resume=args.resume,
                 fail_at=args.fail_at, seed=args.seed, log_csv=args.log_csv,

@@ -22,7 +22,8 @@ magnitude, two launches bitwise equal, and each route launching its own
 kernels;
 quantize and dequantize bitwise equal to their plain versions (q of a NaN
 block aside: its int8 cast is platform-defined), and an int8 save's
-objects on the card byte-identical to the CPU path's.
+objects on the card byte-identical to the CPU path's, on both save paths;
+a canonical event's fingerprint-addressed bases checked on the card.
 """
 import numpy as np
 import pytest
@@ -614,3 +615,79 @@ def test_merge_verifies_on_the_card_and_catches_a_flipped_byte(dev,
         merge(recipe(src, "bad"), device=dev)
     assert bfp.KERNEL.launches > n0
     assert ManifestStore(tmp_path / "bad").all_steps() == []
+
+
+def _card_state(dev):
+    """A reduced Yi-9B state made on the CPU (the init draws per device)
+    and copied to the card, with its model and registry."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("yi-9b", reduced=True))
+    state = steps.init_state(model, 0, torch.device("cpu"))
+    state = {k: (v if k == "step" else _to(v, dev)) for k, v in state.items()}
+    return model, LayerRegistry(model), state
+
+
+def _canonical_mgr(root, model, reg, **kw):
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.core.policies import make_policy
+
+    return CheckpointManager(root, reg,
+                             make_policy("full", model.layer_units()),
+                             async_save=False, fp_block_bytes=4096, **kw)
+
+
+def test_canonical_int8_save_quantizes_on_the_card(dev, tmp_path):
+    """The canonical path with codec int8 quantizes on the card and writes
+    the bytes the CPU path writes from the same state."""
+    model, reg, state = _card_state(dev)
+    mgr = _canonical_mgr(tmp_path / "card", model, reg, codec="int8",
+                         fingerprint=False)
+    n0 = qz.QUANTIZE.launches
+    mgr.save(state, step=1)
+    assert qz.QUANTIZE.launches > n0
+    mgr.close()
+    host = {k: (v if k == "step" else _to(v, torch.device("cpu")))
+            for k, v in state.items()}
+    cpu = _canonical_mgr(tmp_path / "cpu", model, reg, codec="int8",
+                         fingerprint=False)
+    cpu.save(host, step=1)
+    cpu.close()
+
+    def files(root):
+        return {p.relative_to(root): p.read_bytes()
+                for p in root.rglob("*") if p.is_file()}
+
+    assert files(tmp_path / "card") == files(tmp_path / "cpu")
+
+
+def test_canonical_event_over_fp_bases_checks_them_on_the_card(dev,
+                                                               tmp_path):
+    """A canonical event whose previous entries are fp objects checks each
+    base's table on the card (block_fp launches) before its XOR delta; a
+    base with a payload byte flipped under a recomputed crc32 is caught
+    there and its unit written full."""
+    from repro_torch.core.manifest import ManifestStore
+
+    model, reg, state = _card_state(dev)
+    root = tmp_path / "store"
+    mgr = _canonical_mgr(root, model, reg)
+    mgr.save(state, step=1)
+    mgr.close()
+    bad = ManifestStore(root).load(1).entries["embed"]["opt"]
+    _flip_payload_byte(root / bad.relpath, bad.digest)
+    with torch.no_grad():
+        state["params"]["embed"]["w"][3, :5] += 1
+    mgr = _canonical_mgr(root, model, reg, fingerprint=False)
+    n0 = bfp.KERNEL.launches
+    mgr.save(state, step=2)
+    assert bfp.KERNEL.launches > n0
+    entries = mgr.manifests.load(2).entries
+    assert entries["embed"]["opt"].stored == "full"
+    assert entries["embed"]["weights"].stored == "delta"
+    assert mgr.last_save_stats["delta_chunks"] == \
+        2 * len(model.layer_units()) - 1
+    mgr.close()

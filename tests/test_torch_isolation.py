@@ -1,7 +1,8 @@
 """The port stands alone: repro_torch and chip_smoke.py import neither jax
-nor the JAX package, nor msgpack, pydantic or ml_dtypes, also not when
-they train, resume, serve and merge (``python -m repro_torch.core.tailor``)
-in one process."""
+nor the JAX package, nor msgpack, zstandard, pydantic or ml_dtypes, also
+not when they train, resume, serve, merge (``python -m
+repro_torch.core.tailor``) and save on the canonical path (``python -m
+repro_torch.launch.train --no-fingerprint``) in one process."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "pydantic", "ml_dtypes")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "zstandard", "pydantic",
+             "ml_dtypes")
 
 
 def _imported_modules(path: Path):
@@ -69,6 +71,15 @@ recipe.write_text(json.dumps({{
 sys.argv = ["tailor", str(recipe), "--device", "cpu", "--workers", "2"]
 runpy.run_module("repro_torch.core.tailor", run_name="__main__")
 assert (merged / "LATEST").read_text() == "4"
+sys.argv = ["train", "--device", "cpu", "--arch", {arch!r}, "--num-layers",
+            "2", "--steps", "6", "--batch", "2", "--seq-len", "16",
+            "--policy", "parity", "--ckpt-interval", "2", "--ckpt-dir",
+            kw["ckpt_dir"], "--resume", "--no-fingerprint", "--sync-save"]
+runpy.run_module("repro_torch.launch.train", run_name="__main__")
+m = json.loads((pathlib.Path(kw["ckpt_dir"]) / "manifests"
+                / "manifest-00000006.json").read_text())
+assert any(r["stored"] == "delta" for k in m["entries"].values()
+           for r in k.values()), m
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r})
 print("BAD", bad)

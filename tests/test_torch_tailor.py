@@ -515,10 +515,13 @@ def test_lossy_full_objects_are_checked_by_crc_alone():
 @pytest.mark.parametrize("store", ["xor_delta", "zstd"])
 def test_objects_the_port_cannot_decode_raise_unless_unverified(tmp_path,
                                                                 store):
-    """A JAX store with XOR-delta (canonical path) or zstd objects: the
-    verifying merge raises CodecUnavailable naming ROADMAP A2 and commits
-    no manifest; --no-verify copies blob for blob, byte-identical to the
-    JAX merge."""
+    """A JAX store with XOR-delta (canonical path) or zstd objects.  XOR
+    deltas are decoded now: the verifying merge is byte-identical to the
+    JAX merge, and a flipped byte in an XD01 payload raises
+    ``ChunkCorruption`` in both packages (no manifest).  zstd objects are
+    not: the verifying merge raises CodecUnavailable naming zstandard and
+    commits no manifest; --no-verify copies blob for blob, byte-identical
+    to the JAX merge."""
     src = tmp_path / "src"
     jmodel, jreg = _jax_side()
     kw = (dict(codec="none", fingerprint=False) if store == "xor_delta"
@@ -528,12 +531,31 @@ def test_objects_the_port_cannot_decode_raise_unless_unverified(tmp_path,
     for step, s in zip((2, 4, 6), _states()):
         mgr.save(s, step=step)
     mgr.close()
-    fmts = {workers.parse_envelope(p.read_bytes(), p.stem)["format"]
-            for p in (src / "objects").glob("*/*.chunk")}
-    if store == "xor_delta":
-        assert "delta" in fmts
     recipes = _recipes(tmp_path, src)
-    with pytest.raises(workers.CodecUnavailable, match="ROADMAP A2"):
+    if store == "xor_delta":
+        ref = ManifestStore(src).load(4).entries["block_001"]["weights"]
+        path = src / ref.relpath
+        assert workers.parse_envelope(path.read_bytes(),
+                                      ref.digest)["format"] == "delta"
+        jax_merge(JaxRecipe.load(recipes["jax"]), workers=2)
+        merge(Recipe.load(recipes["port"]), workers=2, device="cpu")
+        assert _tree_bytes(tmp_path / "merged_port") == \
+            _tree_bytes(tmp_path / "merged_jax")
+        assert path.name in _objects(tmp_path / "merged_port")
+        for pkg in ("jax", "port"):
+            shutil.rmtree(tmp_path / f"merged_{pkg}")
+        env = workers.parse_envelope(path.read_bytes(), ref.digest)
+        payload = bytearray(env["payload"])
+        payload[-1] ^= 0x01     # an XOR byte of the last segment
+        env["payload"] = bytes(payload)
+        path.write_bytes(_msgpack.packb(env))
+        with pytest.raises(JaxChunkCorruption, match="digest mismatch"):
+            jax_merge(JaxRecipe.load(recipes["jax"]), workers=1)
+        with pytest.raises(ChunkCorruption, match="digest mismatch"):
+            merge(Recipe.load(recipes["port"]), workers=1, device="cpu")
+        assert ManifestStore(tmp_path / "merged_port").all_steps() == []
+        return
+    with pytest.raises(workers.CodecUnavailable, match="zstandard"):
         merge(Recipe.load(recipes["port"]), device="cpu")
     assert ManifestStore(tmp_path / "merged_port").all_steps() == []
     shutil.rmtree(tmp_path / "merged_port")
