@@ -147,9 +147,27 @@ which exits non-zero:
       its restore: ``quantize`` and ``dequantize`` launched, block_000's
       objects equal to the CPU path's, the restored leaves to their
       records dequantized;
+   i. the storage tiers in 3a's configuration, after 3h (budget 150 s):
+      (a) 3a's failing run and resume through ``store_backend="tiered"``
+      (a RAM hot tier of 4 GiB spilling to the disk tree): the resumed
+      losses equal 3a's within MODE_TOL, steps 2 and 4 hold 3a's digests
+      (recorded before 3h), every drained object hashes to its name, the
+      disk tree passes the store checks of 3a; (c) servers through
+      ``tiered`` and ``local`` on (a)'s root (cold load of 4, hot-swap to
+      6) serve equal parameters and one ``tokens_digest``; (b)
+      ``remote3`` (RAM -> disk -> a simulated bucket, 2 ms an op, 1%
+      seeded faults) with the bucket down during event 2, which commits
+      disk-durable and degraded, healed and drained to full replication;
+      a lost disk copy of a step-2 object read back from the bucket by a
+      resume to 4, whose losses equal 3a's uninterrupted run; (d) a
+      weights-only merge that takes block_000's weights from a live
+      RAM-tier (``memory``) store into a local root, restored bit for
+      bit, ``block_fp`` launched once per copied object; (b) and (d) are
+      cut to fit the budget;
 4. print the main paths' step/save/restore times, the serve line, the
    Mamba line, the int8 line, the merge line, the canonical path's
-   ``{"legacy": ...}`` line, the kernels line, the card line, and last
+   ``{"legacy": ...}`` line, the tiers line, the kernels line, the card
+   line, and last
    the ``{"ok": true, "device": ...}`` line; each phase logs its wall
    time; with ``--record PATH``, the full record of every phase also goes
    to PATH (written even when a check fails).
@@ -2132,6 +2150,469 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     log(f"phase 3h in {out['seconds']:.1f} s; launches {launches}")
 
 
+# ---------------------------------------------------------------- phase 3i
+TIER_HOT_BUDGET_MB = 4096
+TIER_REMOTE = {"latency": 0.002, "error_rate": 0.01, "seed": 0}
+
+
+def _check_free(store: Path, what: str) -> float:
+    free = shutil.disk_usage(store).free
+    if free < STORE_BYTES_NEEDED:
+        raise RuntimeError(f"{what}: only {free / 1e9:.1f} GB free under "
+                           f"{store}, want {STORE_BYTES_NEEDED / 1e9:.0f} GB")
+    return free
+
+
+@contextlib.contextmanager
+def _rss_peak(into: dict):
+    """Sample the process's resident bytes every 50 ms; ``into["peak"]``
+    is the largest sample (``/proc/self/statm``)."""
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+    stop = threading.Event()
+
+    def rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * page
+
+    def sample() -> None:
+        while True:
+            into["peak"] = max(into.get("peak", 0), rss())
+            if stop.wait(0.05):
+                return
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield into
+    finally:
+        stop.set()
+        t.join()
+
+
+def _fp_named(path: Path) -> bool:
+    """Whether the fingerprint table in the object file at ``path`` hashes
+    to the file's name (the envelope is parsed from a map of the file, so
+    the payload is never read)."""
+    import mmap
+
+    from repro_torch.checkpoint import fingerprint as fputil
+    from repro_torch.checkpoint import workers
+
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0,
+                                          access=mmap.ACCESS_READ) as mm:
+        mv = memoryview(mm)
+        try:
+            env = workers.parse_envelope(mv, path.stem)
+            fp = env.get("fp")
+            fp = None if fp is None else bytes(fp)
+            del env
+        finally:
+            mv.release()
+    if fp is None:
+        raise AssertionError(f"{path} is not fingerprint-addressed")
+    return fputil.fp_digest(fp) == path.stem
+
+
+def _check_named(root: Path, pattern: str, what: str) -> int:
+    files = sorted(root.glob(pattern))
+    bad = [p.name for p in files if not _fp_named(p)]
+    if bad:
+        raise AssertionError(f"{what}: objects that do not hash to their "
+                             f"names: {bad}")
+    return len(files)
+
+
+def _stems(root: Path, pattern: str) -> set:
+    return {p.name.split(".")[0] for p in root.glob(pattern)}
+
+
+@contextlib.contextmanager
+def _outage_on_event(at: int, into: dict):
+    """Wrap ``CheckpointManager.save`` so the event at step ``at`` runs with
+    the bucket's ``OUTAGE`` marker touched and a durability barrier, then
+    heals the bucket and waits out the breaker's cooldown; ``into`` gets
+    the event's storage record and the remote counters at its commit."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+
+    plain = CheckpointManager.save
+
+    def save(self, state, *, step=None, **kwargs):
+        if step != at:
+            return plain(self, state, step=step, **kwargs)
+        remote = self.store.backend.tier_backends()["remote"]
+        remote.service.set_outage(True)
+        try:
+            m = plain(self, state, step=step, durability_barrier=True,
+                      **kwargs)
+        finally:
+            remote.service.set_outage(False)
+        into.update(storage=dict(m.meta["storage"]),
+                    tier_stats_at_commit=self.store.tier_stats())
+        deadline = time.monotonic() + remote.breaker.cooldown + 1.0
+        while not remote.breaker.allow() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        return m
+
+    CheckpointManager.save = save
+    try:
+        yield into
+    finally:
+        CheckpointManager.save = plain
+
+
+_TIER_EVENT_KEYS = ("step", "stall_seconds", "durable_on", "spill_pending",
+                    "backend", "written_bytes", "d2h_bytes",
+                    "encode_seconds", "write_io_seconds", "commit_seconds",
+                    "gc_seconds")
+# (d)'s stores hold these units only, block_000's weights taken from RAM
+# (the first cut of 3i to its 150-s budget)
+TIER_MERGE_UNITS = ("block_000", "final_norm")
+
+
+@contextlib.contextmanager
+def _served_params(into: list):
+    """Append to ``into`` every tree ``WeightService.current`` returns (a
+    server's last one is what it generated from)."""
+    from repro_torch.checkpoint.swap import WeightService
+
+    plain = WeightService.current
+
+    def current(self):
+        tree = plain(self)
+        into.append(tree)
+        return tree
+
+    WeightService.current = current
+    try:
+        yield into
+    finally:
+        WeightService.current = plain
+
+
+def _units_registry(model, names):
+    """A registry of ``model`` that knows only the units ``names``."""
+    from repro_torch.core.layer_registry import LayerRegistry
+
+    reg = LayerRegistry(model)
+    reg.units = [u for u in reg.units if u.name in names]
+    reg.by_name = {u.name: u for u in reg.units}
+    return reg
+
+
+def phase_3i(torch, dev, store: Path, rec_a: dict, out: dict) -> None:
+    """The storage tiers at 3a's configuration (Yi-9B full width, 2
+    layers, batch 2 x 1024, parity, a save every 2 steps, sync saves),
+    after 3h, the launch counts set to 0 before each part and read after.
+    Budget: 150 s.  ``rec_a`` is 3a's record (its resumed losses, events,
+    and the step-2 and step-4 entry digests taken before 3h removed its
+    store).  Each part checks free disk first and removes its root at its
+    end.  Fills ``out`` before its checks.
+
+    (a) ``store_backend="tiered"`` (RAM hot tier, 4 GiB budget, spill to
+    the disk tree, no barrier): the run that fails at step 5 and its
+    resume to 6; the resumed losses equal 3a's within MODE_TOL, steps 2
+    and 4 hold 3a's digests, every drained object hashes to its name, the
+    durable tree passes ``check_store``; per event the stall beside 3a's,
+    ``durable_on`` and ``spill_pending`` at commit; the drain, hot bytes,
+    evictions, reads per tier and the host's peak RSS recorded.
+    (c) servers on (a)'s root at 2 layers (batch 8 x 1024, 128 tokens)
+    through ``tiered`` and ``local``: a weights-only cold load of 4
+    hot-swapped to 6 serves equal parameters and one ``tokens_digest``;
+    the loads' and swaps' reads per tier recorded.
+    (b) ``store_backend="remote3"`` (RAM -> disk -> remote; 2 ms per op, 1%
+    seeded faults, seed 0), cut to event 2 to fit the budget: a run to
+    step 2 whose event runs with the bucket down and a barrier (it commits
+    ``durable_on="durable"``, degraded) and heals after; the run's end
+    drains to full replication (the bucket's digests equal the disk
+    tree's, every blob hashes to its name); one step-2 object's disk copy
+    is deleted and a new manager resumes to 4: the object is read from the
+    bucket and is back on disk, the losses equal 3a's uninterrupted run
+    (event 2 is full), steps 2 and 4 hold 3a's digests; the retry, hedge
+    and breaker counters recorded.
+    (d) a merge from a live RAM tier, cut to TIER_MERGE_UNITS (block_000
+    and final_norm) to fit the budget: the initial full-width state saved
+    by a ``memory`` manager, the state with block_000 bumped by a
+    ``local`` one; a weights-only recipe takes block_000's weights from
+    the RAM store (``stores=``) into a local output, restored on the card:
+    every unit equals its source, ``meta["storage"]`` is local/durable,
+    and the merge's verify launches ``block_fp`` once per copied
+    object."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.checkpoint.serial import flatten_with_paths
+    from repro_torch.core.manifest import ManifestStore
+    from repro_torch.core.policies import make_policy
+    from repro_torch.core.recipe import CheckpointRef, Recipe, SelectRule
+    from repro_torch.core.tailor import merge
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import SimulatedFailure, train
+
+    t0 = time.perf_counter()
+    root = store / "3i"
+    root.mkdir(parents=True, exist_ok=True)
+    kw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
+              batch=BATCH, seq_len=SEQ, policy_name="parity", seed=SEED,
+              device=str(dev), ckpt_async=False,
+              hot_budget_mb=TIER_HOT_BUDGET_MB)
+    model = _model()
+    wlike = {"params": steps.state_specs(model)["params"]}
+    launches = out["launches"] = {}
+    want_losses = rec_a["losses_resumed"]
+    if [s for s, _ in want_losses] != list(range(FAIL_AT - 1, STEPS)):
+        raise AssertionError(f"3a's resumed steps: {want_losses}")
+    a_stalls = {e["step"]: e["stall_seconds"] for e in rec_a["save_events"]}
+
+    def losses_equal(res, want, what: str) -> dict:
+        """The resumed losses against 3a's at the same steps."""
+        want = dict(want)
+        diffs = {s: abs(l - want[s]) for s, l in res["losses"] if s in want}
+        if (len(diffs) != len(res["losses"])
+                or not all(d <= MODE_TOL for d in diffs.values())):
+            raise AssertionError(f"{what}: resumed losses {res['losses']} "
+                                 f"off 3a's {sorted(want.items())}")
+        return diffs
+
+    def digests_equal(run: Path, what: str) -> None:
+        for s in (2, 4):
+            got = {f"{u}/{k}": d for (u, k), d in
+                   _entry_digests(run, s).items()}
+            if got != rec_a["entry_digests"][str(s)]:
+                raise AssertionError(f"{what}: step-{s} entries differ "
+                                     "from 3a's")
+
+    # (a) the RAM hot tier over the disk tree
+    ta = time.perf_counter()
+    run_a = root / "a"
+    out["a"] = {"free_bytes": _check_free(root, "3i (a)")}
+    rss = {}
+    _zero_counts()
+    with _rss_peak(rss):
+        try:
+            train(ckpt_dir=str(run_a), total_steps=STEPS,
+                  ckpt_interval=CKPT_INTERVAL, fail_at=FAIL_AT,
+                  store_backend="tiered", **kw)
+            raise AssertionError("3i (a): the checkpointed run did not fail")
+        except SimulatedFailure as e:
+            failed = e
+        res = train(ckpt_dir=str(run_a), total_steps=STEPS,
+                    ckpt_interval=CKPT_INTERVAL, resume=True,
+                    store_backend="tiered", **kw)
+    torch.cuda.synchronize()
+    launches["a"] = _read_counts()
+    events = failed.save_events + res["save_events"]
+    ts = res["tier_stats"]
+    out["a"].update({
+        "losses_resumed": res["losses"],
+        "events": [{k: e[k] for k in _TIER_EVENT_KEYS} | {
+            "stall_seconds_3a": a_stalls.get(e["step"])} for e in events],
+        "spill_drain_seconds": res["spill_drain_seconds"],
+        "tier_stats": {k: ts[k] for k in (
+            "hot_writes", "hot_reads", "durable_reads", "spilled_objects",
+            "spilled_bytes", "promotions", "evictions", "evicted_bytes",
+            "hot_resident_bytes", "pending_spill")},
+        "restore": {k: res["restore_stats"][k] for k in (
+            "seconds", "bytes_read", "tier_reads", "unit_tiers",
+            "io_retries")},
+        "host_peak_rss_bytes": rss.get("peak"),
+        "launches": launches["a"]})
+    log(f"3i (a) events {out['a']['events']}; drain "
+        f"{res['spill_drain_seconds']:.3f} s; tiers {out['a']['tier_stats']}"
+        f"; restore {out['a']['restore']}; peak RSS {rss.get('peak')}")
+    out["a"]["loss_diffs"] = losses_equal(res, want_losses, "3i (a)")
+    digests_equal(run_a, "3i (a)")
+    out["a"]["objects_named"] = _check_named(run_a, "objects/*/*.chunk",
+                                             "3i (a)")
+    _check_launched(launches["a"], ("block_fp", "fused_adamw"), "3i (a)")
+    _release(torch)
+    out["a"].update(check_store(torch, dev, run_a, "parity", STEPS - 2))
+    out["a"]["seconds"] = time.perf_counter() - ta
+    log(f"3i (a) in {out['a']['seconds']:.1f} s")
+
+    # (c) serving from (a)'s root through the tiered backend
+    tc = time.perf_counter()
+    _release(torch)
+    _zero_counts()
+    skw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
+               batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+               new_tokens=SERVE_NEW, seed=SEED, device=str(dev),
+               from_ckpt=str(run_a), from_step=4, hot_swap=True,
+               swap_wait=0.0)
+    runs, served = {}, {}
+    for backend in ("tiered", "local"):
+        with _served_params([]) as trees:
+            runs[backend] = serve(store_backend=backend, **skw)
+        served[backend] = trees[-1]
+    torch.cuda.synchronize()
+    launches["c"] = _read_counts()
+    params_equal = _params_equal(torch, served["tiered"], served["local"])
+    del served
+    _release(torch)
+    out["c"] = {"reads": {b: {
+        "load": {k: r["restore"][k] for k in (
+            "seconds", "bytes_read", "tier_reads")},
+        "swap": {k: r["swap"][k] for k in (
+            "seconds", "bytes_read", "tier_reads", "units_swapped",
+            "units_scattered", "units_full")}} for b, r in runs.items()},
+        "params_equal": params_equal,
+        "tokens_digest": {b: r["tokens_digest"] for b, r in runs.items()},
+        "served_step": {b: r["served_step"] for b, r in runs.items()},
+        "launches": launches["c"],
+        "seconds": time.perf_counter() - tc}
+    log(f"3i (c) {out['c']}")
+    if not params_equal:
+        raise AssertionError("3i (c): tiered and local loads and swaps "
+                             "serve different parameters")
+    if (len(set(out["c"]["tokens_digest"].values())) != 1
+            or set(out["c"]["served_step"].values()) != {STEPS}):
+        raise AssertionError(f"3i (c): servers differ: {out['c']}")
+    _check_launched(launches["c"], ("flash_attention",), "3i (c)")
+    shutil.rmtree(run_a)
+
+    # (b) RAM -> disk -> remote, an outage on event 2, a lost disk copy;
+    # cut to event 2 (the second cut of 3i to its 150-s budget)
+    tb = time.perf_counter()
+    run_b = root / "b"
+    out["b"] = {"free_bytes": _check_free(root, "3i (b)")}
+    kb = dict(kw, store_backend="remote3", remote_opts=dict(TIER_REMOTE))
+    at2 = {}
+    _zero_counts()
+    with _outage_on_event(CKPT_INTERVAL, at2):
+        res1 = train(ckpt_dir=str(run_b), total_steps=CKPT_INTERVAL,
+                     ckpt_interval=CKPT_INTERVAL, **kb)
+    disk, bucket = (_stems(run_b, "objects/*/*.chunk"),
+                    _stems(run_b, "remote/*/*.blob"))
+    out["b"].update({
+        "outage_event_storage": at2.get("storage"),
+        "events": [{k: e[k] for k in _TIER_EVENT_KEYS}
+                   for e in res1["save_events"]],
+        "spill_drain_seconds": res1["spill_drain_seconds"],
+        "tier_stats_at_outage_event": at2.get("tier_stats_at_commit"),
+        "tier_stats": res1["tier_stats"],
+        "disk_objects": len(disk), "bucket_objects": len(bucket)})
+    log(f"3i (b) event 2 storage {at2.get('storage')}; drain "
+        f"{res1['spill_drain_seconds']:.3f} s; tiers {res1['tier_stats']}")
+    st = at2.get("storage") or {}
+    if not (st.get("durable_on") == "durable" and st.get("degraded")):
+        raise AssertionError(f"3i (b): event 2 did not commit degraded on "
+                             f"the disk tier: {st}")
+    if res1["tier_stats"]["pending_spill"] or disk != bucket or not disk:
+        raise AssertionError(f"3i (b): not fully replicated after the "
+                             f"drain: pending {res1['tier_stats']}, disk "
+                             f"{len(disk)}, bucket {len(bucket)}")
+    out["b"]["blobs_named"] = _check_named(run_b, "remote/*/*.blob",
+                                           "3i (b) bucket")
+    m2 = ManifestStore(run_b).load(CKPT_INTERVAL)
+    lost_unit, lost = next((f"{u}/{k}", r.digest) for u, kinds in
+                           sorted(m2.entries.items())
+                           for k, r in sorted(kinds.items()))
+    (run_b / "objects" / lost[:2] / f"{lost}.chunk").unlink()
+    # a full event 2: the resume repeats 3a's uninterrupted run
+    res2 = train(ckpt_dir=str(run_b), total_steps=2 * CKPT_INTERVAL,
+                 ckpt_interval=CKPT_INTERVAL, resume=True, **kb)
+    torch.cuda.synchronize()
+    launches["b"] = _read_counts()
+    rewarmed = (run_b / "objects" / lost[:2] / f"{lost}.chunk").is_file()
+    ts2 = res2["tier_stats"]
+    out["b"].update({
+        "lost_disk_copy": lost_unit,
+        "lost_read_from": res2["restore_stats"]["unit_tiers"].get(lost_unit),
+        "rewarmed_on_disk": rewarmed,
+        "restore": {k: res2["restore_stats"][k] for k in (
+            "seconds", "bytes_read", "tier_reads", "io_retries")},
+        "resume_events": [{k: e[k] for k in _TIER_EVENT_KEYS}
+                          for e in res2["save_events"]],
+        "resume_spill_drain_seconds": res2["spill_drain_seconds"],
+        "remote_counters": {k: ts2[k] for k in sorted(ts2)
+                            if k.startswith("remote_")},
+        "losses_resumed": res2["losses"], "launches": launches["b"]})
+    log(f"3i (b) lost {lost_unit} read from {out['b']['lost_read_from']}, "
+        f"rewarmed {rewarmed}; restore {out['b']['restore']}; remote "
+        f"{out['b']['remote_counters']}")
+    out["b"]["loss_diffs"] = losses_equal(res2, rec_a["losses_ref"],
+                                          "3i (b)")
+    digests_equal(run_b, "3i (b)")
+    if out["b"]["lost_read_from"] != "remote" or not rewarmed:
+        raise AssertionError(f"3i (b): the lost disk copy of {lost_unit} "
+                             "was not read from the bucket and re-warmed")
+    if _stems(run_b, "objects/*/*.chunk") != _stems(run_b,
+                                                     "remote/*/*.blob"):
+        raise AssertionError("3i (b): the bucket and the disk tree differ "
+                             "after the resume's drain")
+    _check_launched(launches["b"], ("block_fp", "fused_adamw"), "3i (b)")
+    out["b"]["seconds"] = time.perf_counter() - tb
+    shutil.rmtree(run_b)
+    _release(torch)
+
+    # (d) a merge from a live RAM tier, over TIER_MERGE_UNITS
+    td = time.perf_counter()
+    out["d"] = {"free_bytes": _check_free(root, "3i (d)")}
+    ram_root, disk_root, out_root = root / "ram", root / "disk", root / "out"
+    state = steps.init_state(model, SEED, dev)
+    registry = _units_registry(model, TIER_MERGE_UNITS)
+    few = make_policy("full", registry.units)
+    mgr_ram = CheckpointManager(ram_root, registry, few, async_save=False,
+                                store_backend="memory")
+    mgr_disk = CheckpointManager(disk_root, registry, few,
+                                 async_save=False)
+    try:
+        mgr_ram.save(state, step=4)
+        unit0 = registry.extract_unit(state["params"], "block_000")
+        block0 = {p: x.clone() for p, x in flatten_with_paths(unit0)}
+        (_, leaf), *_ = flatten_with_paths(unit0)
+        with torch.no_grad():
+            leaf.view(-1)[:8] += 1.0
+        mgr_disk.save(state, step=4)
+        ram_ref = CheckpointRef(ram_root, 4)
+        recipe = Recipe(base=CheckpointRef(disk_root, 4), output=out_root,
+                        select=[SelectRule(units=["block_000"],
+                                           source=ram_ref)],
+                        optimizer=False)
+        _zero_counts()
+        stats = merge(recipe, workers=4, device=dev,
+                      stores={str(ram_ref): mgr_ram.store})
+        torch.cuda.synchronize()
+        launches["d_merge"] = _read_counts()
+    finally:
+        mgr_ram.close()
+        mgr_disk.close()
+    meta = ManifestStore(out_root).load(4).meta
+    mgr = CheckpointManager(out_root, registry, few, async_save=False)
+    try:
+        got = mgr.restore(wlike, device=dev, parts=("params",))["params"]
+    finally:
+        mgr.close()
+    unit_equal = {}
+    for name in registry.unit_names():
+        want = (block0 if name == "block_000" else dict(flatten_with_paths(
+            registry.extract_unit(state["params"], name))))
+        have = dict(flatten_with_paths(registry.extract_unit(got, name)))
+        unit_equal[name] = (sorted(want) == sorted(have) and all(
+            torch.equal(want[p], have[p]) for p in want))
+    out["d"].update({"merge": stats, "storage": meta["storage"],
+                     "merged_from": meta["merged_from"],
+                     "unit_equal": unit_equal,
+                     "launches": launches["d_merge"],
+                     "seconds": time.perf_counter() - td})
+    log(f"3i (d) {out['d']}")
+    del state, got, block0
+    _release(torch)
+    if not all(unit_equal.values()):
+        raise AssertionError(f"3i (d): restored units differ from their "
+                             f"sources: {unit_equal}")
+    if (meta["storage"]["backend"], meta["storage"]["durable_on"]) \
+            != ("local", "durable"):
+        raise AssertionError(f"3i (d): merged storage {meta['storage']}")
+    if launches["d_merge"]["block_fp"] != stats["chunks"]:
+        raise AssertionError(f"3i (d): block_fp launched "
+                             f"{launches['d_merge']['block_fp']} times for "
+                             f"{stats['chunks']} copied objects")
+    shutil.rmtree(root)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 3i in {out['seconds']:.1f} s; launches {launches}")
+
+
 _EVENT_KEYS = ("step", "selected_units", "snapshot_seconds", "stage_seconds",
                "writeback_seconds", "commit_seconds", "gc_seconds",
                "stall_seconds", "seconds", "d2h_bytes",
@@ -3247,6 +3728,9 @@ def report(record: dict, path) -> None:
             c[k["name"]] for c in mp["3h"]["launches"].values()) + (
             mp["3h"]["d"]["merge_block_fp_launches"]
             if k["name"] == "block_fp" else 0)
+        # the storage tiers (3i), by part
+        k["launches_tiers_path"] = {
+            part: c[k["name"]] for part, c in mp["3i"]["launches"].items()}
     write_record(record, path)
     a_secs = {e["step"]: e["seconds"] for e in mp_a["save_events"]}
     ctl_secs = {e["step"]: e["seconds"]
@@ -3271,6 +3755,14 @@ def report(record: dict, path) -> None:
                                     "save_events", "sync_control_events",
                                     "store_bytes_at_end")},
         "3c": mp_c,
+        "3i": {"seconds": mp["3i"]["seconds"],
+               "a_events": mp["3i"]["a"]["events"],
+               "a_loss_diffs": mp["3i"]["a"]["loss_diffs"],
+               "b_outage_event_storage":
+                   mp["3i"]["b"]["outage_event_storage"],
+               "b_loss_diffs": mp["3i"]["b"]["loss_diffs"],
+               "c_tokens_digest": mp["3i"]["c"]["tokens_digest"],
+               "d_unit_equal": mp["3i"]["d"]["unit_equal"]},
         "3d": {k: mp_d["serve"][k] for k in (
             "prefill_seconds", "decode_tokens_per_s", "peak_device_bytes",
             "allocated_before_bytes", "launches", "decode_vs_prefill",
@@ -3357,6 +3849,23 @@ def report(record: dict, path) -> None:
             "event", "restored_vs_records", "cpu_path_objects", "seconds")}
         | {"restore_seconds": mp_h["e"]["restore"]["seconds"]},
         "launches": mp_h["launches"], "seconds": mp_h["seconds"]} | card}))
+    mp_i = mp["3i"]
+    print(json.dumps({"tiers": {
+        "a_tiered": {k: mp_i["a"][k] for k in (
+            "events", "spill_drain_seconds", "tier_stats", "restore",
+            "host_peak_rss_bytes", "loss_diffs", "objects_named",
+            "seconds")},
+        "b_remote3": {k: mp_i["b"][k] for k in (
+            "outage_event_storage", "events", "spill_drain_seconds",
+            "disk_objects", "bucket_objects", "lost_disk_copy",
+            "lost_read_from", "rewarmed_on_disk", "restore",
+            "resume_spill_drain_seconds", "remote_counters", "loss_diffs",
+            "seconds")},
+        "c_serve": {k: mp_i["c"][k] for k in (
+            "reads", "params_equal", "tokens_digest", "seconds")},
+        "d_merge": {k: mp_i["d"][k] for k in (
+            "merge", "storage", "unit_equal", "seconds")},
+        "launches": mp_i["launches"], "seconds": mp_i["seconds"]} | card}))
     print(json.dumps({"kernels": [k | card for k in kernels]}))
 
 
@@ -3411,10 +3920,16 @@ def main() -> int:
               "main_path": {"3a": {}, "3b": {}, "3c": {},
                             "3d": {"serve": {}, "store": {}},
                             "3e": {"train": {}, "store": {}, "serve": {}},
-                            "3f": {}, "3g": {}, "3h": {}}}
+                            "3f": {}, "3g": {}, "3h": {}, "3i": {}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
+        # 3h resumes and then removes 3a's store: 3i holds its runs
+        # against these
+        mp["3a"]["entry_digests"] = {
+            str(s): {f"{u}/{k}": d for (u, k), d in
+                     _entry_digests(store / "3a" / "run", s).items()}
+            for s in (2, 4)}
         log(f"phase 3a done at {time.perf_counter() - t_start:.1f} s")
         phase_3g(torch, dev, store / "3a", mp["3a"]["losses_resumed"],
                  mp["3g"])
@@ -3423,6 +3938,8 @@ def main() -> int:
         shutil.rmtree(store / "3a", ignore_errors=True)
         torch.cuda.empty_cache()
         log(f"phase 3h done at {time.perf_counter() - t_start:.1f} s")
+        phase_3i(torch, dev, store, mp["3a"], mp["3i"])
+        log(f"phase 3i done at {time.perf_counter() - t_start:.1f} s")
         phase_3b(torch, dev, store / "3b", ref, mp["3b"])
         kernels.append(block_gather_at_main_shape(torch, dev,
                                                   store / "3b" / "run"))

@@ -4,8 +4,13 @@
 :class:`TransferPool` is one bounded thread pool whose work is tagged with
 a *lane* name, so a producer drains its own lane without waiting on
 anyone else's.  :class:`AsyncWriter` is the saver-facing facade over the
-``"write"`` lane.  zlib's crc32 and file writes release the GIL, so the
-writer threads overlap the training thread's next step.
+``"write"`` lane; a tiered backend's spills run on the same pool, on lanes
+``"spill"`` and ``"remote_spill"``.  A pool that carries spills has an
+unbounded queue (``max_queue=0``): a task submits follow-on tasks (a write
+its spill, a spill the next tier's), and a bounded queue could block every
+thread on a full put.  ``AsyncWriter.close`` drains its own lane only and
+leaves a shared pool running.  zlib's crc32 and file writes release the
+GIL, so the writer threads overlap the training thread's next step.
 
 Errors surface on ``drain()`` of the lane that produced them: a failed
 write is never silently dropped, and the manifest of an event commits only

@@ -10,7 +10,7 @@ from __future__ import annotations
 import os
 import threading
 from pathlib import Path
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional
 
 from repro_torch.checkpoint.backends.base import (Data, StorageBackend,
                                                   data_len, data_parts)
@@ -41,33 +41,54 @@ def atomic_write(path: Path, data: Data, *, fsync: bool = True) -> None:
         _fsync_dir(path.parent)
 
 
+def read_file_into(path: Path, alloc, start: int = 0,
+                   end: Optional[int] = None) -> memoryview:
+    """Bytes ``[start, end)`` of ``path`` (to EOF when ``end`` is None)
+    read into a buffer from ``alloc(nbytes)``."""
+    with open(path, "rb") as f:
+        size = os.fstat(f.fileno()).st_size
+        stop = size if end is None else min(end, size)
+        n = max(0, stop - start)
+        buf = memoryview(alloc(n)).cast("B")
+        f.seek(start)
+        got = 0
+        while got < n:
+            k = f.readinto(buf[got:])
+            if not k:
+                raise OSError(f"short read of {path}")
+            got += k
+    return buf
+
+
 class LocalFSBackend(StorageBackend):
     name = "local"
 
-    def __init__(self, root: Path | str):
+    def __init__(self, root: Path | str, *, fsync: bool = False):
         self.root = Path(root)
+        # Objects are published by rename without fsync by default (the
+        # JAX package's default); the manifest written last is fsynced.
+        self.fsync = fsync
+        self._lock = threading.Lock()
+        self._stats = {"reads": 0, "writes": 0, "read_bytes": 0,
+                       "written_bytes": 0}
 
     def _path(self, key: str) -> Path:
         return self.root / key[:2] / f"{key}.chunk"
 
     def read_into(self, key: str, alloc) -> memoryview:
-        p = self._path(key)
-        with open(p, "rb") as f:
-            n = os.fstat(f.fileno()).st_size
-            buf = memoryview(alloc(n)).cast("B")
-            got = 0
-            while got < n:
-                k = f.readinto(buf[got:])
-                if not k:
-                    raise OSError(f"short read of {p}")
-                got += k
+        buf = read_file_into(self._path(key), alloc)
+        with self._lock:
+            self._stats["reads"] += 1
+            self._stats["read_bytes"] += buf.nbytes
         return buf
 
     def write(self, key: str, data: Data) -> int:
-        # Objects are published by rename without fsync (the JAX package's
-        # default); the manifest written last is fsynced.
-        atomic_write(self._path(key), data, fsync=False)
-        return data_len(data)
+        atomic_write(self._path(key), data, fsync=self.fsync)
+        n = data_len(data)
+        with self._lock:
+            self._stats["writes"] += 1
+            self._stats["written_bytes"] += n
+        return n
 
     def has(self, key: str) -> bool:
         return self._path(key).is_file()
@@ -95,7 +116,7 @@ class LocalFSBackend(StorageBackend):
 
     def sweep_tmp(self) -> int:
         """Crash-leftover ``*.tmp-*`` files of other processes (a tmp file
-        with our own pid may be a live write)."""
+        with our own pid may be a live write, e.g. a spill racing GC)."""
         freed = 0
         own = f"{os.getpid():x}-"
         if self.root.is_dir():
@@ -108,6 +129,10 @@ class LocalFSBackend(StorageBackend):
                 except FileNotFoundError:
                     continue
         return freed
+
+    def tier_stats(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._stats)
 
     def path_of(self, key: str) -> Optional[Path]:
         return self._path(key)

@@ -1,12 +1,22 @@
 """Content-addressed chunk store with cross-step dedup and delta encoding:
-the JAX package's store on its ``local`` backend.
+the JAX package's store, an addressing and codec core over a swappable
+:class:`~repro_torch.checkpoint.backends.base.StorageBackend` that owns
+where object bytes live (``backend=``: "local", "memory", "tiered",
+"remote", "remote3", or an instance; see ``checkpoint/backends``).
 
-On-disk layout (identical to the JAX package's ``local`` backend):
+On-disk layout of the ``local`` backend, and of the durable tree of the
+tiered ones (identical to the JAX package's):
 
     root/
       objects/ab/abcdef...123.chunk   # one file per distinct content digest
+      remote/ab/abcdef...123.blob     # the simulated bucket (remote tiers)
       manifests/manifest-00000100.json
       LATEST
+
+Object reads retry transient IO errors (``READ_RETRY``, counted in
+``io_retries``); a transient that outlives its retries is corruption, so
+the restore takes its fallback.  ``locate`` names the tier holding an
+object, and a ``ReadSession`` records the tier every read came from.
 
 An object is a msgpack envelope, addressed in one of two ways that share
 one digest namespace and never dedup against each other:
@@ -59,7 +69,8 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 from repro_torch.checkpoint import _msgpack, faults, workers
 from repro_torch.checkpoint import fingerprint as fputil
-from repro_torch.checkpoint.backends import LocalFSBackend
+from repro_torch.checkpoint.backends import StorageBackend, make_backend
+from repro_torch.checkpoint.backends.retry import RetryPolicy
 from repro_torch.checkpoint.serial import (ChunkCorruption,
                                            unflatten_from_paths)
 from repro_torch.dtypes import from_bytes
@@ -76,6 +87,9 @@ REBASE_EVERY = 4
 # Canonical payloads kept for the next event's XOR delta (least recently
 # used first out); a larger payload is re-read when it anchors a delta.
 CANON_CACHE_BYTES = 64 << 20
+# Transient-IO retries of an object read, before the store declares the
+# object corrupt and a restore spends a fallback.
+READ_RETRY = RetryPolicy(attempts=3, base_delay=0.002, max_delay=0.05)
 
 Materialize = Callable[[workers.Items, Optional[bytes], str], workers.Items]
 
@@ -132,7 +146,9 @@ class ReadSession:
     deltas patch, is read off the disk once.  A tree's leaves are host
     tensors, or the ``Int8Record`` of an int8-coded leaf (dequantized only
     where it is placed).  ``stats`` counts the real object I/O:
-    ``object_reads`` envelope reads and ``bytes_read`` object-file bytes.
+    ``object_reads`` envelope reads and ``bytes_read`` object-file bytes;
+    ``tiers`` maps each digest read to the tier it was served from and
+    ``tier_reads`` counts the reads per tier.
     Envelopes are read into buffers from ``alloc(nbytes)`` (a bytearray by
     default).  The crc32 of every record and the table's or payload's
     hash to the address are checked on read; an fp object's table itself
@@ -154,6 +170,8 @@ class ReadSession:
         self._trees: Dict[str, Tuple[Any, Optional[bytes]]] = {}
         self._busy: set = set()
         self.stats = {"object_reads": 0, "bytes_read": 0}
+        self.tiers: Dict[str, str] = {}
+        self.tier_reads: Dict[str, int] = {}
 
     @contextlib.contextmanager
     def guard(self, what: str, digest: str):
@@ -171,10 +189,15 @@ class ReadSession:
     def envelope(self, digest: str) -> Dict[str, Any]:
         env = self._envelopes.get(digest)
         if env is None:
+            # before the read: a tiered backend promotes what it reads
+            tier = self.store.locate(digest)
             env = self.store.read_envelope(digest, self.alloc)
             self.stats["object_reads"] += 1
             self.stats["bytes_read"] += self.store.object_info(
                 digest)["nbytes"]
+            if tier is not None:
+                self.tiers[digest] = tier
+                self.tier_reads[tier] = self.tier_reads.get(tier, 0) + 1
             self._envelopes[digest] = env
         return env
 
@@ -201,13 +224,25 @@ class ReadSession:
 
 
 class ChunkStore:
-    """The store under ``root`` (the ``local`` backend); ``codec`` is
-    ``none``/``auto`` or ``int8`` (see ``workers.resolve_codec``)."""
+    """The store under ``root``; ``codec`` is ``none``/``auto`` or ``int8``
+    (see ``workers.resolve_codec``).  ``backend``, ``spill_threads``,
+    ``hot_budget_bytes`` and ``remote_opts`` go to
+    ``backends.make_backend``; ``read_retry`` replaces ``READ_RETRY``."""
 
-    def __init__(self, root: Path | str, *, codec: str = "none"):
+    def __init__(self, root: Path | str, *, codec: str = "none",
+                 backend: "str | StorageBackend" = "local",
+                 spill_threads: int = 2,
+                 hot_budget_bytes: Optional[int] = None,
+                 read_retry: Optional[RetryPolicy] = None,
+                 remote_opts: Optional[Dict[str, Any]] = None):
         self.root = Path(root)
         self.codec = workers.resolve_codec(codec)
-        self.backend = LocalFSBackend(self.root / "objects")
+        self.backend = make_backend(backend, self.root,
+                                    spill_threads=spill_threads,
+                                    hot_budget_bytes=hot_budget_bytes,
+                                    remote_opts=remote_opts)
+        self.read_retry = read_retry if read_retry is not None \
+            else READ_RETRY
         self._lock = threading.RLock()
         # digest -> Event of a write in flight: writer threads persisting
         # one digest dedup instead of racing
@@ -232,18 +267,32 @@ class ChunkStore:
         # Object reads that reached the backend (the JAX store's counter of
         # the same name), for the whole life of the store.
         self.backend_reads = 0
+        # Transient read errors a retry absorbed, for the life of the store
+        # (a restore reports its own share as ``io_retries``).
+        self.io_retries = 0
 
     # ---- addressing ----
     def object_relpath(self, digest: str) -> str:
         return f"objects/{digest[:2]}/{digest}.chunk"
 
     def object_path(self, digest: str) -> Path:
-        return self.backend.path_of(digest)
+        """File of ``digest`` where a tier keeps paths (tests and offline
+        tools poke objects there)."""
+        p = self.backend.path_of(digest)
+        if p is None:
+            raise NotImplementedError(
+                f"backend {self.backend.name!r} has no filesystem paths")
+        return p
 
     def has(self, digest: str) -> bool:
-        """Store-wide probe: is an object with this digest on disk?  A
-        stat of its file, safe from any thread."""
+        """Store-wide probe: does any tier hold this digest?  Safe from any
+        thread."""
         return self.backend.has(digest)
+
+    def locate(self, digest: str) -> Optional[str]:
+        """The fastest tier holding ``digest`` ("hot", "durable", "remote",
+        "local", "memory"; None if absent)."""
+        return self.backend.locate(digest)
 
     def iter_digests(self) -> Iterator[str]:
         return self.backend.keys()
@@ -316,11 +365,28 @@ class ChunkStore:
     def _read_blob(self, digest: str,
                    alloc: Optional[Callable[[int], Any]] = None
                    ) -> memoryview:
+        """The object's bytes, transient IO errors retried: an absent
+        object raises ``FileNotFoundError``, one still failing after
+        ``read_retry`` raises ``ChunkCorruption``."""
+        def on_retry(attempt: int, exc: BaseException) -> None:
+            with self._lock:
+                self.io_retries += 1
+
         t0 = time.perf_counter()
-        blob = self.backend.read_into(digest, alloc or bytearray)
-        self._add_seconds("read_io", time.perf_counter() - t0)
         with self._lock:
             self.backend_reads += 1
+        try:
+            blob = self.read_retry.run(
+                lambda: self.backend.read_into(digest, alloc or bytearray),
+                key=digest, on_retry=on_retry)
+        except FileNotFoundError:
+            raise
+        except OSError as e:
+            raise ChunkCorruption(
+                f"object {digest} unreadable after "
+                f"{self.read_retry.attempts} attempts: {e!r}") from e
+        finally:
+            self._add_seconds("read_io", time.perf_counter() - t0)
         return blob
 
     def read_envelope(self, digest: str,
@@ -785,16 +851,26 @@ class ChunkStore:
                         self._canon_cache_bytes -= len(old)
         return freed
 
-    # ---- durability (one tier) ----
+    # ---- tiers ----
     def drain_spill(self) -> None:
-        """Durability barrier before a manifest commit: the ``local``
-        backend is the durable tier, so nothing is ever owed."""
+        """Durability barrier: returns once every object written so far is
+        on the backend's durable tier (nothing to wait for on one tier)."""
+        self.backend.drain()
+
+    def pending_spill(self) -> int:
+        return self.backend.pending_spill()
+
+    def tier_stats(self) -> Dict[str, Any]:
+        return self.backend.tier_stats()
 
     def durability(self) -> Dict[str, Any]:
         """What a manifest commit records under ``meta["storage"]``: the
-        JAX store's answer for its ``local`` backend."""
-        return {"durable_tier": "local", "pending_spill": 0,
-                "durable_on": "durable", "backend": self.backend.name}
+        backend's name, the deepest level every object has reached
+        (``durable_on``) and, for a composition with a best-effort tier,
+        whether the commit is degraded."""
+        d = dict(self.backend.durability())
+        d["backend"] = self.backend.name
+        return d
 
     def close(self) -> None:
         self.backend.close()

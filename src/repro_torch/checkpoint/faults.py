@@ -48,9 +48,10 @@ each task of a lane (``pool:write``, ``pool:spill``, ...).
 
 The port's save path reaches ``fingerprint``, ``gather``,
 ``object_write``, ``manifest_commit``, ``manifest_latest``,
-``snapshot_overlap``, ``spread_slice`` and ``pool:write``, and its
-hot-swap ``swap_apply``; the tiered and sharded points are cataloged for
-the stages still to port.
+``snapshot_overlap``, ``spread_slice``, ``pool:write``, and with a tiered
+backend ``spill`` and ``pool:spill``; its hot-swap reaches
+``swap_apply``; the sharded points are cataloged for the stage still to
+port.
 
 Arming semantics (:func:`arm`):
 

@@ -19,8 +19,11 @@ object, or an XOR delta rebuilt against its base's canonical payload) is
 checked by the blake2 of its canonical payload; where that base is an fp
 object, its tensors are placed on the target device and its table checked
 there first (:func:`device_materializer`).  A candidate that fails falls
-through to the next one; a unit with no good candidate raises
-``RestoreError``.
+through to the next one (an object absent from every tier, or still
+unreadable after the store's transient-IO retries, included); a unit with
+no good candidate raises ``RestoreError``.  ``last_stats`` records the
+tier each unit was served from (``unit_tiers``), the object reads per
+tier (``tier_reads``) and the retried transient errors (``io_retries``).
 """
 from __future__ import annotations
 
@@ -73,7 +76,7 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
                  manifest: Optional[Manifest] = None
                  ) -> Tuple[int, List[Tuple[str, str, List]]]:
     """(manifest step, [(unit, kind, [(manifest step, ref), ...])]) with
-    each chain's objects present on disk, best first, for the ``kinds``
+    each chain's objects present in some tier, best first, for the ``kinds``
     asked for.  A caller-supplied ``manifest`` replaces the ``step``
     lookup; the older manifests of the store still give the fallbacks."""
     if manifest is None:
@@ -206,13 +209,12 @@ class RestoreEngine:
         self.last_stats: Dict[str, Any] = {}
 
     def _place(self, digest: str, state: Dict[str, PyTree], name: str,
-               kind: str, alloc, materialize,
+               kind: str, session: ReadSession,
                timings: Dict[str, float]) -> int:
         """Read, decode, insert into the state and verify one object;
         returns the bytes copied to the device."""
         t0 = time.perf_counter()
-        items, fp_blob = self.store.read_items(digest, session=ReadSession(
-            self.store, alloc=alloc, materialize=materialize))
+        items, fp_blob = self.store.read_items(digest, session=session)
         t1 = time.perf_counter()
         if kind == "weights":
             dst = self.registry.extract_unit(state["params"], name)
@@ -273,20 +275,32 @@ class RestoreEngine:
         timings = {"read_seconds": 0.0, "h2d_seconds": 0.0,
                    "verify_seconds": 0.0}
         fallbacks: Dict[str, int] = {}
+        # unit/kind -> the tier its object was served from; reads per tier
+        unit_tiers: Dict[str, str] = {}
+        tier_reads: Dict[str, int] = {}
+        io_retries0 = self.store.io_retries
         sec0 = dict(self.store.seconds)
         bytes_read = 0
         h2d = 0
         for name, kind, chain in targets:
             last_exc: Optional[Exception] = None
             for cand_step, ref in chain:
+                session = ReadSession(self.store, alloc=alloc,
+                                      materialize=materialize)
                 try:
-                    h2d += self._place(ref.digest, state, name, kind, alloc,
-                                       materialize, timings)
+                    h2d += self._place(ref.digest, state, name, kind,
+                                       session, timings)
                 except (FileNotFoundError, ChunkCorruption) as e:
                     log.warning("chunk %s/%s from manifest %s unreadable "
                                 "(%s); falling back", name, kind, cand_step, e)
                     last_exc = e
                     continue
+                finally:
+                    for tier, n in session.tier_reads.items():
+                        tier_reads[tier] = tier_reads.get(tier, 0) + n
+                tier = session.tiers.get(ref.digest)
+                if tier is not None:
+                    unit_tiers[f"{name}/{kind}"] = tier
                 bytes_read += self.store.object_size(ref.digest)
                 if cand_step != m_step:
                     fallbacks[f"{name}/{kind}"] = cand_step
@@ -302,6 +316,10 @@ class RestoreEngine:
                            "targets": len(targets),
                            "bytes_read": bytes_read, "h2d_bytes": h2d,
                            "fallback_units": fallbacks, **timings,
+                           "tier_reads": tier_reads,
+                           "unit_tiers": unit_tiers,
+                           "io_retries": (self.store.io_retries
+                                          - io_retries0),
                            # host split of read_seconds: file reads, and
                            # decoding + crc32 checks
                            "read_io_seconds": (self.store.seconds["read_io"]

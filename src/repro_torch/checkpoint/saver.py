@@ -44,6 +44,15 @@ only.
 Restore (``restore``) is the planned full-state restore of
 ``repro_torch.checkpoint.restore``.
 
+Storage tiers (``store_backend``, the JAX manager's knob): "local" (the
+POSIX tree), "memory" (volatile RAM), "tiered" (a RAM hot tier spilling to
+the disk tree on the pool's ``spill`` lane), "remote" (the simulated
+bucket) or "remote3" (RAM -> disk -> remote).  One transfer pool carries
+the write lane and the spill lanes; a commit records the backend's
+durability under ``meta["storage"]`` and, with ``spill_barrier`` (or a
+save's ``durability_barrier=True``), first waits until every object is on
+the durable tier.
+
 Crash points (``checkpoint/faults.py``): ``fingerprint`` after a unit's
 device fingerprint pass, ``gather`` after its payload crossed to the host,
 ``object_write`` in the store, ``manifest_commit``/``manifest_latest`` in
@@ -63,6 +72,7 @@ from repro_torch.checkpoint import faults, workers
 from repro_torch.checkpoint import fingerprint as fputil
 from repro_torch.checkpoint.async_io import (AsyncWriter, PendingResult,
                                              TransferPool)
+from repro_torch.checkpoint.backends import StorageBackend, make_backend
 from repro_torch.checkpoint.chunk_store import (REBASE_EVERY, ChunkRef,
                                                 ChunkStore)
 from repro_torch.checkpoint.restore import (PARTS, RestoreEngine,
@@ -153,22 +163,47 @@ class CheckpointManager:
                  policy: CheckpointPolicy, *, keep: int = 8,
                  fp_block_bytes: int = fputil.DEFAULT_BLOCK_BYTES,
                  async_save: bool = True, writer_threads: int = 2,
-                 codec: str = "auto", fingerprint: bool = True):
+                 codec: str = "auto", fingerprint: bool = True,
+                 store_backend: "str | StorageBackend" = "local",
+                 spill_threads: int = 2,
+                 hot_budget_bytes: Optional[int] = None,
+                 spill_barrier: bool = False,
+                 remote_opts: Optional[Dict[str, Any]] = None):
         self.root = Path(root)
         self.registry = registry
         self.policy = policy
         self.fingerprint = fingerprint
-        self.store = ChunkStore(self.root, codec=codec)
+        # One pool carries the write lane and the tiered backend's spill
+        # lanes (remote3 has two), sized for all of them; a backend
+        # instance keeps the pool it was built with.
+        tiered = (not isinstance(store_backend, StorageBackend)
+                  and store_backend in ("tiered", "remote3"))
+        spill_lanes = 2 if store_backend == "remote3" else 1
+        self.transfer_pool: Optional[TransferPool] = None
+        if async_save or tiered:
+            # The write lane's queue is bounded (backpressure on the
+            # training thread) unless the pool carries spill lanes: a write
+            # task submits a spill task, and a bounded queue could deadlock
+            # with every thread blocked on a full put.
+            self.transfer_pool = TransferPool(
+                writer_threads + (spill_threads * spill_lanes
+                                  if tiered else 0),
+                max_queue=0 if tiered else 64)
+        backend = make_backend(store_backend, self.root,
+                               pool=self.transfer_pool,
+                               spill_threads=spill_threads,
+                               hot_budget_bytes=hot_budget_bytes,
+                               remote_opts=remote_opts)
+        self.store = ChunkStore(self.root, codec=codec, backend=backend)
         self.manifests = ManifestStore(self.root)
         self.keep = keep
         self.restorer = RestoreEngine(self.store, self.manifests, registry)
         self.fp_block_bytes = fp_block_bytes
         self.async_save = async_save
-        # The write lane's queue is bounded: backpressure on the training
-        # thread instead of unbounded staged payloads.
-        self.transfer_pool: Optional[TransferPool] = (
-            TransferPool(writer_threads, max_queue=64) if async_save
-            else None)
+        # False: commit once every object is on the fast tier (the manifest
+        # records durable_on="hot") and let the spill overlap training;
+        # True: wait for the durable tier before every commit.
+        self.spill_barrier = spill_barrier
         self.writer: Optional[AsyncWriter] = (
             AsyncWriter(self.transfer_pool) if async_save else None)
         self._event_index = self._infer_event_index()
@@ -222,9 +257,8 @@ class CheckpointManager:
              durability_barrier: Optional[bool] = None) -> Manifest:
         """Persist one checkpoint event and commit its manifest.  ``units``
         overrides the policy's selection for this event; ``drift_scores``
-        feeds the ``topk_delta`` policy; ``durability_barrier`` is accepted
-        for the JAX manager's signature (one tier: every commit is
-        durable)."""
+        feeds the ``topk_delta`` policy; ``durability_barrier`` overrides
+        ``spill_barrier`` for this event."""
         t0 = time.perf_counter()
         step = int(state["step"]) if step is None else int(step)
         ctx = PolicyContext(event_index=self._event_index, step=step,
@@ -311,8 +345,13 @@ class CheckpointManager:
 
         ``event_index`` lets an overlapped event commit under the index
         reserved when it began; the counter itself only moves forward.
-        ``durability_barrier`` has nothing to wait for on one tier."""
-        del durability_barrier
+        ``durability_barrier`` (``spill_barrier`` when None) waits for the
+        durable tier first."""
+        barrier = (self.spill_barrier if durability_barrier is None
+                   else durability_barrier)
+        if barrier:
+            self.store.drain_spill()
+        # which tier holds the event's objects at commit time
         storage = self.store.durability()
         idx = self._event_index if event_index is None else int(event_index)
         manifest = Manifest(step=step, entries=entries,
@@ -551,16 +590,24 @@ class CheckpointManager:
                 self.store.decref(m.referenced_digests().elements())
         return self.store.gc_objects()
 
+    def drain_spill(self) -> None:
+        """Durability barrier: returns once every written object is on the
+        durable tier (nothing to wait for on one tier)."""
+        self.store.drain_spill()
+
     def close(self) -> None:
         """Drain and stop the writer (raising a write error it collected)
-        and release the store; the pool's threads stop either way."""
+        and close the store, whose tiered backend drains its spills first;
+        the pool's threads stop either way."""
         try:
             if self.writer is not None:
                 self.writer.close()
         finally:
-            self.store.close()
-            if self.transfer_pool is not None:
-                self.transfer_pool.close()
+            try:
+                self.store.close()
+            finally:
+                if self.transfer_pool is not None:
+                    self.transfer_pool.close()
 
     def disk_usage(self) -> Dict[str, int]:
         total = objects = 0

@@ -171,7 +171,8 @@ class WeightService:
     manifest chain and :meth:`swap` applies digest diffs.  ``current()``
     always returns a complete, consistent tree.
 
-    ``last_swap_stats``: bytes and objects read, bytes moved to the device,
+    ``last_swap_stats``: bytes and objects read (and reads per tier,
+    ``tier_reads``), bytes moved to the device,
     unit counts per path (``units_swapped``/``skipped``/``scattered``/
     ``full``), ``blocks_applied``, ``step_from``/``step_to``, wall
     ``seconds`` and, on the card, ``peak_device_bytes`` (the swap resets
@@ -272,6 +273,7 @@ class WeightService:
                      seconds=time.perf_counter() - t0,
                      bytes_read=session.stats["bytes_read"],
                      objects_read=session.stats["object_reads"],
+                     tier_reads=dict(session.tier_reads),
                      peak_device_bytes=(torch.cuda.max_memory_allocated(
                          self.device) if cuda else None))
         self.last_swap_stats = stats
@@ -305,7 +307,7 @@ class WeightService:
                     session: ReadSession, stats: Dict[str, Any]) -> None:
         if _is_sharded(entry):
             raise SwapError(f"unit {unit!r} is a shard set: swapping shard "
-                            "sets is not ported yet (ROADMAP A3)")
+                            "sets is not ported yet (ROADMAP A4)")
         served = self._served.get(unit)
         if (isinstance(served, str) and served and entry.stored == "delta"
                 and entry.delta_base == served):

@@ -10,8 +10,12 @@ the recipe says ``optimizer: false``, and the step-level metadata, taken
 from the base (newest) source.  The output is a normal checkpoint root
 (one manifest and content-addressed objects) that a restore, a resumed
 run or a server of either package consumes directly.  It is the JAX
-package's ``repro/core/tailor.py`` on the port's single ``local`` tier, and
-writes the same manifest and object bytes.
+package's ``repro/core/tailor.py``, and writes the same manifest and object
+bytes.  ``stores=`` maps a source (``str(CheckpointRef)``) to a live,
+already open ``ChunkStore`` (how a RAM-tier source is merged: its objects
+exist only in that store), and ``out_store=`` replaces the default local
+output store (a tiered one, say); the manifest commits after the output's
+spill barrier and records its durability.
 
 Digest-level copy: an object moves as its opaque envelope blob
 (``ChunkStore.read_object_bytes``/``write_object_bytes``) under the same
@@ -37,8 +41,7 @@ merge does.  Device memory of the verification is one object's tensors
 per worker, freed after its check.
 
 ``device`` is resolved by ``devices.resolve_device``: the card by default,
-the CPU only when asked for.  Not ported: merging from or into the JAX
-package's RAM tiers (its ``stores=``/``out_store=``, ROADMAP A3).
+the CPU only when asked for.
 """
 from __future__ import annotations
 
@@ -129,11 +132,14 @@ def variant_manifest(manifests: ManifestStore, *,
     )
 
 
-def _load_manifest(ref: CheckpointRef) -> Tuple[Manifest, ChunkStore]:
+def _load_manifest(ref: CheckpointRef,
+                   stores: Optional[Dict[str, ChunkStore]] = None
+                   ) -> Tuple[Manifest, ChunkStore]:
     m = ManifestStore(ref.root).load(ref.step)
     if m is None:
         raise MergeError(f"no manifest at {ref}")
-    return m, ChunkStore(ref.root)
+    store = (stores or {}).get(str(ref))
+    return m, (store if store is not None else ChunkStore(ref.root))
 
 
 def table_checked(env: Dict[str, Any]) -> bool:
@@ -171,23 +177,26 @@ def verify_object(store: ChunkStore, digest: str,
 
 
 def merge(recipe: Recipe, *, workers: int = 4, verify: bool = True,
-          device=None) -> Dict[str, Any]:
+          device=None, stores: Optional[Dict[str, ChunkStore]] = None,
+          out_store: Optional[ChunkStore] = None) -> Dict[str, Any]:
     """Execute a recipe; returns the JAX merge's stats (``units``,
     ``bytes`` written, ``chunks``, ``shared_chunks``, ``sources``,
-    ``seconds``) and ``verify_seconds`` (summed over the workers)."""
+    ``seconds``) and ``verify_seconds`` (summed over the workers).
+    ``stores`` and ``out_store``: see the module doc."""
     dev = resolve_device(device)
     t0 = time.time()
-    base_manifest, _ = _load_manifest(recipe.base)
+    base_manifest, _ = _load_manifest(recipe.base, stores)
     all_units = sorted(base_manifest.entries)
     assignment = recipe.assignment(all_units)
 
     # Open every distinct source once.
     sources: Dict[str, Tuple[Manifest, ChunkStore]] = {}
     for ref in {str(r): r for r in assignment.values()}.values():
-        sources[str(ref)] = _load_manifest(ref)
+        sources[str(ref)] = _load_manifest(ref, stores)
 
     out_root = Path(recipe.output)
-    out_store = ChunkStore(out_root)
+    if out_store is None:
+        out_store = ChunkStore(out_root)
     out_step = base_manifest.step
     kinds = ("weights", "opt") if recipe.optimizer else ("weights",)
 
@@ -215,7 +224,8 @@ def merge(recipe: Recipe, *, workers: int = 4, verify: bool = True,
                 return 0
             if not src_store.has(digest):
                 raise MergeError(f"source object {digest} missing "
-                                 f"under {src_store.root}")
+                                 f"under {src_store.root} "
+                                 f"(backend={src_store.backend.name})")
             blob = src_store.read_object_bytes(digest)
             info = src_store.object_info(digest, blob)
             written = 0

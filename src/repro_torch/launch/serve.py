@@ -4,6 +4,7 @@ autoregressive decode against the KV cache, on the card by default.
     python -m repro_torch.launch.serve --arch yi-9b [--full] \\
         [--num-layers N] --batch 8 --prompt-len 1024 --new-tokens 128 \\
         [--from-ckpt ROOT [--from-step S] [--hot-swap] \\
+         [--store-backend local|memory|tiered|remote|remote3] \\
          [--variant-base-step S --variant-select PATTERNS@STEP ...]] \\
         [--device cpu]
 
@@ -14,6 +15,10 @@ either package, a merged Frankenstein included, through a weights-only
 partial restore that never opens an optimizer object:
 
 - ``--from-step S`` pins the initial load to manifest S (default LATEST);
+- ``--store-backend`` is the tier the load and the swap read through:
+  ``tiered`` and ``remote3`` promote what they read into the RAM tier,
+  and ``remote3`` re-warms a lost disk copy from the bucket; the result's
+  ``restore`` key carries the load's reads per tier;
 - ``--hot-swap`` then waits for a newer manifest and promotes it by digest
   diff (``checkpoint/swap.py``): unchanged units move nothing, block-delta
   units scatter only their dirty blocks; the result's ``swap`` key carries
@@ -27,8 +32,8 @@ partial restore that never opens an optimizer object:
 ``--smoke`` (the default) serves the reduced config, ``--full`` the
 published one; ``--num-layers`` cuts the depth; ``--device cpu`` is the
 only way onto the CPU.  The block cache of the JAX server (``--cache-mb``,
-``--cache-shm``) and its other store and IO backends are not ported yet
-(ROADMAP A3).
+``--cache-shm``) and its process IO backend are not ported yet (ROADMAP
+A3).
 """
 from __future__ import annotations
 
@@ -69,7 +74,8 @@ def parse_variant_select(specs: Sequence[str]) -> List[Tuple[List[str], int]]:
 
 def serve(*, arch: str, reduced: bool = True, batch: int = 4,
           prompt_len: int = 64, new_tokens: int = 32,
-          from_ckpt: Optional[str] = None, seed: int = 0,
+          from_ckpt: Optional[str] = None, store_backend: str = "local",
+          seed: int = 0,
           from_step: Optional[int] = None, hot_swap: bool = False,
           swap_wait: float = 30.0, swap_poll: float = 0.2, device=None,
           num_layers: Optional[int] = None,
@@ -92,7 +98,8 @@ def serve(*, arch: str, reduced: bool = True, batch: int = 4,
         registry = LayerRegistry(model)
         mgr = CheckpointManager(Path(from_ckpt), registry,
                                 make_policy("full", model.layer_units()),
-                                async_save=False)
+                                async_save=False,
+                                store_backend=store_backend)
         try:
             manifest = None
             if variant_select:
@@ -200,6 +207,12 @@ def main() -> None:
                          "matching PATTERNS (comma-separated recipe "
                          "patterns, e.g. block_000..block_003) from "
                          "manifest STEP; repeatable, later rules win")
+    ap.add_argument("--store-backend", default="local",
+                    choices=["local", "memory", "tiered", "remote",
+                             "remote3"],
+                    help="tier --from-ckpt loads read through (tiered and "
+                         "remote3 promote what they read into RAM; remote3 "
+                         "re-warms a lost disk copy from the bucket)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
@@ -207,7 +220,8 @@ def main() -> None:
     print(json.dumps(serve(arch=args.arch, reduced=args.smoke,
                            batch=args.batch, prompt_len=args.prompt_len,
                            new_tokens=args.new_tokens,
-                           from_ckpt=args.from_ckpt, seed=args.seed,
+                           from_ckpt=args.from_ckpt,
+                           store_backend=args.store_backend, seed=args.seed,
                            from_step=args.from_step, hot_swap=args.hot_swap,
                            swap_wait=args.swap_wait,
                            swap_poll=args.swap_poll, device=args.device,

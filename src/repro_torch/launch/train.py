@@ -6,8 +6,8 @@ checkpointing and Frankenstein resume, on the card by default.
         --ckpt-interval 2 --ckpt-spread-steps 2 --ckpt-dir /path/to/run \\
         [--fail-at 7 | --fail-at 7@spread_slice] [--resume]
 
-- selective checkpoints every ``ckpt_interval`` steps (policy-driven,
-  local store), on the fingerprint path, or with ``--no-fingerprint``
+- selective checkpoints every ``ckpt_interval`` steps (policy-driven),
+  on the fingerprint path, or with ``--no-fingerprint``
   (``ckpt_fingerprint=False``) on the canonical path: each selected unit
   crosses to the host whole and is addressed by the blake2b of its
   canonical payload, written full or as an XOR delta; the object writes
@@ -23,6 +23,15 @@ checkpointing and Frankenstein resume, on the card by default.
   decisions at the step boundary, the device->host copies, encoding and
   writes across the next N steps, the commit after them (fingerprint path
   only: with ``--no-fingerprint`` it raises ``ValueError``);
+- ``--store-backend`` picks the object tier (``local`` POSIX tree,
+  volatile ``memory``, ``tiered`` RAM hot tier spilling to disk on
+  ``--spill-threads`` threads, the simulated ``remote`` bucket, or
+  ``remote3``, RAM -> disk -> remote, with ``--remote-latency``,
+  ``--remote-error-rate`` and ``--remote-seed``); ``--hot-budget-mb``
+  bounds the RAM tier (spilled objects are evicted past it) and
+  ``--spill-barrier`` makes every commit wait for the durable tier.  The
+  run ends with a spill drain (``spill_drain_seconds``) and reports
+  ``tier_stats``;
 - ``--policy topk_delta`` selects the most-drifted blocks by the
   ``DeltaTracker`` scores (``core/delta.py``);
 - ``--fail-at N`` raises a simulated failure at the step-N boundary;
@@ -105,6 +114,11 @@ def train(
     ckpt_fingerprint: bool = True,
     codec: str = "auto",
     writer_threads: int = 2,
+    store_backend: str = "local",
+    spill_threads: int = 2,
+    hot_budget_mb: Optional[int] = None,
+    spill_barrier: bool = False,
+    remote_opts: Optional[Dict] = None,
     resume: bool = False,
     fail_at: Optional[Union[int, str]] = None,
     seed: int = 0,
@@ -129,7 +143,13 @@ def train(
     mgr = CheckpointManager(Path(ckpt_dir), registry, policy,
                             async_save=ckpt_async,
                             writer_threads=writer_threads, codec=codec,
-                            fingerprint=ckpt_fingerprint)
+                            fingerprint=ckpt_fingerprint,
+                            store_backend=store_backend,
+                            spill_threads=spill_threads,
+                            hot_budget_bytes=(hot_budget_mb * 2**20
+                                              if hot_budget_mb else None),
+                            spill_barrier=spill_barrier,
+                            remote_opts=remote_opts)
     tracker = DeltaTracker(registry) if policy_name == "topk_delta" else None
     # Zero-stall pipeline: events begin at the step boundary and run their
     # host-side copy/encode/write across the next ``ckpt_spread_steps``.
@@ -238,10 +258,16 @@ def train(
             raise SimulatedFailure(
                 f"crash point {fail_point!r} armed at step {fail_step} was "
                 "never reached before the run ended", losses, save_events)
+        total = time.perf_counter() - t0
+        # How far durability lagged the hot tier at the end of the run (0
+        # on one tier): the last manifests become durable-tier backed
+        # before the process exits.
+        t_drain = time.perf_counter()
+        mgr.drain_spill()
+        spill_drain_seconds = time.perf_counter() - t_drain
     except BaseException:
         _close_quietly(ov, mgr)
         raise
-    total = time.perf_counter() - t0
 
     if log_csv:
         Path(log_csv).parent.mkdir(parents=True, exist_ok=True)
@@ -249,6 +275,7 @@ def train(
             f.write("step,loss\n")
             for s, l in losses:
                 f.write(f"{s},{l}\n")
+    tier_stats = mgr.store.tier_stats()
     if ov is not None:
         ov.close()
     mgr.close()
@@ -284,6 +311,9 @@ def train(
                                             for e in save_events]))
                              if save_events else 0.0),
         "steps": total_steps - start,
+        "store_backend": store_backend,
+        "spill_drain_seconds": spill_drain_seconds,
+        "tier_stats": tier_stats,
     }
 
 
@@ -316,6 +346,27 @@ def main() -> None:
                          "quantizes float leaves on the device (lossy)")
     ap.add_argument("--writer-threads", type=int, default=2,
                     help="threads that encode and write objects")
+    ap.add_argument("--store-backend", default="local",
+                    choices=["local", "memory", "tiered", "remote",
+                             "remote3"],
+                    help="object tier: local POSIX tree, volatile RAM, RAM "
+                         "hot tier spilling to disk, simulated remote "
+                         "bucket, or RAM -> disk -> remote")
+    ap.add_argument("--remote-latency", type=float, default=0.0,
+                    help="remote/remote3: simulated per-op latency (s)")
+    ap.add_argument("--remote-error-rate", type=float, default=0.0,
+                    help="remote/remote3: seeded per-op fault rate of the "
+                         "simulated service")
+    ap.add_argument("--remote-seed", type=int, default=0,
+                    help="remote/remote3: fault-schedule seed")
+    ap.add_argument("--spill-threads", type=int, default=2,
+                    help="tiered/remote3: threads per spill lane")
+    ap.add_argument("--hot-budget-mb", type=int,
+                    help="tiered/remote3: RAM tier budget; spilled objects "
+                         "are evicted least recently used first past it")
+    ap.add_argument("--spill-barrier", action="store_true",
+                    help="tiered/remote3: wait for the durable tier before "
+                         "each manifest commit")
     ap.add_argument("--sync-save", action="store_true",
                     help="write objects inline on the training thread "
                          "instead of on the writer threads")
@@ -337,7 +388,15 @@ def main() -> None:
                 ckpt_spread_steps=args.ckpt_spread_steps,
                 ckpt_fingerprint=not args.no_fingerprint,
                 codec=args.codec,
-                writer_threads=args.writer_threads, resume=args.resume,
+                writer_threads=args.writer_threads,
+                store_backend=args.store_backend,
+                spill_threads=args.spill_threads,
+                hot_budget_mb=args.hot_budget_mb,
+                spill_barrier=args.spill_barrier,
+                remote_opts={"latency": args.remote_latency,
+                             "error_rate": args.remote_error_rate,
+                             "seed": args.remote_seed},
+                resume=args.resume,
                 fail_at=args.fail_at, seed=args.seed, log_csv=args.log_csv,
                 lr=args.lr, device=args.device, num_layers=args.num_layers)
     out.pop("losses")

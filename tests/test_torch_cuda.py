@@ -691,3 +691,67 @@ def test_canonical_event_over_fp_bases_checks_them_on_the_card(dev,
     assert mgr.last_save_stats["delta_chunks"] == \
         2 * len(model.layer_units()) - 1
     mgr.close()
+
+
+@pytest.mark.parametrize("backend", ["tiered", "remote3"])
+def test_tiered_save_and_restore_on_the_card_equal_local(dev, tmp_path,
+                                                         backend):
+    """Saves through a RAM hot tier on the card (fingerprints by block_fp,
+    pinned staging) write the local backend's objects, and restores from
+    the hot tier and, in a new manager, from the durable tiers (the bucket
+    alone for remote3) are bit-exact."""
+    import shutil
+
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.checkpoint.serial import flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.core.policies import make_policy
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("yi-9b", reduced=True))
+    reg = LayerRegistry(model)
+    state = steps.init_state(model, 0, dev)
+    like = steps.state_specs(model)
+
+    def mgr(root, be, budget=None):
+        return CheckpointManager(root, reg,
+                                 make_policy("full", model.layer_units()),
+                                 store_backend=be, hot_budget_bytes=budget)
+
+    def equal(a, b):
+        for part in ("params", "opt"):
+            for (p, x), (_, y) in zip(flatten_with_paths(a[part]),
+                                      flatten_with_paths(b[part])):
+                assert torch.equal(byte_view(x), byte_view(y)), p
+
+    local, tiered = mgr(tmp_path / "local", "local"), mgr(tmp_path / "t",
+                                                          backend)
+    try:
+        launches = bfp.KERNEL.launches
+        for m in (local, tiered):
+            m.save(state, step=2)
+        assert bfp.KERNEL.launches > launches
+        equal(state, tiered.restore(like, device=dev))
+        assert "hot" in tiered.last_restore_stats["tier_reads"]
+    finally:
+        local.close()
+        tiered.close()
+    want = sorted(p.name for p in (tmp_path / "local").glob(
+        "objects/*/*.chunk"))
+    assert sorted(p.name for p in (tmp_path / "t").glob(
+        "objects/*/*.chunk")) == want
+    if backend == "remote3":
+        assert sorted(p.stem + ".chunk" for p in (tmp_path / "t").glob(
+            "remote/*/*.blob")) == want
+        shutil.rmtree(tmp_path / "t" / "objects")
+    # a 1 MiB budget: promoted objects are evicted again as they come
+    again = mgr(tmp_path / "t", backend, budget=1 << 20)
+    try:
+        equal(state, again.restore(like, device=dev))
+        assert set(again.last_restore_stats["unit_tiers"].values()) == {
+            "remote" if backend == "remote3" else "durable"}
+        assert again.store.tier_stats()["evictions"] > 0
+    finally:
+        again.close()

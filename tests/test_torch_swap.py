@@ -230,7 +230,7 @@ def test_shard_set_entries_raise(tmp_path, setup):
                   ChunkRef(**{**ref.to_json(), "digest": "b" * 40}))
         entries = {u: dict(k) for u, k in m.entries.items()}
         entries[unit]["weights"] = shards
-        with pytest.raises(SwapError, match="A3"):
+        with pytest.raises(SwapError, match="ROADMAP A4"):
             svc.swap(Manifest(step=30, entries=entries))
         assert svc.step == 10
     finally:
