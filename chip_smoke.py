@@ -164,10 +164,23 @@ which exits non-zero:
       RAM-tier (``memory``) store into a local root, restored bit for
       bit, ``block_fp`` launched once per copied object; (b) and (d) are
       cut to fit the budget;
+   j. the streaming restore and the process IO workers, right after 3a
+      on its store (budget 110 s): (a) four restores of step 4 (3a's
+      merge) into fresh states, sequential, streaming on 4 reader
+      threads, streaming on the process backend (4 workers) and
+      streaming with ``restore_verify=False``: every leaf equal to the
+      sequential restore's, ``block_fp`` launched once per target by the
+      verifying arms and never by the unverified one, no more objects
+      read than planned; (b) 3a's failing run to step 4 with
+      ``io_backend="process"``: losses, step-2/4 digests and object sizes
+      equal to 3a's, the event stalls beside 3a's; (c) a cold load of
+      step 4 through the server on the process backend: the parameters
+      and ``tokens_digest`` of the thread backend's, the workers holding
+      neither torch nor jax;
 4. print the main paths' step/save/restore times, the serve line, the
    Mamba line, the int8 line, the merge line, the canonical path's
-   ``{"legacy": ...}`` line, the tiers line, the kernels line, the card
-   line, and last
+   ``{"legacy": ...}`` line, the tiers line, the ``{"io": ...}`` line,
+   the kernels line, the card line, and last
    the ``{"ok": true, "device": ...}`` line; each phase logs its wall
    time; with ``--record PATH``, the full record of every phase also goes
    to PATH (written even when a check fails).
@@ -2613,6 +2626,278 @@ def phase_3i(torch, dev, store: Path, rec_a: dict, out: dict) -> None:
     log(f"phase 3i in {out['seconds']:.1f} s; launches {launches}")
 
 
+# Phase 3j: its budget and the restore arms of (a); were 3j to run over,
+# (b) would be cut to event 2 first, then (a)'s unverified arm
+IO_BUDGET_S = 110.0
+IO_WORKERS = 4
+IO_ARMS = (
+    ("sequential", {"restore_threads": 1}),
+    ("streaming", {}),
+    ("process", {"io_backend": "process", "io_workers": IO_WORKERS}),
+    ("unverified", {"restore_verify": False}),
+)
+_IO_EVENT_KEYS = ("step", "stall_seconds", "d2h_bytes", "written_bytes",
+                  "encode_seconds", "write_io_seconds", "commit_seconds",
+                  "io_backend")
+_IO_RESTORE_KEYS = ("seconds", "pipelined", "io_threads", "verify",
+                    "io_backend", "bytes_read", "h2d_bytes", "objects_read",
+                    "unique_digests", "planned_object_reads", "targets",
+                    "read_seconds", "wait_seconds", "read_io_seconds",
+                    "decode_seconds", "h2d_seconds", "verify_seconds",
+                    "fallback_units")
+
+
+def _children_rss(pids) -> int:
+    """Resident bytes of the processes ``pids`` (0 for one that is gone)."""
+    page = os.sysconf("SC_PAGE_SIZE")
+    total = 0
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/statm") as f:
+                total += int(f.read().split()[1]) * page
+        except OSError:
+            pass
+    return total
+
+
+@contextlib.contextmanager
+def _worker_modules(into: list):
+    """Append to ``into`` the modules each process-backed manager's
+    workers hold, asked just before the manager closes."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+
+    plain = CheckpointManager.close
+
+    def close(self):
+        pool = self.transfer_pool
+        if pool is not None and pool.workers is not None:
+            into.append(pool.workers.call("modules"))
+        return plain(self)
+
+    CheckpointManager.close = close
+    try:
+        yield into
+    finally:
+        CheckpointManager.close = plain
+
+
+def phase_3j(torch, dev, store: Path, rec_a: dict, out: dict) -> None:
+    """The streaming restore and the process IO workers, right after 3a on
+    its store (``store / "3a" / "run"``), the launch counts set to 0
+    before each part and read after.  Budget: IO_BUDGET_S (110 s).
+    ``rec_a`` is 3a's record (its failing run's losses and events, its
+    step-2 and step-4 entry digests).  Fills ``out`` before its checks.
+
+    (a) four full-state restores of step 4 (3a's merge), each into a fresh
+    state, the host's pinned-memory cache emptied before each: sequential
+    (``restore_threads=1``), streaming (4 reader threads), streaming on
+    the process backend (4 threads, IO_WORKERS workers) and streaming with
+    ``restore_verify=False``; every leaf ``torch.equal`` to the sequential
+    restore's, ``block_fp`` launched by the verifying arms (once per
+    target) and never by the unverified one, ``objects_read`` at most
+    ``planned_object_reads``; per arm the seconds and their split, the
+    worker counts and the host's and the workers' peak RSS.
+    (b) 3a's failing run to step 4 on ``io_backend="process"``
+    (IO_WORKERS workers, synchronous inline saves): its losses equal 3a's
+    failing run's, the step-2 and step-4 entries hold 3a's digests, every
+    object's table hashes to its name and its file is as long as 3a's
+    (the bytes are held against 3a's on the CPU); the stall of events 2 and
+    4 beside 3a's, and the events' worker tasks and shared-memory bytes.
+    (c) a weights-only cold load of step 4 through the server
+    (``serve(io_backend="process")``) against the thread backend's: equal
+    parameters and ``tokens_digest``, and the workers that decoded the
+    load hold neither torch nor jax."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.core.policies import make_policy
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import SimulatedFailure, train
+
+    t0 = time.perf_counter()
+    log(f"phase 3j: budget {IO_BUDGET_S:.0f} s")
+    run = store / "3a" / "run"
+    root = store / "3j"
+    root.mkdir(parents=True, exist_ok=True)
+    model = _model()
+    registry = LayerRegistry(model)
+    like = steps.state_specs(model)
+    launches = out["launches"] = {}
+    empty_host_cache = getattr(torch._C, "_host_emptyCache", None)
+
+    # (a) four restores of step 4
+    ta = time.perf_counter()
+    _release(torch)
+    arms, ref = {}, None
+    launches["a"] = {}
+    for name, kw in IO_ARMS:
+        if empty_host_cache is not None:
+            empty_host_cache()
+        mgr = CheckpointManager(run, registry,
+                                make_policy("parity", model.layer_units()),
+                                async_save=False, **kw)
+        pool = mgr.transfer_pool
+        pids = (lambda: pool.workers.worker_pids()) \
+            if pool is not None and pool.workers is not None else list
+        rss, kids = {}, {"peak": 0}
+        _zero_counts()
+        try:
+            with _rss_peak(rss):
+                t_arm = time.perf_counter()
+                state = mgr.restore(like, device=dev, step=4)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t_arm
+                kids["peak"] = _children_rss(pids())
+            stats = dict(mgr.last_restore_stats)
+        finally:
+            mgr.close()
+        counts = _read_counts()
+        launches["a"][name] = counts
+        arms[name] = {k: stats[k] for k in _IO_RESTORE_KEYS} | {
+            "wall_seconds": wall, "workers": stats.get("workers"),
+            "host_peak_rss_bytes": rss.get("peak"),
+            "workers_rss_bytes_at_end": kids["peak"] or None,
+            "block_fp_launches": counts["block_fp"]}
+        if ref is None:
+            ref = state
+            arms[name]["equal_sequential"] = True
+        else:
+            arms[name]["equal_sequential"] = all(
+                _params_equal(torch, ref[p], state[p])
+                for p in ("params", "opt"))
+            del state
+        log(f"3j (a) {name}: {arms[name]}")
+        torch.cuda.empty_cache()
+    del ref
+    _release(torch)
+    out["a"] = {"arms": arms, "host_cache_emptied": bool(empty_host_cache),
+                "seconds": time.perf_counter() - ta}
+    log(f"3j (a) in {out['a']['seconds']:.1f} s")
+    for name, arm in arms.items():
+        if not arm["equal_sequential"]:
+            raise AssertionError(f"3j (a) {name}: the restore differs from "
+                                 "the sequential one")
+        if arm["objects_read"] > arm["planned_object_reads"]:
+            raise AssertionError(f"3j (a) {name}: {arm['objects_read']} "
+                                 "objects read, more than planned")
+        want = arm["targets"] if arm["verify"] else 0
+        if arm["block_fp_launches"] != want:
+            raise AssertionError(f"3j (a) {name}: {arm['block_fp_launches']}"
+                                 f" block_fp launches, want {want}")
+        if arm["fallback_units"]:
+            raise AssertionError(f"3j (a) {name}: fallbacks "
+                                 f"{arm['fallback_units']}")
+    if arms["process"]["workers"]["tasks"] <= 0:
+        raise AssertionError("3j (a): the process arm ran no worker task")
+
+    # (b) 3a's failing run on the process backend
+    tb = time.perf_counter()
+    run_b = root / "b"
+    _zero_counts()
+    rss = {}
+    try:
+        with _rss_peak(rss):
+            train(ckpt_dir=str(run_b), arch=ARCH, reduced=REDUCED,
+                  num_layers=NUM_LAYERS, batch=BATCH, seq_len=SEQ,
+                  policy_name="parity", seed=SEED, device=str(dev),
+                  ckpt_async=False, total_steps=STEPS,
+                  ckpt_interval=CKPT_INTERVAL, fail_at=FAIL_AT,
+                  io_backend="process", io_workers=IO_WORKERS)
+        raise AssertionError("3j (b): the checkpointed run did not fail")
+    except SimulatedFailure as e:
+        failed = e
+    torch.cuda.synchronize()
+    launches["b"] = _read_counts()
+    log(f"3j (b) run in {time.perf_counter() - tb:.1f} s")
+    a_events = {e["step"]: e for e in rec_a["save_events"]}
+    want_losses = dict(rec_a["losses_failed_run"])
+    events = failed.save_events
+    out["b"] = {
+        "run_seconds": time.perf_counter() - tb,
+        "host_peak_rss_bytes": rss.get("peak"),
+        "events": [{k: e[k] for k in _IO_EVENT_KEYS} | {
+            "workers": e.get("workers"),
+            "stall_seconds_3a": a_events[e["step"]]["stall_seconds"],
+            "encode_seconds_3a": a_events[e["step"]]["encode_seconds"],
+            "write_io_seconds_3a": a_events[e["step"]]["write_io_seconds"]}
+            for e in events],
+        "loss_diffs": {s: abs(l - want_losses[s])
+                       for s, l in failed.losses},
+        "launches": launches["b"]}
+    steps_b = sorted(int(s) for s in rec_a["entry_digests"]
+                     if int(s) < FAIL_AT)
+    digests_equal = True
+    for s in steps_b:
+        got = {f"{u}/{k}": d for (u, k), d in _entry_digests(run_b, s).items()}
+        digests_equal &= got == rec_a["entry_digests"][str(s)]
+    # every object's table hashes to its name, and its file is as long as
+    # 3a's (the bytes are held against 3a's on the CPU:
+    # tests/test_torch_io_workers.py)
+    files = sorted((run_b / "objects").glob("*/*.chunk"))
+    named = _check_named(run_b, "objects/*/*.chunk", "3j (b)")
+    sizes_equal = all(
+        p.stat().st_size
+        == (run / "objects" / p.parent.name / p.name).stat().st_size
+        for p in files)
+    out["b"].update({"steps": steps_b, "digests_equal": digests_equal,
+                     "objects_named": named, "sizes_equal": sizes_equal,
+                     "seconds": time.perf_counter() - tb})
+    shutil.rmtree(run_b, ignore_errors=True)
+    log(f"3j (b) {out['b']}")
+    if not digests_equal or not sizes_equal:
+        raise AssertionError("3j (b): the process backend's entries or "
+                             "objects differ from 3a's")
+    if not all(d <= MODE_TOL for d in out["b"]["loss_diffs"].values()):
+        raise AssertionError(f"3j (b): losses off 3a's: "
+                             f"{out['b']['loss_diffs']}")
+    if [e["step"] for e in events] != steps_b or any(
+            e["io_backend"] != "process" or not e["workers"]["lanes"]
+            for e in events):
+        raise AssertionError(f"3j (b): events {out['b']['events']}")
+    _check_launched(launches["b"], ("block_fp", "fused_adamw"), "3j (b)")
+
+    # (c) the server's cold load through the workers
+    tc = time.perf_counter()
+    _release(torch)
+    _zero_counts()
+    skw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS, batch=2,
+               prompt_len=128, new_tokens=8, seed=SEED, device=str(dev),
+               from_ckpt=str(run), from_step=4)
+    runs, served = {}, {}
+    with _worker_modules([]) as mods:
+        for backend in ("thread", "process"):
+            with _served_params([]) as trees:
+                runs[backend] = serve(io_backend=backend,
+                                      io_workers=IO_WORKERS, **skw)
+            served[backend] = trees[-1]
+    torch.cuda.synchronize()
+    launches["c"] = _read_counts()
+    params_equal = _params_equal(torch, served["thread"], served["process"])
+    del served
+    _release(torch)
+    bad = sorted({m for ms in mods for m in ms
+                  if m.split(".")[0] in ("torch", "jax", "jaxlib", "repro")})
+    out["c"] = {"load": {b: {k: r["restore"][k] for k in (
+        "seconds", "bytes_read", "objects_read", "io_backend")}
+        | {"workers": r["restore"].get("workers")} for b, r in runs.items()},
+        "params_equal": params_equal,
+        "tokens_digest": {b: r["tokens_digest"] for b, r in runs.items()},
+        "worker_modules": len(mods[0]) if mods else None,
+        "worker_forbidden_modules": bad,
+        "launches": launches["c"], "seconds": time.perf_counter() - tc}
+    log(f"3j (c) {out['c']}")
+    if not params_equal or len(set(out["c"]["tokens_digest"].values())) != 1:
+        raise AssertionError(f"3j (c): the process load serves other "
+                             f"weights: {out['c']}")
+    if not mods or bad:
+        raise AssertionError(f"3j (c): worker modules {bad} (asked "
+                             f"{len(mods)} pools)")
+    _check_launched(launches["c"], ("block_fp", "flash_attention"), "3j (c)")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 3j in {out['seconds']:.1f} s of its {IO_BUDGET_S:.0f}-s "
+        "budget")
+
+
 _EVENT_KEYS = ("step", "selected_units", "snapshot_seconds", "stage_seconds",
                "writeback_seconds", "commit_seconds", "gc_seconds",
                "stall_seconds", "seconds", "d2h_bytes",
@@ -3731,6 +4016,12 @@ def report(record: dict, path) -> None:
         # the storage tiers (3i), by part
         k["launches_tiers_path"] = {
             part: c[k["name"]] for part, c in mp["3i"]["launches"].items()}
+        # the streaming restore and the process IO workers (3j), by part
+        # ((a) by restore arm)
+        la = mp["3j"]["launches"]
+        k["launches_io_path"] = {
+            "a": {arm: c[k["name"]] for arm, c in la["a"].items()},
+            "b": la["b"][k["name"]], "c": la["c"][k["name"]]}
     write_record(record, path)
     a_secs = {e["step"]: e["seconds"] for e in mp_a["save_events"]}
     ctl_secs = {e["step"]: e["seconds"]
@@ -3866,6 +4157,22 @@ def report(record: dict, path) -> None:
         "d_merge": {k: mp_i["d"][k] for k in (
             "merge", "storage", "unit_equal", "seconds")},
         "launches": mp_i["launches"], "seconds": mp_i["seconds"]} | card}))
+    mp_j = mp["3j"]
+    print(json.dumps({"io": {
+        "a_restores": {name: {k: arm[k] for k in (
+            "seconds", "read_seconds", "wait_seconds", "read_io_seconds",
+            "decode_seconds", "h2d_seconds", "verify_seconds",
+            "objects_read", "planned_object_reads", "bytes_read",
+            "block_fp_launches", "workers", "host_peak_rss_bytes",
+            "workers_rss_bytes_at_end")}
+            for name, arm in mp_j["a"]["arms"].items()},
+        "b_process_events": mp_j["b"]["events"],
+        "b_digests_equal": mp_j["b"]["digests_equal"],
+        "b_objects_named": mp_j["b"]["objects_named"],
+        "c_load": mp_j["c"]["load"],
+        "c_params_equal": mp_j["c"]["params_equal"],
+        "launches": mp_j["launches"], "seconds": mp_j["seconds"],
+        "budget_seconds": IO_BUDGET_S} | card}))
     print(json.dumps({"kernels": [k | card for k in kernels]}))
 
 
@@ -3920,7 +4227,8 @@ def main() -> int:
               "main_path": {"3a": {}, "3b": {}, "3c": {},
                             "3d": {"serve": {}, "store": {}},
                             "3e": {"train": {}, "store": {}, "serve": {}},
-                            "3f": {}, "3g": {}, "3h": {}, "3i": {}}}
+                            "3f": {}, "3g": {}, "3h": {}, "3i": {},
+                            "3j": {}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
@@ -3931,6 +4239,8 @@ def main() -> int:
                      _entry_digests(store / "3a" / "run", s).items()}
             for s in (2, 4)}
         log(f"phase 3a done at {time.perf_counter() - t_start:.1f} s")
+        phase_3j(torch, dev, store, mp["3a"], mp["3j"])
+        log(f"phase 3j done at {time.perf_counter() - t_start:.1f} s")
         phase_3g(torch, dev, store / "3a", mp["3a"]["losses_resumed"],
                  mp["3g"])
         log(f"phase 3g done at {time.perf_counter() - t_start:.1f} s")

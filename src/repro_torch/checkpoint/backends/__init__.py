@@ -24,7 +24,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Dict, Optional
 
-from repro_torch.checkpoint.async_io import TransferPool
+from repro_torch.checkpoint.async_io import IoDispatch, TransferPool
 from repro_torch.checkpoint.backends.base import StorageBackend  # noqa: F401
 from repro_torch.checkpoint.backends.faulty import (  # noqa: F401
     FaultInjectingBackend,
@@ -82,7 +82,8 @@ def make_backend(spec: "str | StorageBackend", root: Path | str, *,
                  pool: Optional[TransferPool] = None,
                  spill_threads: int = 2,
                  hot_budget_bytes: Optional[int] = None,
-                 remote_opts: Optional[Dict[str, Any]] = None
+                 remote_opts: Optional[Dict[str, Any]] = None,
+                 dispatch: Optional[IoDispatch] = None
                  ) -> StorageBackend:
     """Resolve a ``store_backend`` knob into a backend rooted at checkpoint
     root ``root`` (disk tree ``root/objects``, bucket ``root/remote``).  A
@@ -90,17 +91,20 @@ def make_backend(spec: "str | StorageBackend", root: Path | str, *,
     the spill lanes (a pool of the backend's own when None);
     ``remote_opts`` configures the simulated service
     (latency/error_rate/seed/...), the retry policy (attempts/timeout/...),
-    the breaker (failures/cooldown) and the hedging."""
+    the breaker (failures/cooldown) and the hedging.  ``dispatch`` (a
+    process-backed ``IoDispatch``) moves the disk tiers' atomic writes,
+    a tiered spill's included, into subprocess workers."""
     if isinstance(spec, StorageBackend):
         return spec
     root = Path(root)
     if spec == "local":
-        return LocalFSBackend(root / "objects")
+        return LocalFSBackend(root / "objects", dispatch=dispatch)
     if spec == "memory":
         return MemoryBackend()
     if spec == "tiered":
         return TieredBackend(MemoryBackend(),
-                             LocalFSBackend(root / "objects"),
+                             LocalFSBackend(root / "objects",
+                                            dispatch=dispatch),
                              pool=pool, spill_threads=spill_threads,
                              hot_budget_bytes=hot_budget_bytes)
     if spec == "remote":
@@ -113,7 +117,7 @@ def make_backend(spec: "str | StorageBackend", root: Path | str, *,
             # follow-on spill tasks
             pool = TransferPool(max(2, spill_threads * 2), max_queue=0)
         inner = TieredBackend(
-            LocalFSBackend(root / "objects"), remote,
+            LocalFSBackend(root / "objects", dispatch=dispatch), remote,
             pool=pool, lane=REMOTE_SPILL_LANE,
             hot_label="durable", durable_label=None,
             promote_on_read=True,  # a lost disk copy re-warms from remote

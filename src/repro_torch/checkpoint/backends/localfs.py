@@ -3,17 +3,24 @@
     <dir>/ab/abcdef...123.chunk     # two-hex-char fan-out, one file/object
 
 ``atomic_write`` is the tmp+rename(+fsync) protocol the manifest store
-uses as well.
+uses as well.  With a process-backed ``dispatch`` (``io_backend=
+"process"``), an object write runs ``workers.file_write_atomic`` in a
+subprocess worker, its bytes through shared memory, and its tmp file
+named after this (the coordinating) process.
 """
 from __future__ import annotations
 
 import os
 import threading
 from pathlib import Path
-from typing import Dict, Iterator, Optional
+from typing import TYPE_CHECKING, Dict, Iterator, Optional
 
+from repro_torch.checkpoint._msgpack import Blob
 from repro_torch.checkpoint.backends.base import (Data, StorageBackend,
                                                   data_len, data_parts)
+
+if TYPE_CHECKING:
+    from repro_torch.checkpoint.async_io import IoDispatch
 
 
 def _fsync_dir(path: Path) -> None:
@@ -63,11 +70,13 @@ def read_file_into(path: Path, alloc, start: int = 0,
 class LocalFSBackend(StorageBackend):
     name = "local"
 
-    def __init__(self, root: Path | str, *, fsync: bool = False):
+    def __init__(self, root: Path | str, *, fsync: bool = False,
+                 dispatch: Optional["IoDispatch"] = None):
         self.root = Path(root)
         # Objects are published by rename without fsync by default (the
         # JAX package's default); the manifest written last is fsynced.
         self.fsync = fsync
+        self.dispatch = dispatch
         self._lock = threading.Lock()
         self._stats = {"reads": 0, "writes": 0, "read_bytes": 0,
                        "written_bytes": 0}
@@ -83,7 +92,12 @@ class LocalFSBackend(StorageBackend):
         return buf
 
     def write(self, key: str, data: Data) -> int:
-        atomic_write(self._path(key), data, fsync=self.fsync)
+        if self.dispatch is not None and self.dispatch.is_process:
+            tag = f"{os.getpid():x}-{threading.get_ident():x}"
+            self.dispatch.call("file_write_atomic", str(self._path(key)),
+                               Blob(data_parts(data)), self.fsync, tag)
+        else:
+            atomic_write(self._path(key), data, fsync=self.fsync)
         n = data_len(data)
         with self._lock:
             self._stats["writes"] += 1

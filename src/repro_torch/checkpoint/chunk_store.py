@@ -69,6 +69,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 from repro_torch.checkpoint import _msgpack, faults, workers
 from repro_torch.checkpoint import fingerprint as fputil
+from repro_torch.checkpoint.async_io import INLINE_DISPATCH, IoDispatch
 from repro_torch.checkpoint.backends import StorageBackend, make_backend
 from repro_torch.checkpoint.backends.retry import RetryPolicy
 from repro_torch.checkpoint.serial import (ChunkCorruption,
@@ -92,6 +93,13 @@ CANON_CACHE_BYTES = 64 << 20
 READ_RETRY = RetryPolicy(attempts=3, base_delay=0.002, max_delay=0.05)
 
 Materialize = Callable[[workers.Items, Optional[bytes], str], workers.Items]
+
+
+def _nbytes(buf) -> int:
+    """Length of a buffer or a ``Blob`` (a worker's small results come
+    back as ``bytes``)."""
+    return buf.nbytes if isinstance(buf, _msgpack.Blob) \
+        else memoryview(buf).nbytes
 
 
 def content_digest(blob) -> str:
@@ -138,37 +146,58 @@ class ChunkRef:
 
 
 class ReadSession:
-    """Read-once memo over one logical read pass (a hot-swap, a restore's
-    or a merge's read of one object).
+    """Read-once memo over one logical read pass (a restore, a hot-swap,
+    a merge's read of one object), safe for several threads.
 
-    Envelopes, canonical payloads and decoded trees are memoized per
-    digest, so a digest two units share, or a full base that several
-    deltas patch, is read off the disk once.  A tree's leaves are host
-    tensors, or the ``Int8Record`` of an int8-coded leaf (dequantized only
-    where it is placed).  ``stats`` counts the real object I/O:
-    ``object_reads`` envelope reads and ``bytes_read`` object-file bytes;
-    ``tiers`` maps each digest read to the tier it was served from and
-    ``tier_reads`` counts the reads per tier.
-    Envelopes are read into buffers from ``alloc(nbytes)`` (a bytearray by
-    default).  The crc32 of every record and the table's or payload's
-    hash to the address are checked on read; an fp object's table itself
-    is returned with the tree and held against the placed tensors on the
-    device by the caller (``restore.verify_placed``), except where its
-    canonical bytes are needed, which ``materialize`` checks (see the
-    module doc).  An object whose chain of bases leads back to itself
-    raises ``ChunkCorruption``.  A session is used by one thread.
-    """
+    Envelopes, raw object blobs, canonical payloads and decoded trees are
+    memoized per digest, so a digest two units share, or a full base that
+    several deltas patch, is read off the disk once; threads asking for a
+    digest being read wait for that one read (its failure is memoized
+    too, so a corrupt object shared by several units fails them all from
+    one read).  ``release(digest)`` drops every representation once no
+    reader needs it.  A tree's leaves are host tensors, or the
+    ``Int8Record`` of an int8-coded leaf (dequantized only where it is
+    placed).  ``stats`` counts the real object I/O: ``object_reads``
+    envelope or blob reads and ``bytes_read`` object-file bytes; ``tiers``
+    maps each digest read to the tier it was served from and
+    ``tier_reads`` counts the reads per tier.  Envelopes are read into
+    buffers from ``alloc(nbytes)`` (a bytearray by default), and so are a
+    worker's decoded records on the process backend.
+
+    With ``verify`` (the default) the crc32 of every record and the
+    table's or payload's hash to the address are checked on read; an fp
+    object's table itself is returned with the tree and held against the
+    placed tensors on the device by the caller (``restore.verify_placed``),
+    except where its canonical bytes are needed, which ``materialize``
+    checks (see the module doc).  ``verify=False`` checks none of them and
+    returns no table.  An object whose chain of bases leads back to itself
+    raises ``ChunkCorruption``: a thread's own nesting is caught by
+    ``guard`` (per thread), a wait that would close a loop of threads
+    waiting on each other's reads by the memo.
+
+    The offload reads (``object_blob``, ``read_offload``,
+    ``canonical_offload``) are the process backend's: the raw blob is read
+    here (tier provenance, retries and faults stay in this process) and
+    its decode and host checks run in a worker (``workers.decode_object``,
+    ``canonical_object``) on lane ``"restore"``; a delta's base goes with
+    it (a block delta's base envelope, an XOR delta's base canonical
+    payload).  They share the ``canon`` and ``tree`` memos with the inline
+    reads."""
 
     def __init__(self, store: "ChunkStore", *,
                  alloc: Optional[Callable[[int], Any]] = None,
-                 materialize: Optional[Materialize] = None):
+                 materialize: Optional[Materialize] = None,
+                 verify: bool = True):
         self.store = store
         self.alloc = alloc
         self.materialize = materialize
-        self._envelopes: Dict[str, Dict[str, Any]] = {}
-        self._canon: Dict[str, Any] = {}
-        self._trees: Dict[str, Tuple[Any, Optional[bytes]]] = {}
-        self._busy: set = set()
+        self.verify = verify
+        self._lock = threading.Lock()
+        # (memo, digest) -> {"event", "value", "error", "owner"}
+        self._cells: Dict[Tuple[str, str], Dict[str, Any]] = {}
+        # thread -> the cell it waits on (the cycle check's edges)
+        self._waiting: Dict[int, Dict[str, Any]] = {}
+        self._local = threading.local()
         self.stats = {"object_reads": 0, "bytes_read": 0}
         self.tiers: Dict[str, str] = {}
         self.tier_reads: Dict[str, int] = {}
@@ -177,70 +206,230 @@ class ReadSession:
     def guard(self, what: str, digest: str):
         """Raise ``ChunkCorruption`` if ``(what, digest)`` is already being
         resolved further up this thread's stack (a base cycle)."""
+        busy = getattr(self._local, "busy", None)
+        if busy is None:
+            busy = self._local.busy = set()
         key = (what, digest)
-        if key in self._busy:
+        if key in busy:
             raise ChunkCorruption(f"object dependency cycle at {digest}")
-        self._busy.add(key)
+        busy.add(key)
         try:
             yield
         finally:
-            self._busy.discard(key)
+            busy.discard(key)
 
-    def envelope(self, digest: str) -> Dict[str, Any]:
-        env = self._envelopes.get(digest)
-        if env is None:
-            # before the read: a tiered backend promotes what it reads
-            tier = self.store.locate(digest)
-            env = self.store.read_envelope(digest, self.alloc)
+    def _memoized(self, memo: str, digest: str, fn: Callable[[], Any]):
+        key = (memo, digest)
+        me = threading.get_ident()
+        while True:
+            with self._lock:
+                cell = self._cells.get(key)
+                owner = cell is None
+                if owner:
+                    cell = self._cells[key] = {
+                        "event": threading.Event(), "value": None,
+                        "error": None, "owner": me}
+                elif not cell["event"].is_set():
+                    # waiting would close a loop of threads each waiting
+                    # on a read another one runs: a base cycle
+                    t, seen = cell["owner"], set()
+                    while t not in seen:
+                        if t == me:
+                            raise ChunkCorruption(
+                                f"object dependency cycle at {digest}")
+                        seen.add(t)
+                        nxt = self._waiting.get(t)
+                        if nxt is None or nxt["event"].is_set():
+                            break
+                        t = nxt["owner"]
+                    self._waiting[me] = cell
+            if not owner:
+                cell["event"].wait()
+                with self._lock:
+                    self._waiting.pop(me, None)
+                    if self._cells.get(key) is not cell:
+                        continue        # released meanwhile: read again
+                if cell["error"] is not None:
+                    raise cell["error"]
+                return cell["value"]
+            try:
+                cell["value"] = fn()
+            except BaseException as e:  # noqa: BLE001 - memoize failures too
+                cell["error"] = e
+                raise
+            finally:
+                cell["event"].set()
+            return cell["value"]
+
+    def _count_read(self, digest: str, tier: Optional[str],
+                    nbytes: int) -> None:
+        with self._lock:
             self.stats["object_reads"] += 1
-            self.stats["bytes_read"] += self.store.object_info(
-                digest)["nbytes"]
+            self.stats["bytes_read"] += int(nbytes)
             if tier is not None:
                 self.tiers[digest] = tier
                 self.tier_reads[tier] = self.tier_reads.get(tier, 0) + 1
-            self._envelopes[digest] = env
-        return env
+
+    def envelope(self, digest: str) -> Dict[str, Any]:
+        def read():
+            # before the read: a tiered backend promotes what it reads
+            tier = self.store.locate(digest)
+            env = self.store.read_envelope(digest, self.alloc)
+            self._count_read(digest, tier,
+                             self.store.object_info(digest)["nbytes"])
+            return env
+
+        return self._memoized("env", digest, read)
 
     def canonical(self, digest: str):
         """The canonical payload of ``digest`` (``read_canonical``)."""
-        canon = self._canon.get(digest)
-        if canon is None:
-            canon = self._canon[digest] = self.store.read_canonical(
-                digest, session=self)
-        return canon
+        return self._memoized(
+            "canon", digest,
+            lambda: self.store.read_canonical(digest, session=self))
 
     def read(self, digest: str) -> Tuple[Any, Optional[bytes]]:
         """(tree of host tensors, fingerprint table blob) of an object."""
-        hit = self._trees.get(digest)
-        if hit is not None:
-            return hit
-        items, fp_blob = self.store.read_items(digest, session=self)
-        tree = unflatten_from_paths({
-            name: (raw if isinstance(raw, workers.Int8Record)
-                   else from_bytes(raw, shape, dtype))
-            for name, shape, dtype, raw in items})
-        self._trees[digest] = (tree, fp_blob)
-        return tree, fp_blob
+        def build():
+            items, fp_blob = self.store.read_items(digest, session=self)
+            return _tree_of(items), fp_blob
+
+        return self._memoized("tree", digest, build)
+
+    # ---- the process backend's reads ----
+    def object_blob(self, digest: str) -> memoryview:
+        """The raw envelope bytes of ``digest``, read once, with the read
+        accounting of ``envelope``."""
+        def read():
+            tier = self.store.locate(digest)
+            # into shared memory on the process backend: the worker that
+            # decodes it maps the bytes, and its decoded records come back
+            # as views of them
+            blob = self.store._read_blob(digest,
+                                         self.store.dispatch.buffer_alloc())
+            self._count_read(digest, tier, blob.nbytes)
+            return blob
+
+        return self._memoized("blob", digest, read)
+
+    def _offload_base(self, digest: str, env: Dict[str, Any]):
+        """What a worker needs of a delta's base: a block delta's base
+        envelope, an XOR delta's base canonical payload (None for a full
+        object)."""
+        with _decoding(digest):
+            fmt = env.get("format")
+            base = env.get("base")
+        if fmt == "block_delta":
+            return self.object_blob(base)
+        if fmt == "delta":
+            return self.canonical_offload(base)
+        return None
+
+    def _decode_offload(self, digest: str
+                        ) -> Tuple[workers.Items, Optional[bytes]]:
+        blob = self.object_blob(digest)
+        with _decoding(digest):
+            env = workers.parse_envelope(blob, digest)
+        base = self._offload_base(digest, env)
+        t0 = time.perf_counter()
+        items, fp_blob = self.store.dispatch.call(
+            "decode_object", blob, digest, base, self.verify,
+            lane="restore", alloc=self.alloc)
+        self.store._add_seconds("decode", time.perf_counter() - t0)
+        if fp_blob is not None:
+            with _decoding(digest):
+                tbl = fputil.unpack_table(fp_blob)
+            with self.store._lock:
+                self.store._fp_tables[digest] = tbl
+        return items, fp_blob
+
+    def read_offload(self, digest: str) -> Tuple[Any, Optional[bytes]]:
+        """``read`` with the decode and host checks in a worker."""
+        def build():
+            items, fp_blob = self._decode_offload(digest)
+            return _tree_of(items), fp_blob
+
+        return self._memoized("tree", digest, build)
+
+    def canonical_offload(self, digest: str):
+        """``canonical`` with the rebuild and digest check in a worker; an
+        fp or lossy object is decoded there, placed and checked through
+        ``materialize`` here, and framed in a worker."""
+        def build():
+            cached = self.store._canon_cached(digest)
+            if cached is not None:
+                return cached
+            blob = self.object_blob(digest)
+            with _decoding(digest):
+                env = workers.parse_envelope(blob, digest)
+                fp = env.get("fp") is not None
+                lossy = (env.get("format") == "full"
+                         and env.get("codec") != "none")
+            dispatch = self.store.dispatch
+            if fp or lossy:
+                items, fp_blob = self._decode_offload(digest)
+                if self.materialize is None:
+                    raise RuntimeError(f"the canonical bytes of {digest} "
+                                       "are rebuilt on a device: pass "
+                                       "materialize")
+                items = self.materialize(items, fp_blob, digest)
+                canon = dispatch.call("encode_chunk", items, {},
+                                      lane="restore")
+                if (not fp and self.verify
+                        and content_digest(canon) != digest):
+                    raise ChunkCorruption(f"digest mismatch for {digest}")
+            else:
+                base = self._offload_base(digest, env)
+                t0 = time.perf_counter()
+                canon = dispatch.call("canonical_object", blob, digest, base,
+                                      self.verify, lane="restore")
+                self.store._add_seconds("decode", time.perf_counter() - t0)
+            self.store._canon_remember(digest, canon)
+            return canon
+
+        return self._memoized("canon", digest, build)
+
+    def release(self, digest: str) -> None:
+        """Drop every memoized representation of ``digest`` (no reader
+        needs it any more)."""
+        with self._lock:
+            for memo in ("env", "blob", "canon", "tree"):
+                self._cells.pop((memo, digest), None)
+
+
+def _tree_of(items: workers.Items) -> Any:
+    return unflatten_from_paths({
+        name: (raw if isinstance(raw, workers.Int8Record)
+               else from_bytes(raw, shape, dtype))
+        for name, shape, dtype, raw in items})
 
 
 class ChunkStore:
     """The store under ``root``; ``codec`` is ``none``/``auto`` or ``int8``
     (see ``workers.resolve_codec``).  ``backend``, ``spill_threads``,
     ``hot_budget_bytes`` and ``remote_opts`` go to
-    ``backends.make_backend``; ``read_retry`` replaces ``READ_RETRY``."""
+    ``backends.make_backend`` (with ``dispatch``); ``read_retry`` replaces
+    ``READ_RETRY``; ``dispatch`` is an ``async_io.IoDispatch`` (inline by
+    default)."""
 
     def __init__(self, root: Path | str, *, codec: str = "none",
                  backend: "str | StorageBackend" = "local",
                  spill_threads: int = 2,
                  hot_budget_bytes: Optional[int] = None,
                  read_retry: Optional[RetryPolicy] = None,
-                 remote_opts: Optional[Dict[str, Any]] = None):
+                 remote_opts: Optional[Dict[str, Any]] = None,
+                 dispatch: Optional[IoDispatch] = None):
         self.root = Path(root)
         self.codec = workers.resolve_codec(codec)
+        # Where the hot byte work of writes (framing with its crc32s, the
+        # XD01 and BD02 encodes) and of offloaded reads runs: inline, or in
+        # a process-backed pool's workers (the same ``workers`` code, the
+        # same bytes).
+        self.dispatch = dispatch if dispatch is not None else INLINE_DISPATCH
         self.backend = make_backend(backend, self.root,
                                     spill_threads=spill_threads,
                                     hot_budget_bytes=hot_budget_bytes,
-                                    remote_opts=remote_opts)
+                                    remote_opts=remote_opts,
+                                    dispatch=self.dispatch)
         self.read_retry = read_retry if read_retry is not None \
             else READ_RETRY
         self._lock = threading.RLock()
@@ -530,7 +719,8 @@ class ChunkStore:
                    materialize: Optional[Materialize]) -> ChunkRef:
         t0 = time.perf_counter()
         full_payload = (canon if full_items is None
-                        else workers.encode_chunk_blob(full_items, {}))
+                        else self.dispatch.call("encode_chunk", full_items,
+                                                {}))
         self._add_seconds("encode", time.perf_counter() - t0)
         # An XOR delta against the previous entry's full base.  Never for a
         # lossy codec (a delta restores exact canonical bytes), and never
@@ -556,10 +746,11 @@ class ChunkStore:
                 base_canon = None
             if base_canon is not None:
                 t1 = time.perf_counter()
-                limit = DELTA_RATIO * full_payload.nbytes
-                dblob = workers.delta_encode(canon, base_canon, limit=limit)
+                limit = DELTA_RATIO * _nbytes(full_payload)
+                dblob = self.dispatch.call("delta_encode", canon,
+                                           base_canon, limit)
                 self._add_seconds("encode", time.perf_counter() - t1)
-                if dblob is not None and dblob.nbytes < limit:
+                if dblob is not None and _nbytes(dblob) < limit:
                     nbytes = self._write_object(digest, {
                         "v": OBJECT_VERSION, "format": "delta",
                         "base": base_digest, "payload": dblob})
@@ -610,7 +801,7 @@ class ChunkStore:
                      for l in packet.leaves]
             env = {"v": OBJECT_VERSION, "format": "full",
                    "codec": self.codec, "base": None,
-                   "payload": workers.encode_chunk_blob(items, {}),
+                   "payload": self.dispatch.call("encode_chunk", items, {}),
                    "fp": packet.table}
             self._add_seconds("encode", time.perf_counter() - t0)
             nbytes = self._write_object(digest, env)
@@ -631,7 +822,8 @@ class ChunkStore:
                    for l in packet.leaves if l.idx is None or len(l.idx)]
         env = {"v": OBJECT_VERSION, "format": "block_delta",
                "base": packet.base_digest,
-               "payload": workers.block_delta_encode(records),
+               "payload": self.dispatch.call("block_delta_encode",
+                                             records),
                "fp": packet.table}
         self._add_seconds("encode", time.perf_counter() - t0)
         nbytes = self._write_object(digest, env)
@@ -697,7 +889,8 @@ class ChunkStore:
         items, and a lossy canonical object is checked by crc32 alone, as
         the JAX package's ``read_digest`` checks it.  ``session`` (by
         default a new one, with no ``materialize``) memoizes the envelopes
-        and canonical bases read.  Bytes that do not decode raise
+        and canonical bases read; a session with ``verify=False`` checks
+        none of this and returns no blob.  Bytes that do not decode raise
         ``ChunkCorruption``; an error of the session's hooks passes as it
         is."""
         s = session if session is not None else ReadSession(self)
@@ -713,34 +906,36 @@ class ChunkStore:
         if fp_blob is not None:
             with _decoding(digest):
                 fp_blob = bytes(fp_blob)
-                if fputil.fp_digest(fp_blob) != digest:
+                if s.verify and fputil.fp_digest(fp_blob) != digest:
                     raise ChunkCorruption(
                         f"fingerprint digest mismatch for {digest}")
-                tbl = fputil.unpack_table(fp_blob)
+                tbl = fputil.unpack_table(fp_blob) if s.verify else None
                 base = env["base"] if fmt == "block_delta" else None
-            # The table hashes to the address: the next save's compare
-            # needs no second read of this object.
-            with self._lock:
-                self._fp_tables[digest] = tbl
+            if tbl is not None:
+                # The table hashes to the address: the next save's compare
+                # needs no second read of this object.
+                with self._lock:
+                    self._fp_tables[digest] = tbl
             if base is not None:
                 base_items, _ = self.read_items(base, session=s)
             t0 = time.perf_counter()
             with _decoding(digest):
                 if fmt == "full":
-                    _, items = workers.decode_chunk_items(env["payload"])
+                    _, items = workers.decode_chunk_items(env["payload"],
+                                                          s.verify)
                 elif fmt == "block_delta":
                     records = workers.block_delta_decode(env["payload"])
                     items = workers.patch_items(base_items, records)
                 else:
                     raise ChunkCorruption(f"unknown object format {fmt!r}")
             self._add_seconds("decode", time.perf_counter() - t0)
-            if env.get("codec") in workers.LOSSY_CODECS:
+            if env.get("codec") in workers.LOSSY_CODECS or not s.verify:
                 return items, None
             return items, fp_blob
         if fmt == "full":
             with _decoding(digest):
                 payload = env["payload"]
-                if (env.get("codec") == "none"
+                if (s.verify and env.get("codec") == "none"
                         and content_digest(payload) != digest):
                     raise ChunkCorruption(f"digest mismatch for {digest}")
         elif fmt == "delta":
@@ -749,7 +944,7 @@ class ChunkStore:
             raise ChunkCorruption(f"unknown object format {fmt!r}")
         t0 = time.perf_counter()
         with _decoding(digest):
-            _, items = workers.decode_chunk_items(payload)
+            _, items = workers.decode_chunk_items(payload, s.verify)
         self._add_seconds("decode", time.perf_counter() - t0)
         return items, None
 
@@ -799,7 +994,7 @@ class ChunkStore:
             self._add_seconds("decode", time.perf_counter() - t0)
         else:
             raise ChunkCorruption(f"unknown object format {fmt!r}")
-        if not fp and content_digest(canon) != digest:
+        if not fp and s.verify and content_digest(canon) != digest:
             raise ChunkCorruption(f"digest mismatch for {digest}")
         return canon
 

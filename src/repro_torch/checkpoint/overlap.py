@@ -167,6 +167,8 @@ class _Event:
     blocks_moved: int = 0
     blocks_total: int = 0
     overflows: int = 0
+    # the dispatch's worker stats when the event began (process backend)
+    workers0: Optional[Dict[str, Any]] = None
 
 
 class OverlappedSaver:
@@ -223,7 +225,8 @@ class OverlappedSaver:
                     prev_step=prev.step if prev else None,
                     entries=entries, selected=selected, meta=meta,
                     durability_barrier=durability_barrier, queue=[],
-                    per_slice=1, wall0=t0)
+                    per_slice=1, wall0=t0,
+                    workers0=mgr.store.dispatch.stats())
         for name in selected:
             drift = (drift_scores or {}).get(name)
             for kind in ("weights", "opt"):
@@ -530,7 +533,7 @@ class OverlappedSaver:
         stats = mgr._event_stats(
             step=ev.step, selected=ev.selected, d2h_bytes=ev.d2h_bytes,
             blocks_moved=ev.blocks_moved, blocks_total=ev.blocks_total,
-            storage=storage,
+            storage=storage, workers0=ev.workers0,
             timings={"snapshot_seconds": ev.begin_seconds,
                      "stage_seconds": ev.stage_seconds,
                      "writeback_seconds": ev.writeback_seconds,

@@ -1,40 +1,57 @@
-"""Restore of the port: plan over the manifest, read, verify, copy
-host->device per unit, insert.  The full train state, or only the parts
-asked for: ``parts=("params",)`` is the weights-only load of a server,
-which plans, and so opens, no optimizer object.
+"""Restore of the port: a plan over the manifest chain, streamed host->
+device.  The full train state, or only the parts asked for:
+``parts=("params",)`` is the weights-only load of a server, which plans,
+and so opens, no optimizer object; ``units=`` keeps the units whose names
+start with one of its prefixes.
 
-For every (unit, kind) the plan holds the manifest's entry first and then
-every different object an older manifest holds for that unit, newest first
-(the fallback chain).  A candidate is read into host memory (pinned when
-the target is a CUDA device), decoded, crc32-checked per tensor record,
-copied into the unit's slice of the state, and then verified by
+The plan (``plan_restore``) holds, for every (unit, kind), the manifest's
+entry first and then every different object an older manifest holds for
+that unit, newest first (the fallback chain), with candidates whose object
+or delta base no tier holds dropped up front; and it counts the dependents
+of every digest the primaries touch, each digest once however many targets
+share it.  The engine (:class:`RestoreEngine`) reads every object once
+through one ``ReadSession``: ``io_threads`` pool threads read a candidate
+into host memory (pinned when the target is a CUDA device), decode it and
+check each tensor record's crc32 (on the process backend, the decode and
+host checks run in the store's subprocess workers), and the calling thread
+copies each finished unit into its slice of the state and verifies it by
 fingerprinting the placed tensors on the device (the ``block_fp`` kernel)
-and comparing the packed table with the one stored in the object, whose
-blake2 is the object's address.  An int8 record crosses to the device as
-it is stored (q and scales) and the ``dequantize`` kernel writes the
-destination leaf; a lossy object is checked by its crc32s alone (its table
-describes the tensors before quantization), as in the JAX package.  A
-canonically addressed object (the ``fingerprint=False`` path: a full
-object, or an XOR delta rebuilt against its base's canonical payload) is
-checked by the blake2 of its canonical payload; where that base is an fp
-object, its tensors are placed on the target device and its table checked
-there first (:func:`device_materializer`).  A candidate that fails falls
-through to the next one (an object absent from every tier, or still
-unreadable after the store's transient-IO retries, included); a unit with
-no good candidate raises ``RestoreError``.  ``last_stats`` records the
-tier each unit was served from (``unit_tiers``), the object reads per
-tier (``tier_reads``) and the retried transient errors (``io_retries``).
+against the table stored in the object, whose blake2 is the object's
+address.  A digest is released once its last dependent is placed.  An
+int8 record crosses to the device as it is stored (q and scales) and the
+``dequantize`` kernel writes the destination leaf; a lossy object is
+checked by its crc32s alone (its table describes the tensors before
+quantization), as in the JAX package.  A canonically addressed object (the
+``fingerprint=False`` path: a full object, or an XOR delta rebuilt against
+its base's canonical payload) is checked by the blake2 of its canonical
+payload; where that base is an fp object, its tensors are placed on the
+target device and its table checked there first
+(:func:`device_materializer`, run by the thread that reads the delta: the
+one device work off the calling thread).  A candidate that fails, on the
+host or on the device, falls through to the next one (an object absent
+from every tier, or still unreadable after the store's transient-IO
+retries, included); a unit with no good candidate raises ``RestoreError``.
+``verify=False`` skips every check.  ``last_stats`` records the JAX
+engine's keys (``pipelined``, ``io_threads``, ``verify``,
+``objects_read``, ``unique_digests``, ``planned_object_reads``,
+``io_backend`` and, on the process backend, the restore lane's
+``workers`` counts), the tier each unit was served from (``unit_tiers``),
+the object reads per tier (``tier_reads``), the retried transient errors
+(``io_retries``) and the time split.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
+from concurrent.futures import FIRST_COMPLETED, ThreadPoolExecutor, wait
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint import fingerprint as fputil
+from repro_torch.checkpoint.async_io import lane_delta
 from repro_torch.checkpoint.chunk_store import (ChunkRef, ChunkStore,
                                                 ReadSession)
 from repro_torch.checkpoint.serial import (ChunkCorruption,
@@ -52,9 +69,9 @@ log = logging.getLogger("repro_torch.checkpoint.restore")
 
 PyTree = Any
 
-KINDS = ("weights", "opt")
 PARTS = ("params", "opt")
 _PART_KIND = {"params": "weights", "opt": "opt"}
+DEFAULT_IO_THREADS = 4
 
 
 class RestoreError(RuntimeError):
@@ -70,15 +87,83 @@ def host_buffer_alloc(device: torch.device):
     return bytearray
 
 
+@dataclasses.dataclass(frozen=True)
+class Candidate:
+    """One readable object for a (unit, kind) target."""
+    manifest_step: int      # the manifest this ref was resolved from
+    ref: ChunkRef
+
+    def digests(self) -> Tuple[str, ...]:
+        """The digests a read of this candidate touches (object, base)."""
+        if self.ref.delta_base:
+            return (self.ref.digest, self.ref.delta_base)
+        return (self.ref.digest,)
+
+
+@dataclasses.dataclass(frozen=True)
+class UnitRead:
+    """A target's read plan: the manifest's object first, then the
+    older manifests' different objects for the unit, newest first."""
+    unit: str
+    kind: str               # "weights" | "opt"
+    chain: Tuple[Candidate, ...]
+
+    @property
+    def primary(self) -> Candidate:
+        return self.chain[0]
+
+
+@dataclasses.dataclass
+class RestorePlan:
+    step: int                       # the manifest step restored
+    parts: Tuple[str, ...]
+    targets: List[UnitRead]
+    # digest -> the targets (and their delta bases) that need it, over the
+    # primary candidates: when a digest's count reaches 0 it is released
+    dependents: Dict[str, int]
+
+    @property
+    def unique_digests(self) -> int:
+        return len(self.dependents)
+
+    @property
+    def planned_object_reads(self) -> int:
+        """Reads a restore without the read-once memo would issue: one per
+        target object and one per delta base it replays."""
+        return sum(len(t.primary.digests()) for t in self.targets)
+
+
+def _select_units(unit_names: Sequence[str],
+                 units: Optional[Sequence[str]]) -> List[str]:
+    """The unit names equal to or starting with one of ``units`` (all of
+    them for None; a bare string is one pattern)."""
+    if units is None:
+        return list(unit_names)
+    pats = (units,) if isinstance(units, str) else tuple(units)
+    out = [n for n in unit_names
+           if any(n == p or n.startswith(p) for p in pats)]
+    if not out:
+        raise RestoreError(f"unit filter {units!r} matches no units")
+    return out
+
+
 def plan_restore(manifests: ManifestStore, store: ChunkStore,
                  unit_names: Sequence[str], *, step: Optional[int] = None,
-                 kinds: Sequence[str] = KINDS,
-                 manifest: Optional[Manifest] = None
-                 ) -> Tuple[int, List[Tuple[str, str, List]]]:
-    """(manifest step, [(unit, kind, [(manifest step, ref), ...])]) with
-    each chain's objects present in some tier, best first, for the ``kinds``
-    asked for.  A caller-supplied ``manifest`` replaces the ``step``
-    lookup; the older manifests of the store still give the fallbacks."""
+                 parts: Sequence[str] = PARTS,
+                 units: Optional[Sequence[str]] = None,
+                 manifest: Optional[Manifest] = None) -> RestorePlan:
+    """The read plan of the ``parts`` of the units ``units`` selects
+    (``_select_units``): per (unit, kind) a chain of candidates whose
+    objects (and delta bases) some tier holds, best first, so an object
+    already missing costs a lookup here and no failed read later; and the
+    dependents count of every digest the primaries touch, each digest once
+    however many targets share it.  A caller-supplied ``manifest``
+    replaces the ``step`` lookup; the older manifests of the store still
+    give the fallbacks."""
+    parts = tuple(parts)
+    if not parts or any(p not in PARTS for p in parts):
+        raise RestoreError(f"restore parts {parts!r} must be a "
+                           f"non-empty subset of {PARTS}")
     if manifest is None:
         manifest = manifests.load(step)
     if manifest is None:
@@ -91,11 +176,12 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
         for unit, refs in (m.entries.items() if m else ()):
             for kind, ref in refs.items():
                 older.setdefault((unit, kind), []).append((s, ref))
-    targets = []
-    for name in unit_names:
+    targets: List[UnitRead] = []
+    dependents: Dict[str, int] = {}
+    for name in _select_units(unit_names, units):
         if name not in manifest.entries:
             raise RestoreError(f"manifest missing unit {name}")
-        for kind in kinds:
+        for kind in (_PART_KIND[p] for p in parts):
             if kind not in manifest.entries[name]:
                 raise RestoreError(f"manifest missing {name}/{kind}")
             cands = [(manifest.step, manifest.entries[name][kind])]
@@ -107,11 +193,19 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
                 seen.add(ref.digest)
                 if store.has(ref.digest) and (not ref.delta_base
                                               or store.has(ref.delta_base)):
-                    chain.append((s, ref))
+                    chain.append(Candidate(s, ref))
+                elif s == manifest.step:
+                    log.warning("object for %s/%s at step %s is missing; "
+                                "fallback resolved at plan time", name,
+                                kind, s)
             if not chain:
                 raise RestoreError(f"no readable chunk for unit {name}/{kind}")
-            targets.append((name, kind, chain))
-    return manifest.step, targets
+            target = UnitRead(name, kind, tuple(chain))
+            targets.append(target)
+            for d in target.primary.digests():
+                dependents[d] = dependents.get(d, 0) + 1
+    return RestorePlan(step=manifest.step, parts=parts, targets=targets,
+                       dependents=dependents)
 
 
 def place_leaves(dsts: Sequence[Tuple[torch.Tensor, Any]]) -> int:
@@ -201,129 +295,222 @@ def device_materializer(device: torch.device):
 
 
 class RestoreEngine:
+    """Runs a :class:`RestorePlan` as a stream: ``io_threads`` pool threads
+    read, decode and check the objects (into pinned host buffers for a
+    CUDA target; on the process backend the decode and host checks run in
+    the store's subprocess workers), while the calling thread copies each
+    finished unit host->device and verifies it there (``verify_placed``,
+    the ``block_fp`` kernel on the card), in the order the reads complete:
+    all device work stays on the calling thread.  ``pipelined=False`` (or
+    ``io_threads <= 1``) runs the same plan in target order on the calling
+    thread.  One :class:`ReadSession` serves the whole restore, so a digest
+    several targets share is read once, and is released when its last
+    dependent is placed.  ``verify=False`` checks no crc32, no address and
+    no table on the device (no ``block_fp`` launch): the JAX engine's
+    trusted-storage switch."""
+
     def __init__(self, store: ChunkStore, manifests: ManifestStore,
-                 registry: LayerRegistry):
+                 registry: LayerRegistry, *,
+                 io_threads: int = DEFAULT_IO_THREADS, verify: bool = True):
         self.store = store
         self.manifests = manifests
         self.registry = registry
+        self.io_threads = max(1, int(io_threads))
+        self.verify = bool(verify)
         self.last_stats: Dict[str, Any] = {}
 
-    def _place(self, digest: str, state: Dict[str, PyTree], name: str,
-               kind: str, session: ReadSession,
-               timings: Dict[str, float]) -> int:
-        """Read, decode, insert into the state and verify one object;
-        returns the bytes copied to the device."""
+    def _read_target(self, target: UnitRead, session: ReadSession,
+                     start: int = 0) -> Tuple[int, Any, Optional[bytes],
+                                              float]:
+        """(chain index, tree, table blob, seconds) of the first candidate
+        from ``start`` on that reads and decodes."""
+        offload = self.store.dispatch.is_process
+        last_exc: Optional[Exception] = None
         t0 = time.perf_counter()
-        items, fp_blob = self.store.read_items(digest, session=session)
+        for i in range(start, len(target.chain)):
+            cand = target.chain[i]
+            try:
+                if offload:
+                    tree, fp_blob = session.read_offload(cand.ref.digest)
+                else:
+                    tree, fp_blob = session.read(cand.ref.digest)
+            except (FileNotFoundError, ChunkCorruption) as e:
+                log.warning("chunk %s/%s from manifest %s unreadable (%s); "
+                            "falling back", target.unit, target.kind,
+                            cand.manifest_step, e)
+                last_exc = e
+                continue
+            return i, tree, fp_blob, time.perf_counter() - t0
+        raise RestoreError(f"no readable chunk for unit "
+                           f"{target.unit}/{target.kind}") from last_exc
+
+    def _place(self, target: UnitRead, digest: str, tree: Any,
+               fp_blob: Optional[bytes], state: Dict[str, PyTree],
+               timings: Dict[str, float]) -> int:
+        """Copy a decoded unit into its slice of the state and verify it
+        there; returns the bytes copied to the device."""
         t1 = time.perf_counter()
+        name, kind = target.unit, target.kind
         if kind == "weights":
             dst = self.registry.extract_unit(state["params"], name)
         else:
             dst = self.registry.extract_opt_unit(state["opt"], name)
-        want = {p: t for p, t in flatten_with_paths(dst)}
-        if {n for n, *_ in items} != set(want):
+        want = dict(flatten_with_paths(dst))
+        got = flatten_with_paths(tree)
+        if {p for p, _ in got} != set(want):
             raise ChunkCorruption(f"object {digest} holds leaves "
-                                  f"{sorted(n for n, *_ in items)}, the unit "
+                                  f"{sorted(p for p, _ in got)}, the unit "
                                   f"wants {sorted(want)}")
         pairs = []
-        for path, shape, dtype, raw in items:
+        for path, value in got:
             t = want[path]
-            if tuple(shape) != tuple(t.shape) or dtype != dtype_name(t.dtype):
+            if isinstance(value, Int8Record):
+                shape, dtype = tuple(value.shape), value.dtype
+            else:
+                shape, dtype = tuple(value.shape), dtype_name(value.dtype)
+            if shape != tuple(t.shape) or dtype != dtype_name(t.dtype):
                 raise RestoreError(
                     f"{name}/{path}: object holds {dtype}{list(shape)}, the "
                     f"state wants {dtype_name(t.dtype)}{list(t.shape)}")
-            pairs.append((t, raw if isinstance(raw, Int8Record)
-                          else from_bytes(raw, shape, dtype)))
+            pairs.append((t, value))
         # ``want`` holds the unit's own tensors (views into the state)
         moved = place_leaves(pairs)
         t2 = time.perf_counter()
         if fp_blob is not None:
             verify_placed(dst, fp_blob, digest)
-        t3 = time.perf_counter()
-        timings["read_seconds"] += t1 - t0
         timings["h2d_seconds"] += t2 - t1
-        timings["verify_seconds"] += t3 - t2
+        timings["verify_seconds"] += time.perf_counter() - t2
         return moved
 
     def restore(self, state_like: Dict[str, PyTree], *,
                 device: torch.device, step: Optional[int] = None,
                 parts: Sequence[str] = PARTS,
+                units: Optional[Sequence[str]] = None,
+                pipelined: bool = True,
                 manifest: Optional[Manifest] = None) -> Dict[str, PyTree]:
         """Rebuild a train state from the manifest chain (the implicit
         Frankenstein merge).  ``state_like`` gives the structure as
         ``TensorSpec`` trees under each of ``parts`` ("params", "opt"); the
         result holds them on ``device`` plus ``step`` (a host int32
         tensor).  ``parts=("params",)`` plans and reads only the weights
-        objects; ``manifest`` replaces the ``step`` lookup."""
+        objects; ``units`` keeps the units whose names start with one of
+        its prefixes (the others restore as zeros); ``manifest`` replaces
+        the ``step`` lookup."""
         t0 = time.perf_counter()
-        parts = tuple(parts)
-        if not parts or any(p not in PARTS for p in parts):
-            raise RestoreError(f"restore parts {parts!r} must be a "
-                               f"non-empty subset of {PARTS}")
-        m_step, targets = plan_restore(
-            self.manifests, self.store, self.registry.unit_names(),
-            step=step, kinds=[_PART_KIND[p] for p in parts],
-            manifest=manifest)
+        plan = plan_restore(self.manifests, self.store,
+                            self.registry.unit_names(), step=step,
+                            parts=parts, units=units, manifest=manifest)
         state: Dict[str, PyTree] = {
             p: tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                               device=device), state_like[p])
-            for p in parts}
+            for p in plan.parts}
         if "opt" in state and set(state["opt"]) != set(OPT_KINDS):
             raise RestoreError("opt state must hold master, m and v")
-        alloc = host_buffer_alloc(device)
-        materialize = device_materializer(device)
-        timings = {"read_seconds": 0.0, "h2d_seconds": 0.0,
-                   "verify_seconds": 0.0}
+        session = ReadSession(self.store, alloc=host_buffer_alloc(device),
+                              materialize=device_materializer(device),
+                              verify=self.verify)
+        dispatch = self.store.dispatch
+        workers0 = dispatch.stats()
+        timings = {"read_seconds": 0.0, "wait_seconds": 0.0,
+                   "h2d_seconds": 0.0, "verify_seconds": 0.0}
         fallbacks: Dict[str, int] = {}
-        # unit/kind -> the tier its object was served from; reads per tier
+        # unit/kind -> the tier its object was served from
         unit_tiers: Dict[str, str] = {}
-        tier_reads: Dict[str, int] = {}
+        remaining = dict(plan.dependents)
         io_retries0 = self.store.io_retries
-        sec0 = dict(self.store.seconds)
-        bytes_read = 0
+        sec0 = self.store.seconds_snapshot()
         h2d = 0
-        for name, kind, chain in targets:
-            last_exc: Optional[Exception] = None
-            for cand_step, ref in chain:
-                session = ReadSession(self.store, alloc=alloc,
-                                      materialize=materialize)
+
+        def consume(target: UnitRead, read) -> None:
+            nonlocal h2d
+            i, tree, fp_blob, secs = read
+            timings["read_seconds"] += secs
+            while True:
+                cand = target.chain[i]
                 try:
-                    h2d += self._place(ref.digest, state, name, kind,
-                                       session, timings)
-                except (FileNotFoundError, ChunkCorruption) as e:
-                    log.warning("chunk %s/%s from manifest %s unreadable "
-                                "(%s); falling back", name, kind, cand_step, e)
-                    last_exc = e
-                    continue
-                finally:
-                    for tier, n in session.tier_reads.items():
-                        tier_reads[tier] = tier_reads.get(tier, 0) + n
-                tier = session.tiers.get(ref.digest)
-                if tier is not None:
-                    unit_tiers[f"{name}/{kind}"] = tier
-                bytes_read += self.store.object_size(ref.digest)
-                if cand_step != m_step:
-                    fallbacks[f"{name}/{kind}"] = cand_step
-                break
-            else:
-                raise RestoreError(f"no readable chunk for unit "
-                                   f"{name}/{kind}") from last_exc
+                    h2d += self._place(target, cand.ref.digest, tree,
+                                       fp_blob, state, timings)
+                    break
+                except ChunkCorruption as e:
+                    log.warning("chunk %s/%s from manifest %s failed its "
+                                "check on %s (%s); falling back",
+                                target.unit, target.kind,
+                                cand.manifest_step, device, e)
+                    i, tree, fp_blob, secs = self._read_target(
+                        target, session, i + 1)
+                    timings["read_seconds"] += secs
+            key = f"{target.unit}/{target.kind}"
+            tier = session.tiers.get(cand.ref.digest)
+            if tier is not None:
+                unit_tiers[key] = tier
+            if cand.manifest_step != plan.step:
+                fallbacks[key] = cand.manifest_step
+            for d in target.primary.digests():
+                n = remaining.get(d)
+                if n is not None:
+                    if n <= 1:
+                        remaining.pop(d)
+                        session.release(d)
+                    else:
+                        remaining[d] = n - 1
+
+        run_parallel = (pipelined and self.io_threads > 1
+                        and len(plan.targets) > 1)
+        if run_parallel:
+            with ThreadPoolExecutor(max_workers=self.io_threads,
+                                    thread_name_prefix="ckpt-restore") as ex:
+                futs = {ex.submit(self._read_target, t, session): t
+                        for t in plan.targets}
+                try:
+                    while futs:
+                        tw = time.perf_counter()
+                        done, _ = wait(futs, return_when=FIRST_COMPLETED)
+                        timings["wait_seconds"] += time.perf_counter() - tw
+                        for f in done:
+                            consume(futs.pop(f), f.result())
+                except BaseException:
+                    for f in futs:
+                        f.cancel()
+                    raise
+        else:
+            for t in plan.targets:
+                consume(t, self._read_target(t, session))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        state["step"] = torch.tensor(m_step, dtype=torch.int32)
-        self.last_stats = {"step": m_step,
-                           "seconds": time.perf_counter() - t0,
-                           "targets": len(targets),
-                           "bytes_read": bytes_read, "h2d_bytes": h2d,
-                           "fallback_units": fallbacks, **timings,
-                           "tier_reads": tier_reads,
-                           "unit_tiers": unit_tiers,
-                           "io_retries": (self.store.io_retries
-                                          - io_retries0),
-                           # host split of read_seconds: file reads, and
-                           # decoding + crc32 checks
-                           "read_io_seconds": (self.store.seconds["read_io"]
-                                               - sec0["read_io"]),
-                           "decode_seconds": (self.store.seconds["decode"]
-                                              - sec0["decode"])}
+        state["step"] = torch.tensor(plan.step, dtype=torch.int32)
+        sec1 = self.store.seconds_snapshot()
+        self.last_stats = {
+            "step": plan.step,
+            "seconds": time.perf_counter() - t0,
+            "parts": list(plan.parts),
+            "units": len({t.unit for t in plan.targets}),
+            "targets": len(plan.targets),
+            "pipelined": run_parallel,
+            "io_threads": self.io_threads if run_parallel else 1,
+            "verify": self.verify,
+            # read accounting: each distinct object once
+            "bytes_read": session.stats["bytes_read"],
+            "objects_read": session.stats["object_reads"],
+            "unique_digests": plan.unique_digests,
+            "planned_object_reads": plan.planned_object_reads,
+            "h2d_bytes": h2d,
+            "fallback_units": fallbacks,
+            # read_seconds: the reads, decodes and host checks summed over
+            # the threads that ran them; wait_seconds: the calling thread
+            # waiting for them; h2d and verify: the calling thread's
+            # device work
+            **timings,
+            "tier_reads": dict(session.tier_reads),
+            "unit_tiers": unit_tiers,
+            "io_retries": self.store.io_retries - io_retries0,
+            # host split of read_seconds, summed over the threads: file
+            # reads, and decoding + crc32 checks (in the workers' calls on
+            # the process backend)
+            "read_io_seconds": sec1["read_io"] - sec0["read_io"],
+            "decode_seconds": sec1["decode"] - sec0["decode"],
+            "io_backend": dispatch.backend,
+        }
+        if workers0 is not None:
+            self.last_stats["workers"] = lane_delta(
+                workers0, dispatch.stats(), "restore")
         return state

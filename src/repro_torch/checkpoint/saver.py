@@ -41,8 +41,17 @@ table is checked on the unit's device before the XOR
 store and restore alike; the overlapped saver takes the fingerprint path
 only.
 
-Restore (``restore``) is the planned full-state restore of
-``repro_torch.checkpoint.restore``.
+Restore (``restore``) is the streaming restore of
+``repro_torch.checkpoint.restore`` on ``restore_threads`` reader threads,
+checking what it reads unless ``restore_verify=False``.
+
+IO backend (``io_backend``, the JAX manager's knob): "thread" runs the
+byte work of writes and restores in this process; "process" runs it in
+``io_workers`` subprocess workers (``async_io.ProcessWorkerPool``), and
+then always builds a transfer pool, for synchronous saves too.  The
+stores are byte-identical either way; ``last_save_stats`` records the
+``io_backend`` and, on the process backend, the event's worker traffic
+per lane (``workers``).
 
 Storage tiers (``store_backend``, the JAX manager's knob): "local" (the
 POSIX tree), "memory" (volatile RAM), "tiered" (a RAM hot tier spilling to
@@ -70,12 +79,14 @@ import torch
 
 from repro_torch.checkpoint import faults, workers
 from repro_torch.checkpoint import fingerprint as fputil
-from repro_torch.checkpoint.async_io import (AsyncWriter, PendingResult,
-                                             TransferPool)
+from repro_torch.checkpoint.async_io import (WORKER_BACKENDS, AsyncWriter,
+                                             PendingResult, TransferPool,
+                                             lane_delta)
 from repro_torch.checkpoint.backends import StorageBackend, make_backend
 from repro_torch.checkpoint.chunk_store import (REBASE_EVERY, ChunkRef,
                                                 ChunkStore)
-from repro_torch.checkpoint.restore import (PARTS, RestoreEngine,
+from repro_torch.checkpoint.restore import (DEFAULT_IO_THREADS, PARTS,
+                                            RestoreEngine,
                                             device_materializer)
 from repro_torch.checkpoint.serial import flatten_with_paths
 from repro_torch.core.layer_registry import LayerRegistry
@@ -168,7 +179,11 @@ class CheckpointManager:
                  spill_threads: int = 2,
                  hot_budget_bytes: Optional[int] = None,
                  spill_barrier: bool = False,
-                 remote_opts: Optional[Dict[str, Any]] = None):
+                 remote_opts: Optional[Dict[str, Any]] = None,
+                 restore_threads: int = DEFAULT_IO_THREADS,
+                 restore_verify: bool = True,
+                 io_backend: str = "thread",
+                 io_workers: Optional[int] = None):
         self.root = Path(root)
         self.registry = registry
         self.policy = policy
@@ -179,8 +194,13 @@ class CheckpointManager:
         tiered = (not isinstance(store_backend, StorageBackend)
                   and store_backend in ("tiered", "remote3"))
         spill_lanes = 2 if store_backend == "remote3" else 1
+        if io_backend not in WORKER_BACKENDS:
+            raise ValueError(f"io_backend must be one of {WORKER_BACKENDS}, "
+                             f"got {io_backend!r}")
         self.transfer_pool: Optional[TransferPool] = None
-        if async_save or tiered:
+        # The process backend always needs a pool (it owns the workers and
+        # the shared-memory arena), for synchronous saves too.
+        if async_save or tiered or io_backend == "process":
             # The write lane's queue is bounded (backpressure on the
             # training thread) unless the pool carries spill lanes: a write
             # task submits a spill task, and a bounded queue could deadlock
@@ -188,16 +208,22 @@ class CheckpointManager:
             self.transfer_pool = TransferPool(
                 writer_threads + (spill_threads * spill_lanes
                                   if tiered else 0),
-                max_queue=0 if tiered else 64)
+                max_queue=0 if tiered else 64,
+                worker_backend=io_backend, io_workers=io_workers)
+        dispatch = (self.transfer_pool.dispatch
+                    if self.transfer_pool is not None else None)
         backend = make_backend(store_backend, self.root,
                                pool=self.transfer_pool,
                                spill_threads=spill_threads,
                                hot_budget_bytes=hot_budget_bytes,
-                               remote_opts=remote_opts)
-        self.store = ChunkStore(self.root, codec=codec, backend=backend)
+                               remote_opts=remote_opts, dispatch=dispatch)
+        self.store = ChunkStore(self.root, codec=codec, backend=backend,
+                                dispatch=dispatch)
         self.manifests = ManifestStore(self.root)
         self.keep = keep
-        self.restorer = RestoreEngine(self.store, self.manifests, registry)
+        self.restorer = RestoreEngine(self.store, self.manifests, registry,
+                                      io_threads=restore_threads,
+                                      verify=restore_verify)
         self.fp_block_bytes = fp_block_bytes
         self.async_save = async_save
         # False: commit once every object is on the fast tier (the manifest
@@ -274,6 +300,7 @@ class CheckpointManager:
             {u: dict(k) for u, k in prev.entries.items()} if prev else {})
         self.store.reset_stats()
         sec0 = self.store.seconds_snapshot()
+        workers0 = self.store.dispatch.stats()
         acc = {"d2h_bytes": 0, "blocks_moved": 0, "blocks_total": 0,
                **{k: 0.0 for k in _TIMINGS}}
         pending: Dict[Tuple[str, str], PendingResult] = {}
@@ -315,6 +342,7 @@ class CheckpointManager:
             step=step, selected=selected, d2h_bytes=acc["d2h_bytes"],
             blocks_moved=acc["blocks_moved"],
             blocks_total=acc["blocks_total"], storage=storage,
+            workers0=workers0,
             timings={"snapshot_seconds": t_snapshot,
                      "stage_seconds": 0.0,
                      "writeback_seconds": t_writeback,
@@ -380,16 +408,19 @@ class CheckpointManager:
 
     def _event_stats(self, *, step: int, selected, d2h_bytes: int,
                      blocks_moved: int, blocks_total: int, storage,
-                     timings: Dict[str, float]) -> Dict[str, Any]:
+                     workers0, timings: Dict[str, float]) -> Dict[str, Any]:
         """One event's ``last_save_stats``.  ``timings`` is the four-way
         split: ``snapshot_seconds`` (device fingerprint/gather dispatch and
         the decisions), ``stage_seconds`` (host staging of the copies),
         ``writeback_seconds`` (the drain of the writes before the commit)
         and ``stall_seconds``, the time the caller's step loop blocked;
         plus the commit's ``commit_seconds`` (manifest write and fsync) and
-        ``gc_seconds``, which are part of the stall."""
+        ``gc_seconds``, which are part of the stall.  On the process
+        backend, ``workers`` is the event's worker traffic per lane since
+        ``workers0`` (the dispatch's stats when the event began)."""
         io = self.store.stats_snapshot()
-        return {
+        dispatch = self.store.dispatch
+        stats = {
             "step": step,
             "selected_units": len(selected),
             "total_units": len(self.registry.units),
@@ -409,8 +440,11 @@ class CheckpointManager:
             "backend": storage["backend"],
             "durable_on": storage["durable_on"],
             "spill_pending": storage["pending_spill"],
-            "io_backend": "thread",
+            "io_backend": dispatch.backend,
         }
+        if workers0 is not None:
+            stats["workers"] = lane_delta(workers0, dispatch.stats())
+        return stats
 
     def _save_unit_fp(self, step: int, name: str, kind: str, tree: Any,
                       pref: Optional[ChunkRef], acc: Dict[str, Any]):
@@ -565,12 +599,17 @@ class CheckpointManager:
     def restore(self, state_like: Dict[str, PyTree], *,
                 device: torch.device, step: Optional[int] = None,
                 parts: Sequence[str] = PARTS,
+                units: Optional[Sequence[str]] = None,
+                pipelined: bool = True,
                 manifest: Optional[Manifest] = None) -> Dict[str, PyTree]:
         """Rebuild the state (or, with ``parts=("params",)``, the weights
-        alone, reading no optimizer object) from the manifest at ``step``
-        or the given ``manifest``; see ``RestoreEngine.restore``."""
+        alone, reading no optimizer object; with ``units``, the units of
+        those name prefixes) from the manifest at ``step`` or the given
+        ``manifest``, on ``restore_threads`` reader threads unless
+        ``pipelined=False``; see ``RestoreEngine.restore``."""
         return self.restorer.restore(state_like, device=device, step=step,
-                                     parts=parts, manifest=manifest)
+                                     parts=parts, units=units,
+                                     pipelined=pipelined, manifest=manifest)
 
     @property
     def last_restore_stats(self) -> Dict[str, Any]:

@@ -49,6 +49,12 @@ store, each a zero-copy composite manifest
 (``core.tailor.variant_manifest``) cold-loaded as its own
 :class:`WeightService`.
 
+Reads: a cold load is the manager's ``restore`` (weights only), so it
+takes the manager's ``restore_threads`` reader threads, its
+``restore_verify`` and, with ``io_backend="process"``, its workers; a
+swap reads its units through the manager's store on the calling thread,
+as the JAX service does.
+
 Not ported yet: swapping a sharded (shard-set) entry, which raises
 ``SwapError`` (sharded checkpoints are ROADMAP A4), and the block cache
 under the store's reads that lets variants share each digest's read

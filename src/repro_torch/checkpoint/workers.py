@@ -14,13 +14,32 @@ whose ``comp`` is ``zstd``, and compressed XD01 and BD02 deltas) raise
 ``CodecUnavailable``: the port does not use ``zstandard``.  Large byte fields travel as zero-copy buffers
 (``_msgpack.Blob`` on the way out, memoryviews on the way in), so a
 multi-GB unit is never copied to build its object.
+
+This module is also what a subprocess IO worker runs (``io_backend=
+"process"``, ``async_io.ProcessWorkerPool``): ``WORKER_FNS`` names the
+tasks (chunk framing, XD01 and BD02 encode and decode, an object's decode
+with its host checks, ``decode_object`` and ``canonical_object``, atomic
+file writes and reads, and probes), ``run`` runs one in this process (the
+thread backend), and ``worker_main`` is a worker's loop.  So it imports
+the standard library, numpy and ``_msgpack`` alone, never torch and never
+jax: a worker starts as a fresh interpreter with the port's source root
+on its path, and neither package ``__init__`` on the way imports
+anything.  Only builtins cross a worker's pipe (see ``worker_main``).
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
 import hashlib
 import math
+import mmap
+import os
+import pickle
+import sys
+import threading
+import time
+import traceback
 import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -40,6 +59,14 @@ DELTA_MERGE_GAP = 32
 DELTA_WINDOW = 1 << 24
 
 QUANT_BLOCK = 256
+# Markers of the worker pipe: a buffer in shared memory (an argument's
+# segment name, or a result's offset in the worker's scratch file) and an
+# int8 record, as plain tuples.
+SHM_DIR = "/dev/shm"
+SHM_MARK = "__repro_shm__"
+SEG_MARK = "__repro_seg__"
+BLOB_MARK = "__repro_blob__"
+INT8_MARK = "__repro_int8__"
 # Lossy codecs: their objects decode to other tensors than were
 # fingerprinted, so they never anchor a block delta and a restore checks
 # them by crc32 alone.
@@ -133,10 +160,10 @@ def encode_chunk_blob(items: Items, meta: Dict[str, Any]) -> Blob:
     return Blob(pack_parts(chunk_payload(items, meta)))
 
 
-def decode_chunk_items(blob) -> Tuple[Dict, Items]:
+def decode_chunk_items(blob, verify: bool = True) -> Tuple[Dict, Items]:
     """(meta, items) of a chunk payload; item bytes are memoryviews into
     ``blob`` (an int8 record's in an ``Int8Record``, not dequantized).
-    Checks each record's crc32."""
+    Checks each record's crc32 unless ``verify`` is False."""
     try:
         payload = unpackb(blob, zero_copy=True)
     except ValueError as e:
@@ -150,7 +177,7 @@ def decode_chunk_items(blob) -> Tuple[Dict, Items]:
             raise CodecUnavailable(f"tensor {t['name']} uses codec "
                                    f"{t['codec']!r}: reading it needs "
                                    "zstandard, which the port does not use")
-        if _crc(t["data"]) != t["crc"]:
+        if verify and _crc(t["data"]) != t["crc"]:
             raise CorruptObject(f"crc mismatch for tensor {t['name']}")
         shape = tuple(t["shape"])
         data = t["data"]
@@ -443,3 +470,353 @@ def parse_envelope(blob, digest: str) -> Dict[str, Any]:
     if not isinstance(env, dict) or env.get("v") != OBJECT_VERSION:
         raise CorruptObject(f"bad object envelope/version for {digest}")
     return env
+
+
+# ------------------------------------------------- object decode (offload)
+@contextlib.contextmanager
+def _decoding(digest: str):
+    """Parse and decode errors of ``digest``'s bytes as ``CorruptObject``,
+    as the store's own read path raises them."""
+    try:
+        yield
+    except (ValueError, KeyError, TypeError, IndexError, OverflowError) as e:
+        raise CorruptObject(f"unreadable object {digest}: {e!r}") from e
+
+
+def _canonical_of(env: Dict[str, Any], digest: str, base,
+                  verify: bool):
+    """The canonical payload of a canonically addressed envelope: a full
+    codec-none object's payload, or an XOR delta rebuilt on ``base`` (its
+    base's canonical payload), checked against the digest when
+    ``verify``."""
+    fmt = env.get("format")
+    with _decoding(digest):
+        if fmt == "full" and env.get("codec") == "none":
+            canon = env["payload"]
+        elif fmt == "delta":
+            if base is None:
+                raise CorruptObject(f"delta object {digest} without its "
+                                    "base payload")
+            canon = delta_decode(env["payload"], base)
+        else:
+            raise ValueError(f"the canonical bytes of a {fmt!r} object "
+                             f"(codec {env.get('codec')!r}) are rebuilt on "
+                             "a device")
+    if verify and blake2_hex(canon) != digest:
+        raise CorruptObject(f"digest mismatch for {digest}")
+    return canon
+
+
+def decode_object(blob, digest: str, base=None, verify: bool = True
+                  ) -> Tuple[Items, Optional[bytes]]:
+    """``(items, fingerprint table blob)`` of one object envelope: the
+    decode and host checks of ``ChunkStore.read_items``, runnable in a
+    subprocess worker.  ``base`` is what the object's format needs of its
+    base: a block delta's base envelope (a full fp object), an XOR delta's
+    base canonical payload.  With ``verify``, every record's crc32 and the
+    table's (or the canonical payload's) hash to the digest are checked;
+    the table blob comes back only then, and never for a lossy object: the
+    caller holds it against the tensors placed on the device."""
+    with _decoding(digest):
+        env = parse_envelope(blob, digest)
+        fmt = env.get("format")
+        fp_blob = env.get("fp")
+    if fp_blob is None:
+        if fmt == "full":
+            payload = env["payload"]
+            if (verify and env.get("codec") == "none"
+                    and blake2_hex(payload) != digest):
+                raise CorruptObject(f"digest mismatch for {digest}")
+        elif fmt == "delta":
+            payload = _canonical_of(env, digest, base, verify)
+        else:
+            raise CorruptObject(f"unknown object format {fmt!r}")
+        with _decoding(digest):
+            _, items = decode_chunk_items(payload, verify)
+        return items, None
+    with _decoding(digest):
+        fp_blob = bytes(fp_blob)
+        if verify and blake2_hex(fp_blob) != digest:
+            raise CorruptObject(f"fingerprint digest mismatch for {digest}")
+        if fmt == "full":
+            _, items = decode_chunk_items(env["payload"], verify)
+        elif fmt == "block_delta":
+            if base is None:
+                raise CorruptObject(f"delta object {digest} without its "
+                                    "base")
+            base_env = parse_envelope(base, env["base"])
+            if base_env.get("format") != "full" \
+                    or base_env.get("fp") is None:
+                raise CorruptObject(f"block delta {digest}: base "
+                                    f"{env['base']} is not a full fp "
+                                    "object")
+            _, base_items = decode_chunk_items(base_env["payload"], verify)
+            items = patch_items(base_items,
+                                block_delta_decode(env["payload"]))
+        else:
+            raise CorruptObject(f"unknown object format {fmt!r}")
+    lossy = env.get("codec") in LOSSY_CODECS
+    return items, (fp_blob if verify and not lossy else None)
+
+
+def canonical_object(blob, digest: str, base=None, verify: bool = True):
+    """The canonical payload of a canonically addressed object (a full
+    codec-none object or an XOR delta over ``base``, its base's canonical
+    payload), checked against the digest when ``verify``.  An fp or lossy
+    object's canonical bytes need its tensors on a device: ``ValueError``."""
+    with _decoding(digest):
+        env = parse_envelope(blob, digest)
+    return _canonical_of(env, digest, base, verify)
+
+
+# ----------------------------------------------------------------- file IO
+def file_read(path: str) -> bytearray:
+    with open(path, "rb") as f:
+        return bytearray(f.read())
+
+
+def file_write_atomic(path: str, data, fsync: bool = False,
+                      tag: Optional[str] = None) -> int:
+    """Write ``data`` (a buffer or a ``Blob``) to a tmp file beside
+    ``path`` and rename it over ``path`` (``backends.localfs.
+    atomic_write``'s protocol).  ``tag`` is the coordinating process's
+    ``<pid>-<thread>`` pair, so the tmp name keeps its owner's pid and
+    ``sweep_tmp`` leaves a live write alone; the worker's pid is
+    appended."""
+    if tag is None:
+        tag = f"{os.getpid():x}-{threading.get_ident():x}"
+    else:
+        tag = f"{tag}-{os.getpid():x}"
+    tmp = f"{path}.tmp-{tag}"
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    n = 0
+    with open(tmp, "wb") as f:
+        for part in _parts(data):
+            f.write(part)
+            n += part.nbytes
+        if fsync:
+            f.flush()
+            os.fsync(f.fileno())
+    os.replace(tmp, path)
+    if fsync and parent:
+        fd = os.open(parent, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+    return n
+
+
+# ------------------------------------------------------- test/probe tasks
+def ping() -> Dict[str, Any]:
+    """The worker's pid and whether it holds torch or jax."""
+    return {"pid": os.getpid(), "torch": "torch" in sys.modules,
+            "jax": "jax" in sys.modules}
+
+
+def loaded_modules() -> List[str]:
+    return sorted(sys.modules)
+
+
+def echo(value: Any) -> Any:
+    """A buffer's length, any other value as it is."""
+    if isinstance(value, (bytes, bytearray, memoryview, Blob)):
+        return memoryview(value).nbytes if not isinstance(value, Blob) \
+            else value.nbytes
+    return value
+
+
+def sleep_for(seconds: float) -> float:
+    time.sleep(float(seconds))
+    return float(seconds)
+
+
+def boom(message: str = "boom") -> None:
+    raise RuntimeError(message)
+
+
+# ------------------------------------------------------------- task table
+WORKER_FNS: Dict[str, Any] = {
+    "ping": ping,
+    "modules": loaded_modules,
+    "echo": echo,
+    "sleep": sleep_for,
+    "boom": boom,
+    "encode_chunk": encode_chunk_blob,
+    "delta_encode":
+        lambda cur, base, limit=None: delta_encode(cur, base, limit=limit),
+    "delta_decode": delta_decode,
+    "block_delta_encode": block_delta_encode,
+    "block_delta_decode": block_delta_decode,
+    "decode_object": decode_object,
+    "canonical_object": canonical_object,
+    "file_read": file_read,
+    "file_write_atomic": file_write_atomic,
+}
+
+
+def run(fn_id: str, *args) -> Any:
+    """A task run in this process: the thread backend's dispatch."""
+    return WORKER_FNS[fn_id](*args)
+
+
+# ------------------------------------------------------- worker main loop
+def _map(name: str, maps: Dict[str, Tuple[Any, int]]) -> Tuple[Any, int]:
+    """This call's read-only map of a parent-owned ``/dev/shm`` segment
+    and its start address.  The worker maps the file and never attaches
+    through ``SharedMemory`` (whose resource tracker would unlink the
+    parent's segment when the worker dies)."""
+    hit = maps.get(name)
+    if hit is None:
+        with open(os.path.join(SHM_DIR, name), "rb") as f:
+            m = mmap.mmap(f.fileno(), 0, flags=mmap.MAP_SHARED
+                          | getattr(mmap, "MAP_POPULATE", 0),
+                          prot=mmap.PROT_READ)
+        hit = maps[name] = (m, np.frombuffer(m, np.uint8).ctypes.data)
+    return hit
+
+
+def _resolve_shm(obj: Any, maps: Dict[str, Tuple[Any, int]]) -> Any:
+    """Arguments off the pipe: segment markers to read-only views of the
+    segments (no copy), blob tuples to ``Blob`` s, int8 tuples to
+    ``Int8Record`` s."""
+    if isinstance(obj, tuple) and obj:
+        if obj[0] == SHM_MARK and len(obj) == 4:
+            _, name, n, off = obj
+            return memoryview(_map(name, maps)[0])[off:off + n]
+        if obj[0] == BLOB_MARK:
+            return Blob([_resolve_shm(p, maps) for p in obj[1]])
+        if obj[0] == INT8_MARK:
+            return Int8Record(_resolve_shm(obj[1], maps), obj[2], obj[3],
+                              tuple(obj[4]), obj[5])
+        return tuple(_resolve_shm(v, maps) for v in obj)
+    if isinstance(obj, list):
+        return [_resolve_shm(v, maps) for v in obj]
+    if isinstance(obj, dict):
+        return {k: _resolve_shm(v, maps) for k, v in obj.items()}
+    return obj
+
+
+# This worker's response scratch files, kept open so their tmpfs pages are
+# allocated once and reused across responses.
+_SCRATCH: Dict[str, Any] = {}
+
+
+def _scratch_file(name: str):
+    f = _SCRATCH.get(name)
+    if f is None:
+        f = _SCRATCH[name] = open(os.path.join(SHM_DIR, name), "wb+")
+    return f
+
+
+def _stage_buffer(parts: List[memoryview], fobj, min_bytes: int,
+                  offset: List[int], maps) -> Any:
+    n = sum(p.nbytes for p in parts)
+    if n < min_bytes or fobj is None:
+        return b"".join(parts)
+    if len(parts) == 1:
+        addr = np.frombuffer(parts[0], np.uint8).ctypes.data
+        for name, (m, start) in maps.items():
+            if start <= addr and addr + n <= start + len(m):
+                # a view of an argument's segment: hand back its range
+                return (SEG_MARK, name, addr - start, n)
+    off = offset[0]
+    fobj.seek(off)
+    for p in parts:
+        fobj.write(p)
+    offset[0] = off + n
+    return (SHM_MARK, off, n)
+
+
+def _stage_result(obj: Any, fobj, min_bytes: int, offset: List[int],
+                  maps=None) -> Any:
+    """A result made picklable: a buffer of at least ``min_bytes`` that
+    lies in an argument's segment as ``(SEG_MARK, name, offset, length)``,
+    any other such buffer written into the scratch file as ``(SHM_MARK,
+    offset, length)``, a shorter one as ``bytes``; a ``Blob`` part by part
+    in a blob tuple, an ``Int8Record`` as an int8 tuple."""
+    maps = maps or {}
+    if isinstance(obj, Int8Record):
+        return (INT8_MARK, _stage_result(obj.data, fobj, min_bytes, offset,
+                                         maps),
+                obj.n_q, obj.n_scale, list(obj.shape), obj.dtype)
+    if isinstance(obj, Blob):
+        return (BLOB_MARK, [_stage_buffer([p], fobj, min_bytes, offset,
+                                          maps) for p in obj.parts])
+    if isinstance(obj, (bytes, bytearray, memoryview, np.ndarray)):
+        return _stage_buffer(_parts(obj), fobj, min_bytes, offset, maps)
+    if isinstance(obj, tuple):
+        return tuple(_stage_result(v, fobj, min_bytes, offset, maps)
+                     for v in obj)
+    if isinstance(obj, list):
+        return [_stage_result(v, fobj, min_bytes, offset, maps) for v in obj]
+    if isinstance(obj, dict):
+        return {k: _stage_result(v, fobj, min_bytes, offset, maps)
+                for k, v in obj.items()}
+    return obj
+
+
+def _error_kind(exc: BaseException) -> str:
+    if isinstance(exc, CorruptObject):
+        return "corrupt"
+    if isinstance(exc, CodecUnavailable):
+        return "codec"
+    if isinstance(exc, FileNotFoundError):
+        return "missing"
+    return "error"
+
+
+def worker_main(rd=None, wr=None) -> int:
+    """Task loop of one subprocess worker: announces ``("ready", pid)``,
+    then reads pickled ``(fn_id, args, (scratch name, min bytes))`` and
+    answers ``("ok", result)`` or ``("err", kind, message, traceback)``;
+    EOF or ``None`` ends it.  Only builtins cross the pipe, exceptions as
+    strings; buffers ride ``/dev/shm`` (``_resolve_shm``,
+    ``_stage_result``)."""
+    rd = rd if rd is not None else sys.stdin.buffer
+    wr = wr if wr is not None else sys.stdout.buffer
+    sys.stdout = sys.stderr     # stdout is the protocol channel
+
+    def send(resp) -> bool:
+        try:
+            out = pickle.dumps(resp, protocol=pickle.HIGHEST_PROTOCOL)
+        except Exception as e:  # noqa: BLE001 - an unpicklable result
+            out = pickle.dumps(("err", "error",
+                                f"unpicklable worker result: {e!r}", ""),
+                               protocol=pickle.HIGHEST_PROTOCOL)
+        try:
+            wr.write(out)
+            wr.flush()
+        except (BrokenPipeError, OSError):
+            return False
+        return True
+
+    if not send(("ready", os.getpid())):
+        return 1
+    while True:
+        try:
+            msg = pickle.load(rd)
+        except EOFError:
+            return 0
+        if msg is None:
+            return 0
+        fn_id, args, spec = msg
+        maps: Dict[str, Tuple[Any, int]] = {}
+        try:
+            result = WORKER_FNS[fn_id](*_resolve_shm(args, maps))
+            fobj = _scratch_file(spec[0]) if spec is not None else None
+            result = _stage_result(result, fobj,
+                                   spec[1] if spec is not None else 0, [0],
+                                   maps)
+            if fobj is not None:
+                fobj.flush()
+            resp = ("ok", result)
+        except BaseException as e:  # noqa: BLE001 - marshal everything back
+            resp = ("err", _error_kind(e), f"{type(e).__name__}: {e}",
+                    traceback.format_exc())
+        # the maps go with their last view (an error's traceback included)
+        del args, maps
+        if not send(resp):
+            return 1

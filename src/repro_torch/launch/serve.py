@@ -31,9 +31,10 @@ partial restore that never opens an optimizer object:
 
 ``--smoke`` (the default) serves the reduced config, ``--full`` the
 published one; ``--num-layers`` cuts the depth; ``--device cpu`` is the
-only way onto the CPU.  The block cache of the JAX server (``--cache-mb``,
-``--cache-shm``) and its process IO backend are not ported yet (ROADMAP
-A3).
+only way onto the CPU.  ``--io-backend process`` decodes and checks the
+loaded objects in ``--io-workers`` subprocess workers (the tables are
+still checked on the device).  The block cache of the JAX server
+(``--cache-mb``, ``--cache-shm``) is not ported yet (ROADMAP A3).
 """
 from __future__ import annotations
 
@@ -75,6 +76,7 @@ def parse_variant_select(specs: Sequence[str]) -> List[Tuple[List[str], int]]:
 def serve(*, arch: str, reduced: bool = True, batch: int = 4,
           prompt_len: int = 64, new_tokens: int = 32,
           from_ckpt: Optional[str] = None, store_backend: str = "local",
+          io_backend: str = "thread", io_workers: Optional[int] = None,
           seed: int = 0,
           from_step: Optional[int] = None, hot_swap: bool = False,
           swap_wait: float = 30.0, swap_poll: float = 0.2, device=None,
@@ -99,7 +101,9 @@ def serve(*, arch: str, reduced: bool = True, batch: int = 4,
         mgr = CheckpointManager(Path(from_ckpt), registry,
                                 make_policy("full", model.layer_units()),
                                 async_save=False,
-                                store_backend=store_backend)
+                                store_backend=store_backend,
+                                io_backend=io_backend,
+                                io_workers=io_workers)
         try:
             manifest = None
             if variant_select:
@@ -213,6 +217,13 @@ def main() -> None:
                     help="tier --from-ckpt loads read through (tiered and "
                          "remote3 promote what they read into RAM; remote3 "
                          "re-warms a lost disk copy from the bucket)")
+    ap.add_argument("--io-backend", default="thread",
+                    choices=["thread", "process"],
+                    help="where --from-ckpt's object decode and host checks "
+                         "run: 'process' in subprocess workers, 'thread' "
+                         "in this process")
+    ap.add_argument("--io-workers", type=int,
+                    help="process backend: subprocess IO workers")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
@@ -221,7 +232,9 @@ def main() -> None:
                            batch=args.batch, prompt_len=args.prompt_len,
                            new_tokens=args.new_tokens,
                            from_ckpt=args.from_ckpt,
-                           store_backend=args.store_backend, seed=args.seed,
+                           store_backend=args.store_backend,
+                           io_backend=args.io_backend,
+                           io_workers=args.io_workers, seed=args.seed,
                            from_step=args.from_step, hot_swap=args.hot_swap,
                            swap_wait=args.swap_wait,
                            swap_poll=args.swap_poll, device=args.device,

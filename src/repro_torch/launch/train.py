@@ -32,6 +32,11 @@ checkpointing and Frankenstein resume, on the card by default.
   ``--spill-barrier`` makes every commit wait for the durable tier.  The
   run ends with a spill drain (``spill_drain_seconds``) and reports
   ``tier_stats``;
+- ``--io-backend process`` runs the object writes' byte work (framing and
+  crc32s, block and XOR deltas, file writes) and the resume's decodes in
+  ``--io-workers`` subprocess workers over shared memory
+  (``checkpoint/async_io.py``); ``thread`` (the default) keeps it in this
+  process;
 - ``--policy topk_delta`` selects the most-drifted blocks by the
   ``DeltaTracker`` scores (``core/delta.py``);
 - ``--fail-at N`` raises a simulated failure at the step-N boundary;
@@ -119,6 +124,8 @@ def train(
     hot_budget_mb: Optional[int] = None,
     spill_barrier: bool = False,
     remote_opts: Optional[Dict] = None,
+    io_backend: str = "thread",
+    io_workers: Optional[int] = None,
     resume: bool = False,
     fail_at: Optional[Union[int, str]] = None,
     seed: int = 0,
@@ -149,7 +156,8 @@ def train(
                             hot_budget_bytes=(hot_budget_mb * 2**20
                                               if hot_budget_mb else None),
                             spill_barrier=spill_barrier,
-                            remote_opts=remote_opts)
+                            remote_opts=remote_opts,
+                            io_backend=io_backend, io_workers=io_workers)
     tracker = DeltaTracker(registry) if policy_name == "topk_delta" else None
     # Zero-stall pipeline: events begin at the step boundary and run their
     # host-side copy/encode/write across the next ``ckpt_spread_steps``.
@@ -312,6 +320,7 @@ def train(
                              if save_events else 0.0),
         "steps": total_steps - start,
         "store_backend": store_backend,
+        "io_backend": io_backend,
         "spill_drain_seconds": spill_drain_seconds,
         "tier_stats": tier_stats,
     }
@@ -367,6 +376,14 @@ def main() -> None:
     ap.add_argument("--spill-barrier", action="store_true",
                     help="tiered/remote3: wait for the durable tier before "
                          "each manifest commit")
+    ap.add_argument("--io-backend", default="thread",
+                    choices=["thread", "process"],
+                    help="where the checkpoint byte work runs: 'process' "
+                         "in subprocess workers over shared memory, "
+                         "'thread' in this process")
+    ap.add_argument("--io-workers", type=int,
+                    help="process backend: subprocess IO workers (default "
+                         "max(2, pool threads))")
     ap.add_argument("--sync-save", action="store_true",
                     help="write objects inline on the training thread "
                          "instead of on the writer threads")
@@ -396,6 +413,7 @@ def main() -> None:
                 remote_opts={"latency": args.remote_latency,
                              "error_rate": args.remote_error_rate,
                              "seed": args.remote_seed},
+                io_backend=args.io_backend, io_workers=args.io_workers,
                 resume=args.resume,
                 fail_at=args.fail_at, seed=args.seed, log_csv=args.log_csv,
                 lr=args.lr, device=args.device, num_layers=args.num_layers)

@@ -755,3 +755,85 @@ def test_tiered_save_and_restore_on_the_card_equal_local(dev, tmp_path,
         assert again.store.tier_stats()["evictions"] > 0
     finally:
         again.close()
+
+
+def _card_mgr(root, model, **kw):
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.core.policies import make_policy
+
+    return CheckpointManager(root, LayerRegistry(model),
+                             make_policy("full", model.layer_units()), **kw)
+
+
+def test_process_backend_save_and_streaming_restore_equal_thread(dev,
+                                                                 tmp_path):
+    """A save through the process backend's workers on the card writes the
+    thread backend's objects, and streaming restores (4 reader threads) on
+    either backend place the same bits as a sequential one."""
+    from repro_torch.checkpoint.serial import flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("yi-9b", reduced=True))
+    state = steps.init_state(model, 0, dev)
+    like = steps.state_specs(model)
+    got = {}
+    for be in ("thread", "process"):
+        m = _card_mgr(tmp_path / be, model, async_save=False, io_backend=be,
+                      io_workers=2)
+        try:
+            m.save(state, step=2)
+            assert m.last_save_stats["io_backend"] == be
+            got[be] = m.restore(like, device=dev)
+            s = m.last_restore_stats
+            assert s["pipelined"] and s["io_backend"] == be
+            if be == "process":
+                assert s["workers"]["tasks"] == s["objects_read"]
+            got["seq_" + be] = m.restore(like, device=dev, pipelined=False)
+        finally:
+            m.close()
+    names = {be: sorted(p.name for p in (tmp_path / be).glob(
+        "objects/*/*.chunk")) for be in ("thread", "process")}
+    assert names["thread"] == names["process"]
+    for name in names["thread"]:
+        a = (tmp_path / "thread" / "objects" / name[:2] / name).read_bytes()
+        b = (tmp_path / "process" / "objects" / name[:2] / name).read_bytes()
+        assert a == b, name
+    for key, st in got.items():
+        for part in ("params", "opt"):
+            for (p, x), (_, y) in zip(flatten_with_paths(state[part]),
+                                      flatten_with_paths(st[part])):
+                assert torch.equal(byte_view(x), byte_view(y)), (key, p)
+
+
+def test_streaming_restore_launches_block_fp_once_per_fp_object(dev,
+                                                                tmp_path):
+    """Each fingerprint-addressed target of a streaming restore is checked
+    on the card by one block_fp launch; an unverified restore launches
+    none."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("yi-9b", reduced=True))
+    state = steps.init_state(model, 0, dev)
+    like = steps.state_specs(model)
+    m = _card_mgr(tmp_path, model, async_save=False)
+    try:
+        m.save(state, step=2)
+    finally:
+        m.close()
+    for verify in (True, False):
+        m = _card_mgr(tmp_path, model, async_save=False,
+                      restore_verify=verify)
+        try:
+            before = bfp.KERNEL.launches
+            m.restore(like, device=dev)
+            s = m.last_restore_stats
+            n = bfp.KERNEL.launches - before
+            assert s["pipelined"] and s["io_threads"] == 4
+            assert n == (s["targets"] if verify else 0), (verify, n)
+        finally:
+            m.close()

@@ -2,7 +2,10 @@
 nor the JAX package, nor msgpack, zstandard, pydantic or ml_dtypes, also
 not when they train, resume, serve, merge (``python -m
 repro_torch.core.tailor``) and save on the canonical path (``python -m
-repro_torch.launch.train --no-fingerprint``) in one process."""
+repro_torch.launch.train --no-fingerprint``) in one process; and the
+subprocess IO workers of ``--io-backend process`` (a train, its failure
+and resume, and a server's load through them) import none of these, nor
+torch."""
 import ast
 import os
 import subprocess
@@ -80,10 +83,40 @@ m = json.loads((pathlib.Path(kw["ckpt_dir"]) / "manifests"
                 / "manifest-00000006.json").read_text())
 assert any(r["stored"] == "delta" for k in m["entries"].values()
            for r in k.values()), m
+pkw = dict(kw, ckpt_dir={str(tmp_path / 'prun')!r}, io_backend="process",
+           io_workers=2)
+try:
+    train(fail_at=3, **pkw)
+except SimulatedFailure:
+    pass
+r = train(resume=True, **pkw)
+assert r["io_backend"] == "process", r
+assert r["restore_stats"]["workers"]["tasks"] > 0, r["restore_stats"]
+s = serve(arch={arch!r}, batch=2, prompt_len=8, new_tokens=2, device="cpu",
+          num_layers=2, from_ckpt=pkw["ckpt_dir"], from_step=2,
+          io_backend="process", io_workers=2)
+assert s["restore"]["workers"]["tasks"] > 0, s["restore"]
+# the worker that decoded a whole restore, asked what it imported
+from repro_torch.checkpoint.saver import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.core.layer_registry import LayerRegistry
+from repro_torch.core.policies import make_policy
+from repro_torch.launch import steps
+from repro_torch.models import build_model
+model = build_model(get_config({arch!r}, reduced=True).replace(num_layers=2))
+mgr = CheckpointManager(pkw["ckpt_dir"], LayerRegistry(model),
+                        make_policy("full", model.layer_units()),
+                        async_save=False, io_backend="process", io_workers=1)
+import torch
+mgr.restore(steps.state_specs(model), device=torch.device("cpu"))
+assert mgr.last_restore_stats["workers"]["tasks"] > 0
+worker_bad = sorted(m for m in mgr.transfer_pool.workers.call("modules")
+                    if m.split(".")[0] in {FORBIDDEN!r} + ("torch",))
+mgr.close()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r})
-print("BAD", bad)
-sys.exit(1 if bad else 0)
+print("BAD", bad, "WORKER_BAD", worker_bad)
+sys.exit(1 if bad or worker_bad else 0)
 """
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
