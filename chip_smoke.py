@@ -48,7 +48,8 @@ which exits non-zero:
    half-way ties, the clip edge, denormals, an underflowing scale, NaN and
    Inf (scales only there), then at the main path's shapes (a Yi-9B
    block's optimizer unit, 27 f32 leaves, and its weights unit, 9 bf16
-   leaves), timed;
+   leaves), timed (event time of one wrapper call, profiler device time
+   and the wrapper's host time up to its launch), a kernels row each;
 3. the main paths, Yi-9B at full width cut to 2 layers, batch 2, seq 1024,
    through ``repro_torch.launch.train.train``, each with the launch
    counts set to 0 just before it and read just after:
@@ -346,6 +347,22 @@ def cuda_ms(fn, reps: int, torch) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, kernel, reps: int) -> float:
+    """Median microseconds of ``fn()``'s host work up to its kernel's
+    launch: ``kernel.launch`` does nothing while it is timed (the wrapper
+    builds its table and outputs, and launches nothing)."""
+    kernel.launch = lambda *args: None
+    try:
+        times = []
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+    finally:
+        del kernel.launch
+    return statistics.median(times[1:]) * 1e6
+
+
 # ------------------------------------------------------------------ phase 2
 def check_block_fp_dtypes(torch, dev) -> None:
     from repro_torch.dtypes import byte_view
@@ -590,13 +607,22 @@ def check_quantize_cases(torch, dev) -> None:
 def quantize_at_main_shapes(torch, dev) -> list:
     """quantize of a full-width Yi-9B block's optimizer unit (27 f32
     leaves) and weights unit (9 bf16 leaves), dequantize of the optimizer
-    unit, each bitwise against its plain version and timed."""
+    unit, each bitwise against its plain version and timed: event ms of
+    one wrapper call (its host work included), profiler device ms, and
+    host us of the wrapper up to its launch; one kernels row each."""
     from repro_torch.kernels import quantize as qz
 
     params, master, m, v, grads = yi_block_unit(torch, dev, seed=4)
     del grads
     opt = master + m + v
     rows = []
+
+    def timed(fn, kernel, name) -> dict:
+        dms, per_call = device_ms(torch, fn, 10, name)
+        return {"ms": cuda_ms(fn, 10, torch), "device_ms": dms,
+                "kernels_per_call": per_call,
+                "host_us": host_us(fn, kernel, 50)}
+
     for name, unit in (("opt", opt), ("weights", params)):
         got = qz.quantize_unit(unit)
         torch.cuda.synchronize()
@@ -611,12 +637,12 @@ def quantize_at_main_shapes(torch, dev) -> list:
         nin = sum(x.numel() * x.element_size() for x in unit)
         nout = sum(qz.record_nbytes(x.numel()) for x in unit)
         elems = sum(x.numel() for x in unit)
-        ms = cuda_ms(lambda: qz.quantize_unit(unit), 10, torch)
+        t = timed(lambda: qz.quantize_unit(unit), qz.QUANTIZE, "quantize")
         plain_ms = cuda_ms(lambda: [qz.quantize_plain(x) for x in unit], 3,
                            torch)
         t_bytes = (nin + nout) / HBM_BYTES_PER_S
         t_ops = 5 * elems / F32_OPS_PER_S    # abs, max, 2 div, rint+clamp
-        rows.append({"name": "quantize", "unit": name, "ms": ms,
+        rows.append({"name": "quantize", "unit": name, **t,
                      "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops)
                      * 1e3, "bound_by": ("bytes" if t_bytes >= t_ops
                                          else "operations"),
@@ -633,12 +659,13 @@ def quantize_at_main_shapes(torch, dev) -> list:
                         q, s, o.numel(), o.dtype)):
                     raise AssertionError("dequantize differs from the plain "
                                          "version at the Yi-9B opt unit")
-            ms = cuda_ms(lambda: qz.dequantize_unit(recs, outs), 10, torch)
+            t = timed(lambda: qz.dequantize_unit(recs, outs),
+                      qz.DEQUANTIZE, "dequantize")
             plain_ms = cuda_ms(lambda: [qz.dequantize_plain(
                 q, s, o.numel(), o.dtype) for (q, s), o in zip(recs, outs)],
                 3, torch)
             t_ops = elems / F32_OPS_PER_S
-            rows.append({"name": "dequantize", "unit": name, "ms": ms,
+            rows.append({"name": "dequantize", "unit": name, **t,
                          "plain_ms": plain_ms,
                          "bound_ms": max(t_bytes, t_ops) * 1e3,
                          "bound_by": ("bytes" if t_bytes >= t_ops
@@ -653,25 +680,25 @@ def quantize_at_main_shapes(torch, dev) -> list:
     torch.cuda.empty_cache()
     out = []
     for r in rows:
-        log(f"{r['name']} at the {r['shape']}: {r['ms']:.4f} ms (bound "
+        log(f"{r['name']} at the {r['shape']}: {r['ms']:.4f} ms (device "
+            f"{r['device_ms']}, host {r['host_us']:.1f} us, bound "
             f"{r['bound_ms']:.4f}, plain {r['plain_ms']:.3f})")
-        if r["unit"] == "weights":
-            continue
-        src = "src/repro_torch/kernels/csrc/quantize.cu"
         out.append({
-            "name": r["name"], "route": "cuda", "source": src,
+            "name": r["name"], "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantize.cu",
             "replaces": ("src/repro/kernels/quantize/kernel.py:32"
                          if r["name"] == "quantize" else
                          "src/repro/kernels/quantize/kernel.py:53"),
-            "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "max_abs_err": 0.0,
+            **{k: r[k] for k in ("unit", "ms", "device_ms",
+                                 "kernels_per_call", "host_us", "plain_ms",
+                                 "bound_ms", "bound_by")},
             "library_ms": None,
             "library_note": "no single PyTorch call derives per-block "
                             "scales from amax and rounds to int8 "
                             "(quantize_per_channel takes given scales and "
                             "returns a quantized tensor type)",
             "shape": r["shape"]})
-    out[0]["weights_unit"] = next(r for r in rows if r["unit"] == "weights")
     return out
 
 

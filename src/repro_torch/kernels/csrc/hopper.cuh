@@ -1,8 +1,8 @@
 // Building blocks of the port's Hopper (sm_90a) kernels, shared by the
 // sources that use them: shared-memory addresses, cp.async, the async-
-// proxy fence, wgmma (bf16 in, float32 accumulate) with its descriptors,
-// waits and register fences, bf16 packing and the dynamic shared-memory
-// opt-in.
+// proxy fence, mbarriers and the 1-D bulk copy, wgmma (bf16 in, float32
+// accumulate) with its descriptors, waits and register fences, bf16
+// packing and the dynamic shared-memory opt-in.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,8 +29,45 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Makes this thread's generic-proxy shared-memory writes visible to the
-// async proxy (wgmma operands); a __syncthreads() follows.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses on 16 bytes) from global to
+// shared memory by the copy engine, completing on `bar` (whose expected
+// transaction bytes the issuing thread has set).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory accesses before later
+// async-proxy ones: writes that wgmma then reads (a __syncthreads()
+// follows), or reads before a bulk copy refills the buffer (an mbarrier
+// arrive follows).
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

@@ -11,6 +11,12 @@ straight into the destination leaves.  CUDA tensors go to the kernels
 take the plain versions (``ref.py``).  Both give the same bytes.  There is
 no fallback from one to the other.
 
+A launch takes its leaf table by value: :func:`record_rows` finds each
+record's q and scales by integer arithmetic on the buffer's address (no
+tensor views), and :func:`leaf_tables` gives each leaf its first block and
+first quantize stage and packs the rows as the kernel's ``QuantLeaf``
+array.
+
 The kernels read and write float32 and bfloat16; a leaf of another dtype is
 cast to float32 on its device first (quantize) or dequantized to float32
 and cast into the leaf (dequantize), as the plain version does.
@@ -19,6 +25,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import struct
 from typing import List, Sequence, Tuple
 
 import torch
@@ -27,19 +35,12 @@ from repro_torch.kernels._build import CudaKernel
 from repro_torch.kernels.quantize.ref import (QUANT_BLOCK, dequantize_plain,
                                               n_quant_blocks, quantize_plain)
 
-MAX_LEAVES = 48  # QUANT_MAX_LEAVES in csrc/quantize.cu
+MAX_LEAVES = 48             # QUANT_MAX_LEAVES in csrc/quantize.cu
+STAGE_BYTES = 16384         # QUANT_STAGE_BYTES in csrc/quantize.cu
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ELEM_BYTES = (4, 2)        # by kernel dtype code
 
-
-class _QuantLeaf(ctypes.Structure):
-    _fields_ = [("x", ctypes.c_void_p), ("q", ctypes.c_void_p),
-                ("s", ctypes.c_void_p), ("n", ctypes.c_longlong),
-                ("first_block", ctypes.c_longlong), ("dtype", ctypes.c_int),
-                ("pad", ctypes.c_int)]
-
-
-_ARGS = [ctypes.POINTER(_QuantLeaf), ctypes.c_int, ctypes.c_longlong,
-         ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 QUANTIZE = CudaKernel("quantize", "quantize_launch", _ARGS)
 DEQUANTIZE = CudaKernel("quantize", "dequantize_launch", _ARGS)
 
@@ -77,6 +78,69 @@ class QuantizedUnit:
         return self.buf[off:off + 4 * nb].view(torch.float32).view(nb, 1)
 
 
+def stage_blocks(dtype: int) -> int:
+    """Blocks of a quantize stage for kernel dtype code ``dtype``."""
+    return STAGE_BYTES // (QUANT_BLOCK * _ELEM_BYTES[dtype])
+
+
+def leaf_stages(n: int, dtype: int) -> int:
+    """Quantize stages of an ``n``-element leaf: its whole blocks in runs
+    of ``stage_blocks``, then the zero-padded tail block alone."""
+    return -(-(n // QUANT_BLOCK) // stage_blocks(dtype)) + (
+        n % QUANT_BLOCK != 0)
+
+
+@dataclasses.dataclass
+class LeafTable:
+    """One launch's leaf table: a row ``(x, q, s, n, first_block,
+    first_stage, dtype)`` per leaf, pointers as integers, the blocks and
+    stages of the launch, and the rows packed as the kernel's
+    ``QuantLeaf`` array."""
+    rows: List[Tuple[int, int, int, int, int, int, int]]
+    blocks: int
+    stages: int
+    packed: bytes
+
+
+@functools.lru_cache(maxsize=None)
+def _packer(n_rows: int) -> struct.Struct:
+    """``n_rows`` rows of csrc/quantize.cu's QuantLeaf: x, q, s, n,
+    first_block, first_stage, then dtype in the low half of the last
+    eight bytes (little-endian; the high half is its padding)."""
+    return struct.Struct(f"<{7 * n_rows}q")
+
+
+def leaf_tables(rows: Sequence[Tuple[int, int, int, int, int]]
+                ) -> List[LeafTable]:
+    """The launch tables of ``(x, q, s, n, dtype)`` rows (pointers as
+    integers, n > 0), ``MAX_LEAVES`` a launch: each row gets its first
+    block and first stage in its launch."""
+    tables = []
+    for lo in range(0, len(rows), MAX_LEAVES):
+        out, flat, blocks, stages = [], [], 0, 0
+        for x, q, s, n, dtype in rows[lo:lo + MAX_LEAVES]:
+            row = (x, q, s, n, blocks, stages, dtype)
+            out.append(row)
+            flat += row
+            blocks += n_quant_blocks(n)
+            stages += leaf_stages(n, dtype)
+        tables.append(LeafTable(out, blocks, stages,
+                                _packer(len(out)).pack(*flat)))
+    return tables
+
+
+def record_rows(unit: QuantizedUnit, leaves: Sequence[torch.Tensor]
+                ) -> List[Tuple[int, int, int, int, int]]:
+    """``(x, q, s, n, dtype)`` of every non-empty leaf, its record's q and
+    scales found by integer arithmetic on ``unit.buf``'s address (no
+    tensor views); the leaves are float32 or bfloat16 and contiguous."""
+    base = unit.buf.data_ptr()
+    return [(x.data_ptr(), base + off,
+             base + off + n_quant_blocks(n) * QUANT_BLOCK, n,
+             _KERNEL_DTYPES[x.dtype])
+            for x, off, n in zip(leaves, unit.offsets, unit.sizes) if n]
+
+
 def _device_of(ts: Sequence[torch.Tensor], what: str) -> torch.device:
     dev = ts[0].device
     if any(t.device != dev for t in ts):
@@ -86,22 +150,14 @@ def _device_of(ts: Sequence[torch.Tensor], what: str) -> torch.device:
     return dev
 
 
-def _launch(kernel: CudaKernel, rows: List[Tuple[torch.Tensor, torch.Tensor,
-                                                 torch.Tensor]]) -> None:
-    """One launch per MAX_LEAVES of (leaf, q, scales) rows."""
-    dev = rows[0][0].device
+def _launch(kernel: CudaKernel, dev: torch.device,
+            rows: List[Tuple[int, int, int, int, int]], quant: bool) -> None:
+    """One launch per MAX_LEAVES rows, on the current stream."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for lo in range(0, len(rows), MAX_LEAVES):
-            chunk = rows[lo:lo + MAX_LEAVES]
-            table = (_QuantLeaf * len(chunk))()
-            first = 0
-            for j, (x, q, s) in enumerate(chunk):
-                table[j] = _QuantLeaf(x.data_ptr(), q.data_ptr(),
-                                      s.data_ptr(), x.numel(), first,
-                                      _KERNEL_DTYPES[x.dtype], 0)
-                first += n_quant_blocks(x.numel())
-            kernel.launch(table, len(chunk), first, stream)
+        for t in leaf_tables(rows):
+            kernel.launch(t.packed, len(t.rows),
+                          t.stages if quant else t.blocks, stream)
 
 
 def quantize_unit(leaves: Sequence[torch.Tensor]) -> QuantizedUnit:
@@ -110,11 +166,11 @@ def quantize_unit(leaves: Sequence[torch.Tensor]) -> QuantizedUnit:
     if not leaves:
         raise ValueError("quantize_unit needs at least one tensor")
     dev = _device_of(leaves, "quantize")
-    offsets, sizes, total = [], [], 0
-    for x in leaves:
+    sizes = [x.numel() for x in leaves]
+    offsets, total = [], 0
+    for n in sizes:
         offsets.append(total)
-        sizes.append(x.numel())
-        total += -(-record_nbytes(x.numel()) // 16) * 16
+        total += -(-record_nbytes(n) // 16) * 16
     unit = QuantizedUnit(torch.empty(max(total, 1), dtype=torch.uint8,
                                      device=dev), offsets, sizes)
     if dev.type == "cpu":
@@ -123,18 +179,13 @@ def quantize_unit(leaves: Sequence[torch.Tensor]) -> QuantizedUnit:
             unit.q(i).copy_(q)
             unit.scales(i).copy_(s)
         return unit
-    rows = []
-    for i, x in enumerate(leaves):
-        if x.numel() == 0:
-            continue
-        x = x.detach()
-        if x.dtype not in _KERNEL_DTYPES:
-            x = x.to(torch.float32)
-        if not x.is_contiguous():
-            raise ValueError("the quantize kernel needs contiguous leaves")
-        rows.append((x, unit.q(i), unit.scales(i)))
+    xs = [x if x.dtype in _KERNEL_DTYPES else x.detach().to(torch.float32)
+          for x in leaves]
+    if not all(x.is_contiguous() for x in xs):
+        raise ValueError("the quantize kernel needs contiguous leaves")
+    rows = record_rows(unit, xs)
     if rows:
-        _launch(QUANTIZE, rows)
+        _launch(QUANTIZE, dev, rows, True)
     return unit
 
 
@@ -171,7 +222,8 @@ def dequantize_unit(records: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         return
     rows, casts = [], []
     for (q, s), dst in zip(records, dsts):
-        if dst.numel() == 0:
+        n = dst.numel()
+        if n == 0:
             continue
         if not (q.is_contiguous() and s.is_contiguous()):
             raise ValueError("the dequantize kernel needs contiguous q and "
@@ -180,9 +232,10 @@ def dequantize_unit(records: Sequence[Tuple[torch.Tensor, torch.Tensor]],
         if dst.dtype not in _KERNEL_DTYPES:
             out = torch.empty(dst.shape, dtype=torch.float32, device=dev)
             casts.append((dst, out))
-        rows.append((out, q, s))
+        rows.append((out.data_ptr(), q.data_ptr(), s.data_ptr(), n,
+                     _KERNEL_DTYPES[out.dtype]))
     if rows:
-        _launch(DEQUANTIZE, rows)
+        _launch(DEQUANTIZE, dev, rows, False)
     with torch.no_grad():
         for dst, out in casts:
             dst.copy_(out)
@@ -196,6 +249,7 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, size: int,
     return out
 
 
-__all__ = ["DEQUANTIZE", "MAX_LEAVES", "QUANTIZE", "QuantizedUnit",
-           "dequantize", "dequantize_unit", "quantize", "quantize_unit",
-           "record_nbytes"]
+__all__ = ["DEQUANTIZE", "LeafTable", "MAX_LEAVES", "QUANTIZE",
+           "QuantizedUnit", "STAGE_BYTES", "dequantize", "dequantize_unit",
+           "leaf_stages", "leaf_tables", "quantize", "quantize_unit",
+           "record_nbytes", "record_rows", "stage_blocks"]

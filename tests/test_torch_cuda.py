@@ -21,7 +21,9 @@ its float32 final state within 1e-4 of the plain version's largest
 magnitude, two launches bitwise equal, and each route launching its own
 kernels;
 quantize and dequantize bitwise equal to their plain versions (q of a NaN
-block aside: its int8 cast is platform-defined), and an int8 save's
+block aside: its int8 cast is platform-defined), also on leaves that end
+mid-stage, off 16 bytes, in units of many leaves or more stages than the
+persistent grid holds, and on quotients next to k + 0.5; an int8 save's
 objects on the card byte-identical to the CPU path's, on both save paths;
 a canonical event's fingerprint-addressed bases checked on the card.
 """
@@ -502,6 +504,162 @@ def test_quantize_kernels_take_more_leaves_than_one_table(dev):
     for i, o in enumerate(outs):
         assert torch.equal(o, qz.dequantize_plain(unit.q(i), unit.scales(i),
                                                   o.numel(), o.dtype))
+
+
+def _quantize_matches_plain(leaves, skip_nan_q=True):
+    """One quantize launch per table of ``leaves``; every record bitwise
+    equal to the plain version's (q of a NaN or Inf block aside)."""
+    before = qz.QUANTIZE.launches
+    unit = qz.quantize_unit(leaves)
+    torch.cuda.synchronize()
+    assert qz.QUANTIZE.launches == before + -(-len(
+        [x for x in leaves if x.numel()]) // qz.MAX_LEAVES)
+    for i, x in enumerate(leaves):
+        q, s = qz.quantize_plain(x)
+        keep = torch.isfinite(s.reshape(-1)) if skip_nan_q else slice(None)
+        assert torch.equal(unit.q(i)[keep], q[keep]), (i, x.dtype, x.numel())
+        assert _scales_equal(unit.scales(i), s), (i, x.dtype, x.numel())
+    return unit
+
+
+def _bps(dtype):
+    return qz.stage_blocks(0 if dtype == torch.float32 else 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_leaves_that_end_mid_stage(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(11)
+    bps = _bps(dtype) * 256
+    sizes = (bps, bps + 1, 3 * bps + 5 * 256, 2 * bps + 7 * 256 + 100,
+             bps - 256, bps - 1, 256 * 3 + 255, 4 * bps + bps // 2 + 17)
+    _quantize_matches_plain([(torch.randn(n, generator=g, device=dev)
+                              * 3).to(dtype) for n in sizes])
+
+
+def test_quantize_single_block_leaves_over_more_than_one_table(dev):
+    g = torch.Generator(device=dev).manual_seed(12)
+    sizes = (1, 100, 255, 256)
+    leaves = [(torch.randn(sizes[i % 4], generator=g, device=dev) * 3).to(
+        torch.bfloat16 if i % 3 else torch.float32)
+        for i in range(qz.MAX_LEAVES + 13)]
+    _quantize_matches_plain(leaves)
+
+
+def test_quantize_unit_larger_than_one_pass_of_the_grid(dev):
+    """More stages than the persistent grid's CTAs (at most SMs x 8, far
+    above what fits with a 64 KiB ring), in both dtypes, with tails."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    leaves = []
+    for dtype in (torch.float32, torch.bfloat16):
+        n = (sms * 8 * 3 + 5) * _bps(dtype) * 256 + 77
+        leaves.append((torch.randn(n, generator=g, device=dev)
+                       * 3).to(dtype))
+    _quantize_matches_plain(leaves)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_leaves_off_16_bytes(dev, dtype):
+    """A leaf 4 (float32) or 2 (bfloat16) bytes past 16 takes the direct
+    path over several stages and its tail; its neighbours take the ring."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    bps = _bps(dtype) * 256
+    base = (torch.randn(3 * bps + 900, generator=g, device=dev)
+            * 3).to(dtype)
+    odd = base[1:]
+    assert odd.data_ptr() % 16 == odd.element_size()
+    _quantize_matches_plain([
+        (torch.randn(bps + 256, generator=g, device=dev) * 3).to(dtype),
+        odd, base[8:2 * bps + 8],
+        (torch.randn(700, generator=g, device=dev) * 3).to(dtype)])
+
+
+def test_quantize_repeated_launches_of_a_large_unit_stay_bitwise(dev):
+    """A ring slot refilled before every warp has read it gives a wrong q
+    block in some launches only (about 1 in 8 at the Yi-9B optimizer
+    unit): 60 launches over 2 GiB of float32 and 256 MiB of bfloat16
+    leaves, each bitwise equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    leaves = [torch.randn(32 << 20, generator=g, device=dev)
+              for _ in range(16)]
+    leaves += [torch.randn(32 << 20, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4)]
+    want = [qz.quantize_plain(x) for x in leaves]
+    for _ in range(60):
+        unit = qz.quantize_unit(leaves)
+        torch.cuda.synchronize()
+        for i, (q, s) in enumerate(want):
+            assert torch.equal(unit.q(i), q), i
+            assert torch.equal(unit.scales(i), s), i
+        del unit
+
+
+def _special_blocks(dev, dtype):
+    """chip_smoke's seven blocks: all zero; half-way ties (scale 1); the
+    clip edge; f32 denormals; a denormal amax whose quotient underflows
+    (scale 1); a NaN; an Inf."""
+    k = torch.arange(256, device=dev, dtype=torch.float32)
+    ties = (k % 64) - 31.5
+    ties[0], ties[1] = 127.0, -126.5
+    clip = torch.where(k % 2 == 0, 1.0, -1.0) * 3.0
+    clip[5] = -3.0000002
+    denorm = (k - 128) * 1e-41
+    under = torch.zeros(256, device=dev)
+    under[7] = 1e-44
+    nan = torch.ones(256, device=dev)
+    nan[100] = float("nan")
+    inf = torch.ones(256, device=dev)
+    inf[3] = float("-inf")
+    return torch.cat([torch.zeros(256, device=dev), ties, clip, denorm,
+                      under, nan, inf]).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_special_blocks_at_every_place_in_a_stage(dev, dtype):
+    """The special blocks shifted through every block position of a stage
+    (each half-warp and consumer warp), through the ring and the direct
+    path."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    special = _special_blocks(dev, dtype)
+    leaves = []
+    for shift in range(_bps(dtype)):
+        pad = (torch.randn(shift * 256, generator=g, device=dev)
+               * 3).to(dtype)
+        leaves.append(torch.cat([pad, special]))
+    base = torch.cat([special[:1], special])
+    leaves.append(base[1:])                  # off 16 bytes: direct path
+    for lo in range(0, len(leaves), qz.MAX_LEAVES):
+        _quantize_matches_plain(leaves[lo:lo + qz.MAX_LEAVES])
+
+
+def test_quantize_rounds_adversarial_quotients_as_numpy(dev):
+    """Blocks whose quotients x / scale fall on k + 0.5 and one float32
+    ulp either side, for scales across the normal exponent range: the
+    clamp-then-round of the kernel against the plain version's division,
+    rounding and clamp (and numpy's float32 arithmetic on the host)."""
+    rng = np.random.RandomState(16)
+    blocks = []
+    for e in range(-118, 120, 3):
+        for mant in rng.uniform(1.0, 2.0, 3):
+            amax = np.float32(127.0 * mant * 2.0 ** e)
+            scale = amax / np.float32(127.0)
+            ks = np.arange(-42, 43, dtype=np.float32) + np.float32(0.5)
+            mid = (ks * scale).astype(np.float32)
+            block = np.concatenate([
+                [amax], mid, np.nextafter(mid, np.float32(np.inf)),
+                np.nextafter(mid, np.float32(-np.inf))]).astype(np.float32)
+            assert block.size == 256 and np.abs(block[1:]).max() <= amax
+            blocks.append(block)
+    x = np.concatenate(blocks)
+    unit = _quantize_matches_plain([torch.from_numpy(x).to(dev)])
+    # numpy's own codec arithmetic, as the JAX package's host codec does
+    xb = x.reshape(-1, 256)
+    s = np.abs(xb).max(axis=1, keepdims=True) / np.float32(127.0)
+    s = np.where(s == 0, np.float32(1.0), s).astype(np.float32)
+    q = np.clip(np.round(xb / s), -127, 127).astype(np.int8)
+    np.testing.assert_array_equal(unit.q(0).cpu().numpy(), q)
+    np.testing.assert_array_equal(
+        unit.scales(0).cpu().numpy().view(np.int32), s.view(np.int32))
 
 
 def _to(tree, dev):

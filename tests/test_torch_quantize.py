@@ -190,3 +190,106 @@ def test_wrappers_reject_what_they_do_not_take():
         qz.dequantize_unit([(q, s)], [torch.empty(300)])
     with pytest.raises(ValueError, match="one record per leaf"):
         qz.dequantize_unit([(q, s)], [])
+
+
+# ---- the kernel launch's host half: the leaf table built from integer
+# offsets (pointers compared as integers on the CPU), and the stages its
+# first-stage numbers give when walked as the kernel walks them
+
+def _table_leaves(off_dtype):
+    """Leaves of mixed sizes in both kernel dtypes, an empty one, and one
+    that starts 4 (float32) or 2 (bfloat16) bytes past 16."""
+    leaves = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1, 255, 256, 257, 64 * 256 + 3):
+            leaves.append(torch.randn(n).to(dtype))
+    leaves.insert(3, torch.zeros(0))
+    base = torch.randn(5 * 256 + 20).to(off_dtype)
+    leaves.append(base[1:])
+    return leaves
+
+
+@pytest.mark.parametrize("off_dtype", [torch.float32, torch.bfloat16])
+def test_leaf_table_rows_equal_the_record_views(off_dtype):
+    leaves = _table_leaves(off_dtype)
+    assert leaves[-1].data_ptr() % 16 == leaves[-1].element_size()
+    unit = qz.quantize_unit(leaves)
+    rows = qz.record_rows(unit, leaves)
+    tables = qz.leaf_tables(rows)
+    assert len(tables) == 1
+    table = tables[0]
+    nonempty = [i for i, x in enumerate(leaves) if x.numel()]
+    assert len(table.rows) == len(rows) == len(nonempty)
+    blocks = stages = 0
+    for row, i in zip(table.rows, nonempty):
+        x = leaves[i]
+        code = 0 if x.dtype == torch.float32 else 1
+        assert row == (x.data_ptr(), unit.q(i).data_ptr(),
+                       unit.scales(i).data_ptr(), x.numel(), blocks, stages,
+                       code)
+        blocks += unit.q(i).shape[0]
+        stages += qz.leaf_stages(x.numel(), code)
+    assert (table.blocks, table.stages) == (blocks, stages)
+    # the packed bytes are the kernel's QuantLeaf array (56 bytes a row)
+    packed = np.frombuffer(table.packed, np.int64).reshape(-1, 7)
+    np.testing.assert_array_equal(
+        packed, [[*r[:6], r[6]] for r in table.rows])
+
+
+def _stage_units():
+    sizes_f = [1, 256, 16 * 256, 16 * 256 + 1, 37 * 256 + 5, 3, 0, 300]
+    sizes_b = [32 * 256, 32 * 256 - 1, 65 * 256 + 200, 255, 1]
+    yield "mixed", [torch.zeros(n) for n in sizes_f] + [
+        torch.zeros(n, dtype=torch.bfloat16) for n in sizes_b]
+    yield "more than one table", [
+        torch.zeros(1 + 97 * i, dtype=torch.bfloat16 if i % 3 else
+                    torch.float32) for i in range(qz.MAX_LEAVES + 9)]
+    yield "one large leaf", [torch.zeros(1000 * 256 + 17)]
+
+
+def _stage_span(n, dtype, ls):
+    """``(first block, blocks)`` of stage ``ls`` of a leaf, as
+    ``stage_span`` in csrc/quantize.cu cuts it."""
+    bps, full = qz.stage_blocks(dtype), n // 256
+    if ls < -(-full // bps):
+        return ls * bps, min(bps, full - ls * bps)
+    return full, 1
+
+
+def _stage_list(table):
+    """``(leaf, first block, blocks)`` of every stage of a launch, the
+    leaf found as the kernel finds it: a cursor moved forward through the
+    table's first stages."""
+    leaf, rows = 0, table.rows
+    for st in range(table.stages):
+        while leaf + 1 < len(rows) and rows[leaf + 1][5] <= st:
+            leaf += 1
+        _, _, _, n, _, first, dtype = rows[leaf]
+        yield (leaf, *_stage_span(n, dtype, st - first))
+
+
+@pytest.mark.parametrize("name,leaves", list(_stage_units()),
+                         ids=[n for n, _ in _stage_units()])
+def test_stage_list_covers_every_block_once(name, leaves):
+    unit = qz.quantize_unit(leaves)
+    tables = qz.leaf_tables(qz.record_rows(unit, leaves))
+    assert sum(len(t.rows) for t in tables) == sum(
+        1 for x in leaves if x.numel())
+    for table in tables:
+        assert len(table.rows) <= qz.MAX_LEAVES
+        seen = [np.zeros(qz.n_quant_blocks(r[3]), int) for r in table.rows]
+        last = 0
+        for st, (leaf, b0, nb) in enumerate(_stage_list(table)):
+            _, _, _, n, _, first, code = table.rows[leaf]
+            assert leaf >= last                   # the cursor moves forward
+            last = leaf
+            assert first <= st < first + qz.leaf_stages(n, code)
+            assert 1 <= nb <= qz.stage_blocks(code)
+            assert b0 + nb <= qz.n_quant_blocks(n)  # within its leaf
+            if (b0 + nb) * 256 > n:               # the padded tail: alone
+                assert nb == 1 and b0 == n // 256
+            seen[leaf][b0:b0 + nb] += 1
+        assert st + 1 == table.stages
+        for s in seen:
+            np.testing.assert_array_equal(s, 1)    # each block once
+        assert table.blocks == sum(len(s) for s in seen)
