@@ -89,15 +89,18 @@ which exits non-zero:
       on random bf16 weights, batch 8, 1024-token prompts, 128 new tokens:
       every prefill and decode attention launches ``flash_attention`` and
       one decode step matches the prefill of the longer prompt;
-   e. Mamba2-370m at full width and full depth (48 layers), batch 4, seq
-      1024: an 8-step reference run, an overlapped topk_delta run (every 2
-      steps, spread 2, 2 writer threads) that fails at step 7 with event 6
-      in flight and its resume to step 8, under the checks of 3a/3b; from
-      that store a weights-only cold load of step 4, a hot-swap to LATEST
-      bit-identical to a cold load and hot vs cold ``tokens_digest``; then
-      serving on random weights, batch 8, 1024-token prompts, 128 new
-      tokens, with exactly 48 ``ssd_scan`` launches in the prefill and one
-      decode step matching the prefill of the longer prompt;
+   e. Mamba2-370m at full width, batch 4, seq 1024, training at 12 of its
+      48 layers (``SSM_TRAIN_LAYERS``: the cut that keeps the command
+      inside its 1200-s limit): an 8-step reference run, an overlapped
+      topk_delta run (every 2 steps, spread 2, 2 writer threads) that
+      fails at step 7 with event 6 in flight and its resume to step 8,
+      under the checks of 3a/3b, and one profiled step; from that store a
+      weights-only cold load of step 4, a hot-swap to LATEST bit-identical
+      to a cold load and hot vs cold ``tokens_digest``; then serving on
+      random weights at full depth (48 layers), batch 8, 1024-token
+      prompts, 128 new tokens, with exactly 48 ``ssd_scan`` launches in
+      the prefill and one decode step matching the prefill of the longer
+      prompt;
    f. the int8 codec, as 3a (Yi-9B, parity, sync inline saves) with
       ``codec="int8"``: a run that fails at step 5 and its resume to step
       8, its losses held against 3a's uninterrupted run (the first resumed
@@ -178,10 +181,23 @@ which exits non-zero:
       step 4 through the server on the process backend: the parameters
       and ``tokens_digest`` of the thread backend's, the workers holding
       neither torch nor jax;
+   k. the block cache, right after 3g on 3a's store, before 3h removes it
+      (budget 60 s): three weights-only variants through ``VariantSet``
+      (@6, and @6 with one of two block units' weights from @2): (a) on a
+      manager with a 4 GiB RAM cache and on one without: parameters
+      bitwise equal, cached backend reads equal to the distinct digests
+      the manifests name and uncached to their sum over the variants, the
+      cache's misses and hits the same, ``block_fp`` once per target per
+      variant in both; (b) the cache in ``/dev/shm``: equal parameters,
+      segments before ``close()`` and none after; (c) a 256 MiB budget
+      (objects bypass) and half the distinct bytes (evictions), equal
+      parameters; (d) the process backend: equal parameters, no worker
+      restart; (e) ``serve(cache_mb=...)`` of one variant gives the
+      uncached server's ``tokens_digest``;
 4. print the main paths' step/save/restore times, the serve line, the
    Mamba line, the int8 line, the merge line, the canonical path's
    ``{"legacy": ...}`` line, the tiers line, the ``{"io": ...}`` line,
-   the kernels line, the card line, and last
+   the ``{"cache": ...}`` line, the kernels line, the card line, and last
    the ``{"ok": true, "device": ...}`` line; each phase logs its wall
    time; with ``--record PATH``, the full record of every phase also goes
    to PATH (written even when a check fails).
@@ -194,6 +210,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import glob
 import json
 import math
 import os
@@ -271,7 +288,11 @@ PROFILE_STEPS = 4    # decode steps traced for the device's busy time
 # 3a's step-6 store (3h's ``store_bytes`` records it)
 STORE_BYTES_NEEDED = 40e9
 CHAIN_ARCH = "llama3.2-3b"   # phase 3c, reduced config
-SSM_ARCH = "mamba2-370m"     # phase 3e, full width and depth
+SSM_ARCH = "mamba2-370m"     # phase 3e, full width
+# 3e's training, its store part and its step profile run 12 of the 48
+# layers, which keeps the command inside its 1200-s limit; 3e's serve on
+# random weights stays at full depth.
+SSM_TRAIN_LAYERS = 12
 SSM_BATCH = 4
 SSM_SEQ = 1024
 SSM_STEPS = 8
@@ -2925,6 +2946,232 @@ def phase_3j(torch, dev, store: Path, rec_a: dict, out: dict) -> None:
         "budget")
 
 
+CACHE_BUDGET_S = 60.0
+CACHE_MB = 4096         # (a), (b), (d), (e): holds every distinct object
+CACHE_SMALL_BYTES = 256 << 20  # (c): below one block unit's weights object
+_CACHE_LOAD_KEYS = ("seconds", "read_seconds", "wait_seconds",
+                    "read_io_seconds", "decode_seconds",
+                    "cache_copy_seconds", "h2d_seconds", "verify_seconds",
+                    "objects_read", "bytes_read", "targets")
+
+
+def _cache_segments() -> list:
+    return sorted(glob.glob(f"/dev/shm/repro-io-{os.getpid():x}-cache-*"))
+
+
+def phase_3k(torch, dev, store: Path, out: dict) -> None:
+    """The block cache on 3a's store (``store / "3a" / "run"``: parity,
+    events 2, 4 and 6), right after 3g and before 3h removes that store,
+    the launch counts set to 0 before it and read after.  Budget:
+    CACHE_BUDGET_S (60 s).  Three weights-only variants through
+    ``VariantSet`` on one manager: @6, @6 with one block unit's weights
+    from @2, @6 with another's (the first two block units whose @2 and @6
+    weights digests differ; recorded).  Fills ``out`` before its checks.
+
+    (a) the three on a manager with a CACHE_MB RAM cache and on one
+    without: every cached variant's parameters bitwise equal to its
+    uncached twin's; cached ``backend_reads`` equal to the distinct digests
+    the three manifests name (objects and delta bases), uncached to the
+    sum over the variants; ``misses`` equal to the distinct count and
+    ``hits`` to the rest; ``block_fp`` launched once per target per
+    variant in both arms; each load's seconds and split (read, file read,
+    decode, the cache's copies, h2d, verify), the snapshot and the host's
+    peak RSS recorded.
+    (b) the cached arm with ``block_cache_shm=True``: equal parameters;
+    ``repro-io-<pid:x>-cache-*`` segments exist before ``close()`` and
+    none after.
+    (c) the cached arm with a CACHE_SMALL_BYTES budget (below one block
+    unit's weights object: ``bypassed`` > 0), then with half the distinct
+    objects' bytes (``evictions`` > 0), each with (a)'s parameters.
+    (d) the cached arm on ``io_backend="process"`` (IO_WORKERS workers):
+    equal parameters, no worker restart.
+    (e) ``serve(cache_mb=CACHE_MB, variant_select=...)`` of the first
+    mixed variant (batch 8 x 1024, 128 tokens, as 3g) against the same
+    variant served without a cache: a snapshot in the result and one
+    ``tokens_digest``."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.checkpoint.swap import VariantSet
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.core.manifest import ManifestStore
+    from repro_torch.core.policies import make_policy
+    from repro_torch.core.tailor import variant_manifest
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import serve
+
+    t0 = time.perf_counter()
+    log(f"phase 3k: budget {CACHE_BUDGET_S:.0f} s")
+    run = store / "3a" / "run"
+    model = _model()
+    registry = LayerRegistry(model)
+    like = steps.state_specs(model)
+    ms = ManifestStore(run)
+    m2, m6 = ms.load(2), ms.load(STEPS)
+    picked = [u for u in registry.unit_names() if u.startswith("block_")
+              and m2.entries[u]["weights"].digest
+              != m6.entries[u]["weights"].digest][:2]
+    if len(picked) < 2:
+        raise AssertionError(f"3k: fewer than two block units differ "
+                             f"between @2 and @{STEPS}: {picked}")
+    variants = (("base", []), (f"{picked[0]}@2", [([picked[0]], 2)]),
+                (f"{picked[1]}@2", [([picked[1]], 2)]))
+    reads_of = {}
+    for name, select in variants:
+        m = variant_manifest(ms, base_step=STEPS, select=select)
+        reads_of[name] = {d for kinds in m.entries.values()
+                          for d in (kinds["weights"].digest,
+                                    kinds["weights"].delta_base) if d}
+    distinct = set().union(*reads_of.values())
+    sizes = {d: (run / "objects" / d[:2] / f"{d}.chunk").stat().st_size
+             for d in distinct}
+    want_sum = sum(len(r) for r in reads_of.values())
+    out.update({"variants": [n for n, _ in variants], "units": picked,
+                "distinct_digests": len(distinct),
+                "distinct_bytes": sum(sizes.values()),
+                "reads_summed_over_variants": want_sum})
+    launches = out["launches"] = {}
+
+    def arm(label: str, before_close=None, **kw) -> dict:
+        """The three variants on one manager: its record, and the served
+        params by variant (kept for the comparisons)."""
+        _release(torch)
+        _zero_counts()
+        mgr = CheckpointManager(run, registry, make_policy(
+            "parity", model.layer_units()), async_save=False, **kw)
+        rss, rec = {}, {}
+        try:
+            with _rss_peak(rss):
+                t_arm = time.perf_counter()
+                r0 = mgr.store.backend_reads
+                vs = VariantSet(mgr, like, device=dev)
+                for name, select in variants:
+                    vs.materialize(name, base_step=STEPS, select=select)
+                torch.cuda.synchronize()
+                rec["seconds"] = time.perf_counter() - t_arm
+            st = vs.stats()
+            rec.update({
+                "backend_reads": mgr.store.backend_reads - r0,
+                "cache": st["cache"], "host_peak_rss_bytes": rss.get("peak"),
+                "loads": {n: {k: v.get(k) for k in _CACHE_LOAD_KEYS}
+                          | {"workers": v.get("workers")}
+                          for n, v in st["variants"].items()}})
+            if before_close is not None:
+                rec.update(before_close())
+            params = {n: vs.params(n) for n, _ in variants}
+        finally:
+            mgr.close()
+        launches[label] = _read_counts()
+        rec["block_fp_launches"] = launches[label]["block_fp"]
+        log(f"3k {label}: {rec}")
+        return rec, params
+
+    def equal(a: dict, b: dict) -> bool:
+        return all(_params_equal(torch, a[n], b[n]) for n, _ in variants)
+
+    # (a) cached and uncached
+    ta = time.perf_counter()
+    cached, ref = arm("a_cached", block_cache_bytes=CACHE_MB << 20)
+    uncached, twin = arm("a_uncached")
+    a_equal = equal(ref, twin)
+    del twin
+    out["a"] = {"cached": cached, "uncached": uncached,
+                "params_equal": a_equal, "seconds": time.perf_counter() - ta}
+    n_targets = len(registry.unit_names()) * len(variants)
+    snap = cached["cache"]
+    if not a_equal:
+        raise AssertionError("3k (a): a cached variant differs from its "
+                             "uncached twin")
+    if (cached["backend_reads"] != len(distinct)
+            or uncached["backend_reads"] != want_sum):
+        raise AssertionError(
+            f"3k (a): backend reads cached {cached['backend_reads']} (want "
+            f"{len(distinct)}), uncached {uncached['backend_reads']} (want "
+            f"{want_sum})")
+    if (snap["misses"] != len(distinct)
+            or snap["hits"] != want_sum - len(distinct)):
+        raise AssertionError(f"3k (a): cache counters {snap}")
+    if cached["block_fp_launches"] != n_targets \
+            or uncached["block_fp_launches"] != n_targets:
+        raise AssertionError(
+            f"3k (a): block_fp launched {cached['block_fp_launches']} and "
+            f"{uncached['block_fp_launches']} times, want {n_targets} each")
+
+    # (b) entries in /dev/shm
+    tb = time.perf_counter()
+    shm, got = arm("b_shm", lambda: {"segments_before_close":
+                                     len(_cache_segments())},
+                   block_cache_bytes=CACHE_MB << 20, block_cache_shm=True)
+    shm.update({"params_equal": equal(ref, got),
+                "segments_after_close": len(_cache_segments()),
+                "seconds": time.perf_counter() - tb})
+    del got
+    out["b"] = shm
+    if not shm["params_equal"] or not shm["segments_before_close"] \
+            or shm["segments_after_close"]:
+        raise AssertionError(f"3k (b): {shm}")
+
+    # (c) a budget below one object, then below the working set
+    tc = time.perf_counter()
+    out["c"] = {}
+    for label, budget in (("below_one_object", CACHE_SMALL_BYTES),
+                          ("below_working_set", sum(sizes.values()) // 2)):
+        rec, got = arm(f"c_{label}", block_cache_bytes=budget)
+        rec.update({"budget_bytes": budget,
+                    "params_equal": equal(ref, got)})
+        del got
+        out["c"][label] = rec
+    out["c"]["seconds"] = time.perf_counter() - tc
+    small, half = out["c"]["below_one_object"], out["c"]["below_working_set"]
+    if not (small["params_equal"] and half["params_equal"]):
+        raise AssertionError("3k (c): a small cache served other weights")
+    if small["cache"]["bypassed"] <= 0 or half["cache"]["evictions"] <= 0:
+        raise AssertionError(f"3k (c): bypassed {small['cache']}, evicted "
+                             f"{half['cache']}")
+
+    # (d) the process backend
+    td = time.perf_counter()
+    proc, got = arm("d_process", block_cache_bytes=CACHE_MB << 20,
+                    io_backend="process", io_workers=IO_WORKERS)
+    restarts = sum((v["workers"] or {}).get("worker_restarts", 0)
+                   for v in proc["loads"].values())
+    proc.update({"params_equal": equal(ref, got),
+                 "worker_restarts": restarts,
+                 "seconds": time.perf_counter() - td})
+    del got, ref
+    out["d"] = proc
+    if not proc["params_equal"] or restarts \
+            or proc["backend_reads"] != len(distinct):
+        raise AssertionError(f"3k (d): {proc}")
+
+    # (e) the server through the cache
+    te = time.perf_counter()
+    _release(torch)
+    _zero_counts()
+    skw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
+               batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+               new_tokens=SERVE_NEW, seed=SEED, device=str(dev),
+               from_ckpt=str(run), variant_base_step=STEPS,
+               variant_select=[f"{picked[0]}@2"])
+    served = {"cached": serve(cache_mb=CACHE_MB, **skw),
+              "uncached": serve(**skw)}
+    torch.cuda.synchronize()
+    launches["e"] = _read_counts()
+    out["e"] = {"cache": served["cached"]["cache"],
+                "tokens_digest": {k: r["tokens_digest"]
+                                  for k, r in served.items()},
+                "load_seconds": {k: r["restore"]["seconds"]
+                                 for k, r in served.items()},
+                "prefill_seconds": {k: r["prefill_seconds"]
+                                    for k, r in served.items()},
+                "seconds": time.perf_counter() - te}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"3k (e) {out['e']}; phase 3k in {out['seconds']:.1f} s of its "
+        f"{CACHE_BUDGET_S:.0f}-s budget, launches {launches}")
+    if out["e"]["cache"] is None or len(set(
+            out["e"]["tokens_digest"].values())) != 1:
+        raise AssertionError(f"3k (e): {out['e']}")
+    _check_launched(launches["e"], ("block_fp", "flash_attention"), "3k (e)")
+
+
 _EVENT_KEYS = ("step", "selected_units", "snapshot_seconds", "stage_seconds",
                "writeback_seconds", "commit_seconds", "gc_seconds",
                "stall_seconds", "seconds", "d2h_bytes",
@@ -3323,9 +3570,18 @@ def phase_3f(torch, dev, store: Path, ref: dict, out: dict,
     out["seconds_with_checks"] = time.perf_counter() - t0
 
 
+def _ssm_train_cfg():
+    """Phase 3e's training configuration: Mamba2-370m at full width and
+    SSM_TRAIN_LAYERS layers."""
+    from repro_torch.configs import get_config
+
+    return get_config(SSM_ARCH, reduced=REDUCED).replace(
+        num_layers=SSM_TRAIN_LAYERS)
+
+
 def phase_3e_train(torch, dev, store: Path, out: dict) -> None:
-    """Mamba2-370m at full width and depth (48 layers), batch SSM_BATCH x
-    SSM_SEQ: an uninterrupted reference run of SSM_STEPS steps without
+    """Mamba2-370m at full width and SSM_TRAIN_LAYERS (12) of its 48
+    layers, batch SSM_BATCH x SSM_SEQ: an uninterrupted reference run of SSM_STEPS steps without
     saves; a run with overlapped topk_delta saves (every 2 steps, spread 2,
     2 writer threads) that fails at step 7 with the step-6 event in
     flight, and its resume from the step-4 manifest to step SSM_STEPS.
@@ -3340,11 +3596,11 @@ def phase_3e_train(torch, dev, store: Path, out: dict) -> None:
     events, restored device fingerprints equal to the stored tables, an
     unchanged re-save moving 0 bytes, and block_fp, block_gather and
     fused_adamw launched.  Fills ``out`` before its checks."""
-    from repro_torch.configs import get_config
     from repro_torch.launch.train import SimulatedFailure, train
     from repro_torch.models import build_model
 
-    kw = dict(arch=SSM_ARCH, reduced=REDUCED, batch=SSM_BATCH,
+    kw = dict(arch=SSM_ARCH, reduced=REDUCED, num_layers=SSM_TRAIN_LAYERS,
+              batch=SSM_BATCH,
               seq_len=SSM_SEQ, policy_name="topk_delta", seed=SEED,
               device=str(dev), total_steps=SSM_STEPS,
               ckpt_interval=CKPT_INTERVAL, ckpt_async=True)
@@ -3396,11 +3652,11 @@ def phase_3e_train(torch, dev, store: Path, out: dict) -> None:
     wall = time.perf_counter() - t0
     events = failed.save_events + res["save_events"]
     log(f"phase 3e train done in {wall:.1f} s; launches {launches}")
-    cfg = get_config(SSM_ARCH, reduced=REDUCED)
+    cfg = _ssm_train_cfg()
     ref_loss = dict(ref["losses"])
     out.update({
-        "config": f"{SSM_ARCH} full width and depth ({cfg.num_layers} "
-                  f"layers), batch {SSM_BATCH}, seq {SSM_SEQ}, topk_delta, "
+        "config": f"{SSM_ARCH} full width, {cfg.num_layers} layers, batch "
+                  f"{SSM_BATCH}, seq {SSM_SEQ}, topk_delta, "
                   f"ckpt every {CKPT_INTERVAL}, spread {SPREAD}, 2 writer "
                   "threads",
         "launches": launches,
@@ -3898,8 +4154,8 @@ def phase_3d_store(torch, dev, store: Path, full_restore_bytes: int,
 
 
 def _train_step_profile(torch, dev, step_seconds: float) -> dict:
-    """Device time of one Mamba2-370m train step (phase 3e's shape, a
-    fresh state, after one warm step) traced by torch.profiler: every
+    """Device time of one Mamba2-370m train step (phase 3e's training
+    shape, SSM_TRAIN_LAYERS layers, a fresh state, after one warm step) traced by torch.profiler: every
     kernel, copy and fill on the card, summed; the number of device events
     and of host kernel launches; the busy share of ``step_seconds``, the
     reference run's unprofiled median step.  None where the profiler shows
@@ -3908,12 +4164,11 @@ def _train_step_profile(torch, dev, step_seconds: float) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.launch import steps
     from repro_torch.models import build_model
 
-    model = build_model(get_config(SSM_ARCH, reduced=REDUCED))
+    model = build_model(_ssm_train_cfg())
     state = steps.init_state(model, SEED, dev)
     step = steps.make_train_step(model, TrainConfig(
         learning_rate=1e-3, warmup_steps=20, total_steps=SSM_STEPS))
@@ -3953,10 +4208,11 @@ def _train_step_profile(torch, dev, step_seconds: float) -> dict:
 
 
 def phase_3e(torch, dev, store: Path, out: dict) -> None:
-    """Mamba2-370m at full width and depth: train, save, fail and resume
-    (``phase_3e_train``), serve from that store (weights-only cold load,
-    hot-swap to LATEST, hot vs cold tokens) before it is removed, then
-    serve on random weights: ``ssd_scan`` once per layer in the prefill
+    """Mamba2-370m at full width: train, save, fail and resume
+    (``phase_3e_train``) and serve from that store (weights-only cold load,
+    hot-swap to LATEST, hot vs cold tokens) before it is removed, at
+    SSM_TRAIN_LAYERS layers; then serve on random weights at full depth
+    (48 layers): ``ssd_scan`` once per layer in the prefill
     (the decode is a recurrent step), decode vs prefill in bf16 within
     DECODE_SSM_TOL and in float32 within DECODE_F32_TOL, the bf16 prefill
     within SSD_PREFILL_TOL of the plain scan's forward."""
@@ -3969,8 +4225,9 @@ def phase_3e(torch, dev, store: Path, out: dict) -> None:
         torch, dev, out["train"]["step_seconds_median"])
     phase_3d_store(torch, dev, store / "run",
                    out["train"]["restore_on_resume"]["bytes_read"],
-                   out["store"], model=build_model(cfg),
-                   serve_kw=dict(arch=SSM_ARCH, reduced=REDUCED), drift=False)
+                   out["store"], model=build_model(_ssm_train_cfg()),
+                   serve_kw=dict(arch=SSM_ARCH, reduced=REDUCED,
+                                 num_layers=SSM_TRAIN_LAYERS), drift=False)
     shutil.rmtree(store, ignore_errors=True)
     serve_full_depth(torch, dev, out["serve"], SSM_ARCH,
                      {"flash_attention": 0, "ssd_scan": cfg.num_layers},
@@ -4049,6 +4306,9 @@ def report(record: dict, path) -> None:
         k["launches_io_path"] = {
             "a": {arm: c[k["name"]] for arm, c in la["a"].items()},
             "b": la["b"][k["name"]], "c": la["c"][k["name"]]}
+        # the block cache (3k), by arm
+        k["launches_cache_path"] = {
+            arm: c[k["name"]] for arm, c in mp["3k"]["launches"].items()}
     write_record(record, path)
     a_secs = {e["step"]: e["seconds"] for e in mp_a["save_events"]}
     ctl_secs = {e["step"]: e["seconds"]
@@ -4200,6 +4460,28 @@ def report(record: dict, path) -> None:
         "c_params_equal": mp_j["c"]["params_equal"],
         "launches": mp_j["launches"], "seconds": mp_j["seconds"],
         "budget_seconds": IO_BUDGET_S} | card}))
+    mp_k = mp["3k"]
+    print(json.dumps({"cache": {
+        **{k: mp_k[k] for k in ("variants", "units", "distinct_digests",
+                                "distinct_bytes",
+                                "reads_summed_over_variants")},
+        "a": {arm: {k: mp_k["a"][arm][k] for k in (
+            "seconds", "backend_reads", "cache", "host_peak_rss_bytes",
+            "block_fp_launches", "loads")}
+            for arm in ("cached", "uncached")}
+        | {"params_equal": mp_k["a"]["params_equal"]},
+        "b_shm": {k: mp_k["b"][k] for k in (
+            "seconds", "backend_reads", "cache", "params_equal",
+            "segments_before_close", "segments_after_close")},
+        "c": {label: {k: mp_k["c"][label][k] for k in (
+            "budget_bytes", "backend_reads", "cache", "params_equal")}
+            for label in ("below_one_object", "below_working_set")},
+        "d_process": {k: mp_k["d"][k] for k in (
+            "seconds", "backend_reads", "cache", "params_equal",
+            "worker_restarts")},
+        "e_serve": mp_k["e"], "launches": mp_k["launches"],
+        "seconds": mp_k["seconds"], "budget_seconds": CACHE_BUDGET_S}
+        | card}))
     print(json.dumps({"kernels": [k | card for k in kernels]}))
 
 
@@ -4255,7 +4537,7 @@ def main() -> int:
                             "3d": {"serve": {}, "store": {}},
                             "3e": {"train": {}, "store": {}, "serve": {}},
                             "3f": {}, "3g": {}, "3h": {}, "3i": {},
-                            "3j": {}}}
+                            "3j": {}, "3k": {}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
@@ -4271,6 +4553,8 @@ def main() -> int:
         phase_3g(torch, dev, store / "3a", mp["3a"]["losses_resumed"],
                  mp["3g"])
         log(f"phase 3g done at {time.perf_counter() - t_start:.1f} s")
+        phase_3k(torch, dev, store, mp["3k"])
+        log(f"phase 3k done at {time.perf_counter() - t_start:.1f} s")
         phase_3h(torch, dev, store, ref, mp["3a"], mp["3h"])
         shutil.rmtree(store / "3a", ignore_errors=True)
         torch.cuda.empty_cache()

@@ -16,7 +16,10 @@ tiered ones (identical to the JAX package's):
 Object reads retry transient IO errors (``READ_RETRY``, counted in
 ``io_retries``); a transient that outlives its retries is corruption, so
 the restore takes its fallback.  ``locate`` names the tier holding an
-object, and a ``ReadSession`` records the tier every read came from.
+object, and a ``ReadSession`` records the tier every read came from.  With
+a ``block_cache`` every object read goes through it: ``backend_reads``
+counts only the reads that reach the backend, while a session counts its
+reads, bytes and tiers alike on a hit.
 
 An object is a msgpack envelope, addressed in one of two ways that share
 one digest namespace and never dedup against each other:
@@ -72,6 +75,7 @@ from repro_torch.checkpoint import fingerprint as fputil
 from repro_torch.checkpoint.async_io import INLINE_DISPATCH, IoDispatch
 from repro_torch.checkpoint.backends import StorageBackend, make_backend
 from repro_torch.checkpoint.backends.retry import RetryPolicy
+from repro_torch.checkpoint.block_cache import BlockCache
 from repro_torch.checkpoint.serial import (ChunkCorruption,
                                            unflatten_from_paths)
 from repro_torch.dtypes import from_bytes
@@ -409,7 +413,8 @@ class ChunkStore:
     ``hot_budget_bytes`` and ``remote_opts`` go to
     ``backends.make_backend`` (with ``dispatch``); ``read_retry`` replaces
     ``READ_RETRY``; ``dispatch`` is an ``async_io.IoDispatch`` (inline by
-    default)."""
+    default); ``block_cache`` is a ``BlockCache`` every object read goes
+    through (the store never closes it: it may be shared across stores)."""
 
     def __init__(self, root: Path | str, *, codec: str = "none",
                  backend: "str | StorageBackend" = "local",
@@ -417,7 +422,8 @@ class ChunkStore:
                  hot_budget_bytes: Optional[int] = None,
                  read_retry: Optional[RetryPolicy] = None,
                  remote_opts: Optional[Dict[str, Any]] = None,
-                 dispatch: Optional[IoDispatch] = None):
+                 dispatch: Optional[IoDispatch] = None,
+                 block_cache: Optional[BlockCache] = None):
         self.root = Path(root)
         self.codec = workers.resolve_codec(codec)
         # Where the hot byte work of writes (framing with its crc32s, the
@@ -432,6 +438,10 @@ class ChunkStore:
                                     dispatch=self.dispatch)
         self.read_retry = read_retry if read_retry is not None \
             else READ_RETRY
+        # Process-lifetime digest -> bytes cache under every object read:
+        # K variants or hot-swaps read each shared object off the backend
+        # once (see checkpoint/block_cache.py).
+        self.block_cache = block_cache
         self._lock = threading.RLock()
         # digest -> Event of a write in flight: writer threads persisting
         # one digest dedup instead of racing
@@ -447,14 +457,16 @@ class ChunkStore:
         # digest -> unpacked fingerprint table
         self._fp_tables: Dict[str, list] = {}
         # Monotonic host seconds by stage (callers take differences):
-        # framing + crc32 of writes, file writes, file reads, and decoding
-        # + crc32 checks of reads.
+        # framing + crc32 of writes, file writes, file reads, decoding +
+        # crc32 checks of reads, and the block cache's copies (into the
+        # cache on a miss, out of it on a hit) and coalesced waits.
         self.seconds = {"encode": 0.0, "write_io": 0.0, "read_io": 0.0,
-                        "decode": 0.0}
+                        "decode": 0.0, "cache_copy": 0.0}
         self.stats: Dict[str, int] = {}
         self.reset_stats()
         # Object reads that reached the backend (the JAX store's counter of
-        # the same name), for the whole life of the store.
+        # the same name; block cache hits excluded), for the whole life of
+        # the store.
         self.backend_reads = 0
         # Transient read errors a retry absorbed, for the life of the store
         # (a restore reports its own share as ``io_retries``).
@@ -554,7 +566,33 @@ class ChunkStore:
     def _read_blob(self, digest: str,
                    alloc: Optional[Callable[[int], Any]] = None
                    ) -> memoryview:
-        """The object's bytes, transient IO errors retried: an absent
+        """The object's bytes in a buffer from ``alloc(nbytes)`` (a
+        bytearray by default): through the block cache when one is
+        attached (a hit copies the cached bytes into the caller's buffer),
+        else off the backend (``_backend_read``)."""
+        cache = self.block_cache
+        if cache is None:
+            return self._backend_read(digest, alloc)
+        t0 = time.perf_counter()
+        loading = []
+
+        def load():
+            t = time.perf_counter()
+            try:
+                return self._backend_read(digest, alloc)
+            finally:
+                loading.append(time.perf_counter() - t)
+
+        try:
+            return cache.get(digest, load, alloc)
+        finally:
+            self._add_seconds("cache_copy",
+                              time.perf_counter() - t0 - sum(loading))
+
+    def _backend_read(self, digest: str,
+                      alloc: Optional[Callable[[int], Any]] = None
+                      ) -> memoryview:
+        """A read off the backend, transient IO errors retried: an absent
         object raises ``FileNotFoundError``, one still failing after
         ``read_retry`` raises ``ChunkCorruption``."""
         def on_retry(attempt: int, exc: BaseException) -> None:
@@ -1028,8 +1066,9 @@ class ChunkStore:
 
     def gc_objects(self) -> int:
         """Delete objects with no remaining references (orphans included)
-        and crash-leftover tmp files; returns bytes freed.  Call only after
-        the current manifest is committed and increffed."""
+        and crash-leftover tmp files, dropping each deleted digest from the
+        block cache; returns bytes freed.  Call only after the current
+        manifest is committed and increffed."""
         freed = self.backend.sweep_tmp()
         for digest in list(self.iter_digests()):
             if self.refcount(digest) > 0:
@@ -1044,6 +1083,8 @@ class ChunkStore:
                     old = self._canon_cache.pop(digest, None)
                     if old is not None:
                         self._canon_cache_bytes -= len(old)
+                if self.block_cache is not None:
+                    self.block_cache.discard(digest)
         return freed
 
     # ---- tiers ----

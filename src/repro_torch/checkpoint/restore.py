@@ -504,10 +504,11 @@ class RestoreEngine:
             "unit_tiers": unit_tiers,
             "io_retries": self.store.io_retries - io_retries0,
             # host split of read_seconds, summed over the threads: file
-            # reads, and decoding + crc32 checks (in the workers' calls on
-            # the process backend)
+            # reads, decoding + crc32 checks (in the workers' calls on
+            # the process backend), and the block cache's copies
             "read_io_seconds": sec1["read_io"] - sec0["read_io"],
             "decode_seconds": sec1["decode"] - sec0["decode"],
+            "cache_copy_seconds": sec1["cache_copy"] - sec0["cache_copy"],
             "io_backend": dispatch.backend,
         }
         if workers0 is not None:

@@ -62,6 +62,13 @@ durability under ``meta["storage"]`` and, with ``spill_barrier`` (or a
 save's ``durability_barrier=True``), first waits until every object is on
 the durable tier.
 
+Block cache (``block_cache``, ``block_cache_bytes``, ``block_cache_shm``,
+the JAX manager's knobs): a ``checkpoint.block_cache.BlockCache`` under
+every object read of the store, so the variants and hot-swaps a serving
+process materializes read each shared object off the backend once.  A
+cache passed in may be shared across managers and is never closed here;
+``block_cache_bytes`` builds one this manager owns and closes.
+
 Crash points (``checkpoint/faults.py``): ``fingerprint`` after a unit's
 device fingerprint pass, ``gather`` after its payload crossed to the host,
 ``object_write`` in the store, ``manifest_commit``/``manifest_latest`` in
@@ -83,6 +90,7 @@ from repro_torch.checkpoint.async_io import (WORKER_BACKENDS, AsyncWriter,
                                              PendingResult, TransferPool,
                                              lane_delta)
 from repro_torch.checkpoint.backends import StorageBackend, make_backend
+from repro_torch.checkpoint.block_cache import BlockCache
 from repro_torch.checkpoint.chunk_store import (REBASE_EVERY, ChunkRef,
                                                 ChunkStore)
 from repro_torch.checkpoint.restore import (DEFAULT_IO_THREADS, PARTS,
@@ -183,7 +191,10 @@ class CheckpointManager:
                  restore_threads: int = DEFAULT_IO_THREADS,
                  restore_verify: bool = True,
                  io_backend: str = "thread",
-                 io_workers: Optional[int] = None):
+                 io_workers: Optional[int] = None,
+                 block_cache: Optional[BlockCache] = None,
+                 block_cache_bytes: Optional[int] = None,
+                 block_cache_shm: bool = False):
         self.root = Path(root)
         self.registry = registry
         self.policy = policy
@@ -217,8 +228,15 @@ class CheckpointManager:
                                spill_threads=spill_threads,
                                hot_budget_bytes=hot_budget_bytes,
                                remote_opts=remote_opts, dispatch=dispatch)
+        # Only a cache built here is closed by ``close``.
+        self._own_block_cache = (block_cache is None
+                                 and block_cache_bytes is not None)
+        if self._own_block_cache:
+            block_cache = BlockCache(int(block_cache_bytes),
+                                     shm=block_cache_shm)
+        self.block_cache = block_cache
         self.store = ChunkStore(self.root, codec=codec, backend=backend,
-                                dispatch=dispatch)
+                                dispatch=dispatch, block_cache=block_cache)
         self.manifests = ManifestStore(self.root)
         self.keep = keep
         self.restorer = RestoreEngine(self.store, self.manifests, registry,
@@ -637,7 +655,8 @@ class CheckpointManager:
     def close(self) -> None:
         """Drain and stop the writer (raising a write error it collected)
         and close the store, whose tiered backend drains its spills first;
-        the pool's threads stop either way."""
+        the pool's threads stop, and a block cache this manager built is
+        closed, either way."""
         try:
             if self.writer is not None:
                 self.writer.close()
@@ -645,8 +664,12 @@ class CheckpointManager:
             try:
                 self.store.close()
             finally:
-                if self.transfer_pool is not None:
-                    self.transfer_pool.close()
+                try:
+                    if self.transfer_pool is not None:
+                        self.transfer_pool.close()
+                finally:
+                    if self._own_block_cache:
+                        self.block_cache.close()
 
     def disk_usage(self) -> Dict[str, int]:
         total = objects = 0

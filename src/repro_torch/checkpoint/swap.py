@@ -47,7 +47,10 @@ old one.  At full depth that is close to twice the weights' memory.
 Variants: :class:`VariantSet` serves K named weight variants from one
 store, each a zero-copy composite manifest
 (``core.tailor.variant_manifest``) cold-loaded as its own
-:class:`WeightService`.
+:class:`WeightService`.  With a ``BlockCache`` under the store (the
+manager's ``block_cache*`` knobs), the digests variants share (most of
+them: unchanged units dedup to one digest across steps) are read off the
+backend once and copied out of host RAM for every later load or swap.
 
 Reads: a cold load is the manager's ``restore`` (weights only), so it
 takes the manager's ``restore_threads`` reader threads, its
@@ -56,9 +59,7 @@ swap reads its units through the manager's store on the calling thread,
 as the JAX service does.
 
 Not ported yet: swapping a sharded (shard-set) entry, which raises
-``SwapError`` (sharded checkpoints are ROADMAP A4), and the block cache
-under the store's reads that lets variants share each digest's read
-(ROADMAP A3): every variant reads its objects from the store.
+``SwapError`` (sharded checkpoints are ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -181,8 +182,10 @@ class WeightService:
     ``tier_reads``), bytes moved to the device,
     unit counts per path (``units_swapped``/``skipped``/``scattered``/
     ``full``), ``blocks_applied``, ``step_from``/``step_to``, wall
-    ``seconds`` and, on the card, ``peak_device_bytes`` (the swap resets
-    the device's peak-memory counter when it starts).
+    ``seconds``, the block cache's ``hits``/``misses``/``evictions`` of
+    this swap under ``cache`` (None without a cache) and, on the card,
+    ``peak_device_bytes`` (the swap resets the device's peak-memory
+    counter when it starts).
     """
 
     def __init__(self, manager, state_like: Dict[str, PyTree], *,
@@ -226,6 +229,15 @@ class WeightService:
         with self._lock:
             return self.params
 
+    def _cache_delta(self, before: Optional[Dict[str, int]]
+                     ) -> Optional[Dict[str, int]]:
+        cache = self.store.block_cache
+        if cache is None or before is None:
+            return None
+        after = cache.snapshot()
+        return {k: after[k] - before.get(k, 0)
+                for k in ("hits", "misses", "evictions")}
+
     # ---------------------------------------------------------------- poll
     def poll(self) -> Optional[Dict[str, Any]]:
         """Swap to LATEST if it moved; returns the swap stats, or None when
@@ -250,6 +262,8 @@ class WeightService:
         cuda = self.device.type == "cuda"
         if cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
+        cache = self.store.block_cache
+        cache0 = cache.snapshot() if cache is not None else None
         session = ReadSession(self.store,
                               materialize=device_materializer(self.device))
         stats = _fresh_stats()
@@ -280,6 +294,7 @@ class WeightService:
                      bytes_read=session.stats["bytes_read"],
                      objects_read=session.stats["object_reads"],
                      tier_reads=dict(session.tier_reads),
+                     cache=self._cache_delta(cache0),
                      peak_device_bytes=(torch.cuda.max_memory_allocated(
                          self.device) if cuda else None))
         self.last_swap_stats = stats
@@ -381,9 +396,10 @@ class VariantSet:
     Each :meth:`materialize` builds a zero-copy composite manifest
     (``variant_manifest``) and cold-loads it as a :class:`WeightService`
     through the shared manager onto ``device``; every variant keeps its
-    service's hot-swap.  Without the block cache (ROADMAP A3) each variant
-    reads its own objects: ``stats()["cache"]`` is None and
-    ``backend_reads`` counts every object read of the store.
+    service's hot-swap.  ``stats()`` holds each variant's restore stats,
+    the store's block cache snapshot under ``cache`` (None without one)
+    and the store's ``backend_reads``: with a cache, a digest the variants
+    share is read off the backend once.
     """
 
     def __init__(self, manager, state_like: Dict[str, PyTree], *,
@@ -410,9 +426,10 @@ class VariantSet:
         return self.services[name].current()
 
     def stats(self) -> Dict[str, Any]:
+        cache = self.mgr.store.block_cache
         return {
             "variants": {n: dict(s.restore_stats)
                          for n, s in self.services.items()},
-            "cache": None,
+            "cache": cache.snapshot() if cache is not None else None,
             "backend_reads": self.mgr.store.backend_reads,
         }

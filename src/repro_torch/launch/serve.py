@@ -5,6 +5,7 @@ autoregressive decode against the KV cache, on the card by default.
         [--num-layers N] --batch 8 --prompt-len 1024 --new-tokens 128 \\
         [--from-ckpt ROOT [--from-step S] [--hot-swap] \\
          [--store-backend local|memory|tiered|remote|remote3] \\
+         [--cache-mb N [--cache-shm]] \\
          [--variant-base-step S --variant-select PATTERNS@STEP ...]] \\
         [--device cpu]
 
@@ -23,6 +24,12 @@ partial restore that never opens an optimizer object:
   diff (``checkpoint/swap.py``): unchanged units move nothing, block-delta
   units scatter only their dirty blocks; the result's ``swap`` key carries
   the swap's stats;
+- ``--cache-mb N`` attaches a digest-keyed host-RAM block cache of N MiB
+  (``checkpoint/block_cache.py``) under the store's object reads, so the
+  load and the swap read each shared object off the backend once
+  (``--cache-shm`` keeps its entries in ``/dev/shm`` segments
+  ``repro-io-<pid>-cache-*``); the result's ``cache`` key is its
+  snapshot (hits, misses, evictions, coalesced, bypassed, entries, bytes);
 - ``--variant-select "PATTERNS@STEP"`` (repeatable, later rules win; comma
   separates recipe patterns in one spec) with ``--variant-base-step``
   serves a zero-copy composite variant assembled by
@@ -33,8 +40,7 @@ partial restore that never opens an optimizer object:
 published one; ``--num-layers`` cuts the depth; ``--device cpu`` is the
 only way onto the CPU.  ``--io-backend process`` decodes and checks the
 loaded objects in ``--io-workers`` subprocess workers (the tables are
-still checked on the device).  The block cache of the JAX server
-(``--cache-mb``, ``--cache-shm``) is not ported yet (ROADMAP A3).
+still checked on the device).
 """
 from __future__ import annotations
 
@@ -77,6 +83,7 @@ def serve(*, arch: str, reduced: bool = True, batch: int = 4,
           prompt_len: int = 64, new_tokens: int = 32,
           from_ckpt: Optional[str] = None, store_backend: str = "local",
           io_backend: str = "thread", io_workers: Optional[int] = None,
+          cache_mb: Optional[int] = None, cache_shm: bool = False,
           seed: int = 0,
           from_step: Optional[int] = None, hot_swap: bool = False,
           swap_wait: float = 30.0, swap_poll: float = 0.2, device=None,
@@ -88,7 +95,7 @@ def serve(*, arch: str, reduced: bool = True, batch: int = 4,
     if num_layers is not None:
         cfg = cfg.replace(num_layers=int(num_layers))
     model = build_model(cfg)
-    served_step = swap_stats = restore_stats = None
+    served_step = swap_stats = restore_stats = cache_stats = None
 
     if from_ckpt:
         from repro_torch.checkpoint.saver import CheckpointManager
@@ -103,7 +110,10 @@ def serve(*, arch: str, reduced: bool = True, batch: int = 4,
                                 async_save=False,
                                 store_backend=store_backend,
                                 io_backend=io_backend,
-                                io_workers=io_workers)
+                                io_workers=io_workers,
+                                block_cache_bytes=(cache_mb << 20)
+                                if cache_mb else None,
+                                block_cache_shm=cache_shm)
         try:
             manifest = None
             if variant_select:
@@ -129,6 +139,8 @@ def serve(*, arch: str, reduced: bool = True, batch: int = 4,
                         time.sleep(swap_poll)
             params = svc.current()
             served_step = svc.step
+            if mgr.block_cache is not None:
+                cache_stats = mgr.block_cache.snapshot()
         finally:
             mgr.close()
     else:
@@ -175,7 +187,7 @@ def serve(*, arch: str, reduced: bool = True, batch: int = 4,
         "served_step": served_step,
         "restore": restore_stats,
         "swap": swap_stats,
-        "cache": None,
+        "cache": cache_stats,
     }
 
 
@@ -224,6 +236,15 @@ def main() -> None:
                          "in this process")
     ap.add_argument("--io-workers", type=int,
                     help="process backend: subprocess IO workers")
+    ap.add_argument("--cache-mb", type=int,
+                    help="attach a digest-keyed host-RAM block cache of "
+                         "this many MiB under the store's object reads "
+                         "(multi-variant serving reads each shared "
+                         "digest once)")
+    ap.add_argument("--cache-shm", action="store_true",
+                    help="back the block cache with /dev/shm segments "
+                         "(repro-io-<pid>-cache-*, covered by the "
+                         "repo-wide leak guard)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
@@ -234,7 +255,9 @@ def main() -> None:
                            from_ckpt=args.from_ckpt,
                            store_backend=args.store_backend,
                            io_backend=args.io_backend,
-                           io_workers=args.io_workers, seed=args.seed,
+                           io_workers=args.io_workers,
+                           cache_mb=args.cache_mb, cache_shm=args.cache_shm,
+                           seed=args.seed,
                            from_step=args.from_step, hot_swap=args.hot_swap,
                            swap_wait=args.swap_wait,
                            swap_poll=args.swap_poll, device=args.device,
