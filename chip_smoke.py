@@ -89,9 +89,10 @@ which exits non-zero:
       on random bf16 weights, batch 8, 1024-token prompts, 128 new tokens:
       every prefill and decode attention launches ``flash_attention`` and
       one decode step matches the prefill of the longer prompt;
-   e. Mamba2-370m at full width, batch 4, seq 1024, training at 12 of its
+   e. Mamba2-370m at full width, batch 4, seq 1024, training at 4 of its
       48 layers (``SSM_TRAIN_LAYERS``: the cut that keeps the command
-      inside its 1200-s limit): an 8-step reference run, an overlapped
+      inside its 1200-s limit, from 12 with 3h's to pay for 3l): an 8-step
+      reference run, an overlapped
       topk_delta run (every 2 steps, spread 2, 2 writer threads) that
       fails at step 7 with event 6 in flight and its resume to step 8,
       under the checks of 3a/3b, and one profiled step; from that store a
@@ -138,19 +139,23 @@ which exits non-zero:
       losses recorded against 3a's reference run; a weights-only cold load
       of 6 hot-swapped to 8 equals a cold load of 8, and a hot-swapped and
       a cold-loaded server give one ``tokens_digest``; then 3a's store is
-      removed; (a) 3a's failing run and resume on the canonical path: the
-      resumed losses within MODE_TOL of 3a's, step 4's objects holding
-      3a's step-4 tensors (their canonical digests), no ``block_fp``
-      launch, the events recorded beside 3a's; (b) the unchanged re-save
+      removed; (a) 3a's failing run and resume on the canonical path (the
+      resume without its step-6 event since 3l came: the cut that pays
+      for it): the resumed losses within MODE_TOL of 3a's, step 4's
+      objects holding 3a's step-4 tensors (their canonical digests), no
+      ``block_fp`` launch, the events recorded beside 3a's; (b) the
+      unchanged re-save
       of step 6's embed unit, from one restore of a hard-linked copy of
       3a's step-6 store: fingerprinted on that copy (moves 0 B) and
       canonical on (a)'s root (moves and hashes the unit, writes 0 B,
       both objects dedup hits); (d) the merge CLI copies (a)'s step-4
-      XOR-delta weights units and their bases into step 6 (weights only),
-      verified, byte for byte; (e) one canonical int8 event and
-      its restore: ``quantize`` and ``dequantize`` launched, block_000's
-      objects equal to the CPU path's, the restored leaves to their
-      records dequantized;
+      XOR-delta weights units and their bases into a merge on step 4
+      (weights only), verified, byte for byte; (e) one canonical int8
+      event and its restore, at 1 of the 2 layers (``CANON_INT8_LAYERS``,
+      with (a)'s and 3e's the cut that pays for 3l): ``quantize`` and
+      ``dequantize`` launched,
+      block_000's objects equal to the CPU path's, the restored leaves to
+      their records dequantized;
    i. the storage tiers in 3a's configuration, after 3h (budget 150 s):
       (a) 3a's failing run and resume through ``store_backend="tiered"``
       (a RAM hot tier of 4 GiB spilling to the disk tree): the resumed
@@ -194,10 +199,24 @@ which exits non-zero:
       parameters; (d) the process backend: equal parameters, no worker
       restart; (e) ``serve(cache_mb=...)`` of one variant gives the
       uncached server's ``tokens_digest``;
+   l. the store scrub, right after 3k on 3a's store, before 3h removes it
+      (budget 60 s): (a) an audit (``mgr.scrub(repair=False)``): every
+      object healthy, as many checked as the manifests name (entries and
+      bases), ``block_fp`` once per table-checked object, the store's
+      files and sizes unchanged and no ``QUARANTINE.json``; (b) on a
+      hard-linked copy, a LATEST object (whose unit an older manifest
+      holds under another digest) with a payload byte flipped under a
+      recomputed crc32: ``train(resume=True, scrub_on_start=True)`` one
+      step past LATEST reports it unrecoverable with its manifests and
+      unit, writes ``QUARANTINE.json``, and its resume skips it
+      (``quarantined_skipped``) without reading it, the unit's restored
+      tensors fingerprinting on the card to the older object's table; the
+      good bytes put back, a second scrub releases it and removes the file;
 4. print the main paths' step/save/restore times, the serve line, the
    Mamba line, the int8 line, the merge line, the canonical path's
    ``{"legacy": ...}`` line, the tiers line, the ``{"io": ...}`` line,
-   the ``{"cache": ...}`` line, the kernels line, the card line, and last
+   the ``{"cache": ...}`` line, the ``{"scrub": ...}`` line, the kernels
+   line, the card line, and last
    the ``{"ok": true, "device": ...}`` line; each phase logs its wall
    time; with ``--record PATH``, the full record of every phase also goes
    to PATH (written even when a check fails).
@@ -289,10 +308,16 @@ PROFILE_STEPS = 4    # decode steps traced for the device's busy time
 STORE_BYTES_NEEDED = 40e9
 CHAIN_ARCH = "llama3.2-3b"   # phase 3c, reduced config
 SSM_ARCH = "mamba2-370m"     # phase 3e, full width
-# 3e's training, its store part and its step profile run 12 of the 48
-# layers, which keeps the command inside its 1200-s limit; 3e's serve on
-# random weights stays at full depth.
-SSM_TRAIN_LAYERS = 12
+# 3e's training, its store part and its step profile run 4 of the 48
+# layers, which keeps the command inside its 1200-s limit: cut from 12,
+# with 3h's cuts, to pay for phase 3l (scripts/phase_time.py in turns:
+# 84.1 s -> 68.3 s a turn, H100 80GB HBM3, 700 W); every check stays.
+# 3e's serve on random weights stays at full depth.
+SSM_TRAIN_LAYERS = 4
+# 3h (e)'s canonical int8 event and its restore run 1 of 3a's 2 layers
+# (with 3h (a)'s resume saving no event 6 and 3e's depth, the cut that
+# pays for phase 3l); every check of (e) stays
+CANON_INT8_LAYERS = 1
 SSM_BATCH = 4
 SSM_SEQ = 1024
 SSM_STEPS = 8
@@ -1417,15 +1442,16 @@ def ssd_scan_at_main_shape(torch, dev, err: float) -> dict:
 
 
 # ------------------------------------------------------------------ phase 3
-def _model(chain: bool = False):
-    """The main paths' model, or (``chain``) phase 3c's reduced config."""
+def _model(chain: bool = False, num_layers: int = NUM_LAYERS):
+    """The main paths' model (at ``num_layers``), or (``chain``) phase 3c's
+    reduced config."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
     if chain:
         return build_model(get_config(CHAIN_ARCH, reduced=True))
     return build_model(get_config(ARCH, reduced=REDUCED).replace(
-        num_layers=NUM_LAYERS))
+        num_layers=num_layers))
 
 
 def _launch_counts():
@@ -1933,16 +1959,19 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     canonical objects over fp bases (their tables checked by ``block_fp``),
     then a weights-only cold load of 6 hot-swapped to 8, equal to a cold
     load of 8, and hot vs cold ``tokens_digest``; (a) 3a's run on the
-    canonical path (fail at 5, resume to 6): resumed losses equal to 3a's
-    within MODE_TOL, step 4's objects decoding to 3a's step-4 tensors, no
-    ``block_fp`` launch; (b) the unchanged re-save of step 6's embed unit
+    canonical path (fail at 5, resume to 6 with no event: 3a's events 2
+    and 4, and no event 6, the cut that with (e)'s and 3e's pays for phase
+    3l): resumed losses equal to 3a's within MODE_TOL, step 4's objects
+    decoding to 3a's step-4 tensors, no ``block_fp`` launch; (b) the
+    unchanged re-save of step 6's embed unit (its content saved at step 4)
     from one restore of a hard-linked copy of 3a's step-6 store taken
     before (c): fingerprint path on that copy, canonical on (a)'s root;
-    (d) the merge CLI copies (a)'s XOR-delta weights objects and their
-    bases (weights only), verified, byte for byte; (e) one canonical int8 event and
-    its restore (``quantize``, ``dequantize``), block_000's objects equal
-    to the CPU path's and the restored leaves to their records
-    dequantized.  ``ref`` is 3a's reference run and ``rec_a`` 3a's record.
+    (d) the merge CLI copies (a)'s step-4 XOR-delta weights objects and
+    their bases into a merge on step 4 (weights only), verified, byte for
+    byte; (e) one canonical int8 event and its restore (``quantize``,
+    ``dequantize``) at CANON_INT8_LAYERS (1) of 3a's 2 layers,
+    block_000's objects equal to the CPU path's and the restored leaves to
+    their records dequantized.  ``ref`` is 3a's reference run and ``rec_a`` 3a's record.
     3a's store is removed after (c).  ``out["store_bytes"]`` records the
     bytes under ``store`` at each part's peak.  Fills ``out`` before its
     checks."""
@@ -2064,8 +2093,9 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
         raise AssertionError("3h (a): the checkpointed run did not fail")
     except SimulatedFailure as e:
         failed = e
+    # the resume saves nothing: (b) and (d) use the step-4 objects
     res_a = train(ckpt_dir=str(run), total_steps=STEPS,
-                  ckpt_interval=CKPT_INTERVAL, resume=True, **kw)
+                  ckpt_interval=STEPS + 1, resume=True, **kw)
     torch.cuda.synchronize()
     launches["a"] = _read_counts()
     disk["after_a"] = _used_bytes(store)
@@ -2153,7 +2183,7 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     if not picked:
         raise AssertionError("3h (d): event 4 wrote no XD01 object to merge")
     merged = root / "merged"
-    cli = _tailor_cli(_write_recipe(root / "d.yaml", f"{run}@{STEPS}",
+    cli = _tailor_cli(_write_recipe(root / "d.yaml", f"{run}@4",
                                     merged, [(picked, f"{run}@4")],
                                     optimizer=False), dev)
     objs = sorted((merged / "objects").glob("*/*.chunk"))
@@ -2177,19 +2207,22 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     shutil.rmtree(root)
     _release(torch)
 
-    # (e) canonical int8: one event and its restore
+    # (e) canonical int8: one event and its restore, at CANON_INT8_LAYERS
     te = time.perf_counter()
     root_e = store / "3h_e"
+    model_e = _model(num_layers=CANON_INT8_LAYERS)
     _zero_counts()
     res_e = train(ckpt_dir=str(root_e), total_steps=CKPT_INTERVAL,
-                  ckpt_interval=CKPT_INTERVAL, codec="int8", **kw)
+                  ckpt_interval=CKPT_INTERVAL, codec="int8",
+                  **dict(kw, num_layers=CANON_INT8_LAYERS))
     torch.cuda.synchronize()
     launches["e_save"] = _read_counts()
     _release(torch)
     _zero_counts()
-    mgr = CheckpointManager(root_e, registry, policy, async_save=False,
-                            codec="int8", fingerprint=False)
-    state = mgr.restore(like, device=dev)
+    mgr = CheckpointManager(root_e, LayerRegistry(model_e),
+                            make_policy("parity", model_e.layer_units()),
+                            async_save=False, codec="int8", fingerprint=False)
+    state = mgr.restore(steps.state_specs(model_e), device=dev)
     torch.cuda.synchronize()
     launches["e_restore"] = _read_counts()
     out["e"] = {"event": _event_rows(res_e["save_events"]),
@@ -2204,7 +2237,8 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     del state
     _release(torch)
     out["e"]["cpu_path_objects"] = _check_cpu_path_objects(
-        torch, dev, root_e, store / "3h_e_cpu", fingerprint=False)
+        torch, dev, root_e, store / "3h_e_cpu", fingerprint=False,
+        num_layers=CANON_INT8_LAYERS)
     out["e"]["seconds"] = time.perf_counter() - te
     shutil.rmtree(root_e)
     out["seconds"] = time.perf_counter() - t0
@@ -3172,6 +3206,291 @@ def phase_3k(torch, dev, store: Path, out: dict) -> None:
     _check_launched(launches["e"], ("block_fp", "flash_attention"), "3k (e)")
 
 
+# ---------------------------------------------------------------- phase 3l
+SCRUB_BUDGET_S = 60.0
+
+
+def _envelope_fields(path: Path, digest: str) -> dict:
+    """An object's envelope but its payload, parsed from a map of the file
+    (the payload's pages are never read)."""
+    import mmap
+
+    from repro_torch.checkpoint import workers
+
+    with open(path, "rb") as f:
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    try:
+        env = workers.parse_envelope(mm, digest)
+        fields = {k: (bytes(v) if isinstance(v, memoryview) else v)
+                  for k, v in env.items() if k != "payload"}
+    finally:
+        env = None
+        mm.close()
+    return fields
+
+
+def _listing(root: Path) -> dict:
+    return {str(p.relative_to(root)): p.stat().st_size
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def _hard_link_tree(src: Path, dst: Path) -> None:
+    """Every file of ``src`` hard-linked under ``dst``."""
+    for f in sorted(src.rglob("*")):
+        if f.is_file():
+            (dst / f.relative_to(src)).parent.mkdir(parents=True,
+                                                    exist_ok=True)
+            os.link(f, dst / f.relative_to(src))
+
+
+@contextlib.contextmanager
+def _backend_reads(into: list):
+    """Record the digest of every object read through a store (restores,
+    a delta's base), not the scrub's reads of tier copies."""
+    from repro_torch.checkpoint.chunk_store import ChunkStore
+
+    plain = ChunkStore._read_blob
+
+    def read_blob(self, digest, alloc=None):
+        into.append(digest)
+        return plain(self, digest, alloc)
+
+    ChunkStore._read_blob = read_blob
+    try:
+        yield into
+    finally:
+        ChunkStore._read_blob = plain
+
+
+def phase_3l(torch, dev, store: Path, out: dict) -> None:
+    """The store scrub on 3a's store (``store / "3a" / "run"``: parity,
+    events 2, 4 and 6), right after 3k and before 3h resumes and removes
+    that store, the launch counts set to 0 before each part and read after
+    it.  Budget: SCRUB_BUDGET_S (60 s).  Fills ``out`` before its checks.
+
+    (a) An audit, ``mgr.scrub(repair=False)`` on the card: every object
+    healthy; ``checked_objects`` equal to the distinct digests (entries
+    and delta bases) the committed manifests name; ``block_fp`` launched
+    once per table-checked object (one tier); the store's file listing
+    and sizes unchanged, and no ``QUARANTINE.json``.
+    (b) On a hard-linked copy of the store: the smallest (unit, kind) of
+    LATEST saved there as a full object whose unit an older manifest holds
+    under another digest; its object copied out of the link and one
+    payload byte flipped under a recomputed crc32 (as 3g (c)), so its
+    records and table hash still pass and only the table recomputed on the
+    card sees it.  ``train(resume=True, scrub_on_start=True)`` one step
+    past LATEST, no save: the report lists the digest unrecoverable
+    ("corrupt in every tier") with its manifests and (unit, kind);
+    ``QUARANTINE.json`` is written; the restore reports
+    ``quarantined_skipped`` >= 1 and reads no byte of the victim; the
+    unit's restored tensors fingerprint on the card to the table of the
+    older object the planner chose.  The good bytes put back, a second
+    ``mgr.scrub()`` lists the digest in ``released_from_quarantine`` and
+    removes ``QUARANTINE.json``."""
+    from repro_torch.checkpoint import fingerprint as fputil
+    from repro_torch.checkpoint import workers
+    from repro_torch.checkpoint.chunk_store import table_checked
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.core.manifest import ManifestStore
+    from repro_torch.core.policies import make_policy
+    from repro_torch.kernels import block_fp as bfp
+    from repro_torch.launch.train import train
+
+    t0 = time.perf_counter()
+    log(f"phase 3l: budget {SCRUB_BUDGET_S:.0f} s")
+    run = store / "3a" / "run"
+    model = _model()
+    registry = LayerRegistry(model)
+    policy = make_policy("parity", model.layer_units())
+    ms = ManifestStore(run)
+    named = set()
+    for s in ms.all_steps():
+        named.update(ms.load(s).digest_provenance())
+    envs = {d: _envelope_fields(run / "objects" / d[:2] / f"{d}.chunk", d)
+            for d in sorted(named)}
+    n_table = sum(table_checked(e) for e in envs.values())
+    nbytes = sum((run / "objects" / d[:2] / f"{d}.chunk").stat().st_size
+                 for d in named)
+    out.update({"objects": len(named), "table_checked": n_table,
+                "bytes": nbytes})
+    launches = out["launches"] = {}
+    listing = _listing(run)
+
+    # (a) the audit
+    _release(torch)
+    _zero_counts()
+    ta = time.perf_counter()
+    mgr = CheckpointManager(run, registry, policy, async_save=False)
+    try:
+        rep_a = mgr.scrub(repair=False, device=dev)
+    finally:
+        mgr.close()
+    torch.cuda.synchronize()
+    launches["a"] = _read_counts()
+    out["a"] = {"report": {k: v for k, v in rep_a.items()
+                           if k not in ("repaired", "unrecoverable")},
+                "seconds": time.perf_counter() - ta,
+                "listing_unchanged": _listing(run) == listing}
+    log(f"3l (a) {out['a']}, launches {launches['a']}")
+    if not (rep_a["checked_objects"] == rep_a["healthy"] == len(named)
+            and not rep_a["repaired"] and not rep_a["unrecoverable"]):
+        raise AssertionError(f"3l (a): the audit of a healthy store: "
+                             f"{rep_a}")
+    if launches["a"]["block_fp"] != n_table:
+        raise AssertionError(f"3l (a): block_fp launched "
+                             f"{launches['a']['block_fp']} times, want one "
+                             f"per table-checked object ({n_table})")
+    if not out["a"]["listing_unchanged"] \
+            or (run / "QUARANTINE.json").exists():
+        raise AssertionError("3l (a): the audit changed the store")
+
+    # (b) a flip only the card's table check sees, through the trainer
+    tb = time.perf_counter()
+    copy = store / "3l"
+    _hard_link_tree(run, copy)
+    latest = ms.load()
+    older = [(s, ms.load(s)) for s in reversed(ms.all_steps())
+             if s < latest.step]
+    victim = fallback = None
+    for (unit, kind), ref in sorted(
+            (((u, k), r) for u, kinds in latest.entries.items()
+             for k, r in kinds.items()), key=lambda x: (x[1].nbytes, x[0])):
+        if ref.step != latest.step or ref.stored != "full":
+            continue
+        # the planner's next candidate: the newest older entry of another
+        # digest
+        prev = next((m.entries[unit][kind] for _, m in older
+                     if unit in m.entries
+                     and m.entries[unit][kind].digest != ref.digest), None)
+        if prev is not None:
+            victim, fallback = (unit, kind, ref), prev
+            break
+    if victim is None:
+        raise AssertionError("3l (b): no LATEST object with an older "
+                             "digest of its unit")
+    unit, kind, ref = victim
+    vpath = copy / ref.relpath
+    data = vpath.read_bytes()
+    vpath.unlink()
+    vpath.write_bytes(data)     # out of the link: 3a's file stays good
+    del data
+    flip_payload_byte(vpath, ref.digest)
+    env = workers.parse_envelope(vpath.read_bytes(), ref.digest)
+    workers.decode_chunk_items(env["payload"], True)   # the crc32s pass
+    if fputil.fp_digest(bytes(env["fp"])) != ref.digest:
+        raise AssertionError("3l (b): the flip changed the table")
+    del env
+    _release(torch)
+    _zero_counts()
+    at_restore, read = {}, []
+    plain_restore = CheckpointManager.restore
+
+    def restore(self, *args, **kwargs):
+        state = plain_restore(self, *args, **kwargs)
+        at_restore.update(_read_counts())
+        tree = (registry.extract_unit(state["params"], unit)
+                if kind == "weights" else
+                registry.extract_opt_unit(state["opt"], unit))
+        cur = bfp.tree_to_host(bfp.fingerprint_tree(tree))
+        at_restore["unit_equals_older_table"] = (
+            fputil.pack_table(cur) == fputil.pack_table(
+                self.store.load_fp_table(fallback.digest)))
+        return state
+
+    CheckpointManager.restore = restore
+    try:
+        with _backend_reads(read):
+            res = train(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
+                        batch=BATCH, seq_len=SEQ, policy_name="parity",
+                        seed=SEED, device=str(dev), ckpt_async=False,
+                        ckpt_dir=str(copy), total_steps=latest.step + 1,
+                        ckpt_interval=CKPT_INTERVAL, resume=True,
+                        scrub_on_start=True)
+    finally:
+        CheckpointManager.restore = plain_restore
+    torch.cuda.synchronize()
+    launches["b_train"] = _read_counts()
+    rep_b = res["scrub_report"]
+    rstats = res["restore_stats"]
+    bad = {r["digest"]: r for r in rep_b["unrecoverable"]}
+    quarantined = (copy / "QUARANTINE.json").exists()
+    out["b"] = {"victim": {"unit": unit, "kind": kind, "step": ref.step,
+                           "digest": ref.digest, "bytes": ref.nbytes,
+                           "fallback_manifest": next(
+                               st for st, m in older
+                               if m.entries[unit][kind].digest
+                               == fallback.digest),
+                           "fallback_object_step": fallback.step,
+                           "fallback_digest": fallback.digest},
+                "report": {k: v for k, v in rep_b.items()
+                           if k not in ("repaired",)},
+                "quarantine_written": quarantined,
+                "restore": {k: rstats.get(k) for k in (
+                    "seconds", "quarantined_skipped", "fallback_units",
+                    "objects_read", "bytes_read")},
+                "victim_read": ref.digest in read,
+                "unit_equals_older_table":
+                    at_restore.get("unit_equals_older_table"),
+                "losses": res["losses"] if "losses" in res else None,
+                "steps": res["steps"]}
+    rec = bad.get(ref.digest)
+    log(f"3l (b) victim {unit}/{kind}@{ref.step}: {rec}; restore "
+        f"{out['b']['restore']}; launches {launches['b_train']}")
+    if rec is None or rec["reason"] != "corrupt in every tier" \
+            or [unit, kind] not in rec["units"] \
+            or latest.step not in rec["manifests"] or len(bad) != 1:
+        raise AssertionError(f"3l (b): the flip was not reported "
+                             f"unrecoverable with its provenance: "
+                             f"{rep_b['unrecoverable']}")
+    if not quarantined or not rstats["quarantined_skipped"] >= 1 \
+            or ref.digest in read:
+        raise AssertionError(f"3l (b): quarantine written {quarantined}, "
+                             f"skipped {rstats['quarantined_skipped']}, "
+                             f"victim read {ref.digest in read}")
+    if not at_restore.get("unit_equals_older_table") or res["steps"] != 1:
+        raise AssertionError(f"3l (b): {unit}/{kind} restored is not step "
+                             f"{fallback.step}'s object, or the run took "
+                             f"{res['steps']} steps")
+    _check_launched(launches["b_train"], ("block_fp", "fused_adamw"),
+                    "3l (b)")
+    # the operator puts the good bytes back: the next scrub releases it
+    _release(torch)
+    _zero_counts()
+    tr = time.perf_counter()
+    tmp = vpath.with_suffix(".good")
+    shutil.copyfile(run / ref.relpath, tmp)
+    os.replace(tmp, vpath)
+    mgr = CheckpointManager(copy, registry, policy, async_save=False)
+    try:
+        rep_r = mgr.scrub(device=dev)
+    finally:
+        mgr.close()
+    torch.cuda.synchronize()
+    launches["b_release"] = _read_counts()
+    out["b"]["release"] = {
+        "released_from_quarantine": rep_r["released_from_quarantine"],
+        "quarantined": rep_r["quarantined"],
+        "healthy": rep_r["healthy"],
+        "quarantine_file_removed": not (copy / "QUARANTINE.json").exists(),
+        "seconds": time.perf_counter() - tr}
+    out["b"]["seconds"] = time.perf_counter() - tb
+    shutil.rmtree(copy)
+    out["seconds"] = time.perf_counter() - t0
+    out["within_budget"] = out["seconds"] <= SCRUB_BUDGET_S
+    log(f"3l (b) release {out['b']['release']}; phase 3l in "
+        f"{out['seconds']:.1f} s of its {SCRUB_BUDGET_S:.0f}-s budget, "
+        f"launches {launches}")
+    if rep_r["released_from_quarantine"] != [ref.digest] \
+            or rep_r["unrecoverable"] or rep_r["healthy"] != len(named) \
+            or not out["b"]["release"]["quarantine_file_removed"]:
+        raise AssertionError(f"3l (b): the repaired store's scrub: {rep_r}")
+    if launches["b_release"]["block_fp"] != n_table:
+        raise AssertionError(f"3l (b): the release scrub launched block_fp "
+                             f"{launches['b_release']['block_fp']} times, "
+                             f"want {n_table}")
+
+
 _EVENT_KEYS = ("step", "selected_units", "snapshot_seconds", "stage_seconds",
                "writeback_seconds", "commit_seconds", "gc_seconds",
                "stall_seconds", "seconds", "d2h_bytes",
@@ -3278,16 +3597,17 @@ def phase_3b(torch, dev, store: Path, ref: dict, out: dict) -> None:
     out.update(check_store(torch, dev, run, "topk_delta", 4))
 
 
-def _step2_state(torch, dev):
+def _step2_state(torch, dev, num_layers: int = NUM_LAYERS):
     """(model, registry, state) of ``train`` after its first two steps in
-    3f's configuration: the same model, schedule, registry, data and seed,
-    so its units fingerprint to event 2's digests."""
+    3f's configuration (at ``num_layers``): the same model, schedule,
+    registry, data and seed, so its units fingerprint to event 2's
+    digests."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core.layer_registry import LayerRegistry
     from repro_torch.data.synthetic import SyntheticTokens
     from repro_torch.launch import steps
 
-    model = _model()
+    model = _model(num_layers=num_layers)
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=20,
                        total_steps=REF_STEPS, ckpt_interval=CKPT_INTERVAL,
                        seed=SEED)
@@ -3304,17 +3624,19 @@ def _step2_state(torch, dev):
 
 
 def _check_cpu_path_objects(torch, dev, run: Path, scratch: Path,
-                            fingerprint: bool = True) -> dict:
+                            fingerprint: bool = True,
+                            num_layers: int = NUM_LAYERS) -> dict:
     """3f (a), and 3h (e) with ``fingerprint=False``: event 2's block_000
-    objects (weights, opt) of an int8 store equal, byte for byte, those the
-    port's CPU path (plain quantize, plain fingerprints) writes on the same
-    save path from the same unit copied to the host."""
+    objects (weights, opt) of an int8 store (of a model at ``num_layers``)
+    equal, byte for byte, those the port's CPU path (plain quantize, plain
+    fingerprints) writes on the same save path from the same unit copied
+    to the host."""
     from repro_torch.checkpoint.saver import CheckpointManager
     from repro_torch.core.manifest import ManifestStore
     from repro_torch.core.policies import make_policy
 
     what = "3f (a)" if fingerprint else "3h (e)"
-    model, registry, state = _step2_state(torch, dev)
+    model, registry, state = _step2_state(torch, dev, num_layers)
     event2 = ManifestStore(run).load(2).entries["block_000"]
     cpu = CheckpointManager(scratch, registry,
                             make_policy("parity", model.layer_units()),
@@ -3580,7 +3902,7 @@ def _ssm_train_cfg():
 
 
 def phase_3e_train(torch, dev, store: Path, out: dict) -> None:
-    """Mamba2-370m at full width and SSM_TRAIN_LAYERS (12) of its 48
+    """Mamba2-370m at full width and SSM_TRAIN_LAYERS (4) of its 48
     layers, batch SSM_BATCH x SSM_SEQ: an uninterrupted reference run of SSM_STEPS steps without
     saves; a run with overlapped topk_delta saves (every 2 steps, spread 2,
     2 writer threads) that fails at step 7 with the step-6 event in
@@ -4309,6 +4631,9 @@ def report(record: dict, path) -> None:
         # the block cache (3k), by arm
         k["launches_cache_path"] = {
             arm: c[k["name"]] for arm, c in mp["3k"]["launches"].items()}
+        # the scrub (3l), by part
+        k["launches_scrub_path"] = {
+            part: c[k["name"]] for part, c in mp["3l"]["launches"].items()}
     write_record(record, path)
     a_secs = {e["step"]: e["seconds"] for e in mp_a["save_events"]}
     ctl_secs = {e["step"]: e["seconds"]
@@ -4482,6 +4807,29 @@ def report(record: dict, path) -> None:
         "e_serve": mp_k["e"], "launches": mp_k["launches"],
         "seconds": mp_k["seconds"], "budget_seconds": CACHE_BUDGET_S}
         | card}))
+    mp_l = mp["3l"]
+    print(json.dumps({"scrub": {
+        "objects": mp_l["objects"], "gb": mp_l["bytes"] / 1e9,
+        "table_checked": mp_l["table_checked"],
+        "a_audit": {"seconds": mp_l["a"]["seconds"],
+                    "block_fp_launches": mp_l["launches"]["a"]["block_fp"],
+                    **{k: mp_l["a"]["report"][k] for k in (
+                        "checked_objects", "healthy", "checked_tiers",
+                        "elapsed_s")}},
+        "b_scrub_on_start": {
+            "victim": mp_l["b"]["victim"],
+            "unrecoverable": len(mp_l["b"]["report"]["unrecoverable"]),
+            **{k: mp_l["b"]["report"][k] for k in (
+                "checked_objects", "healthy", "demoted_manifests",
+                "quarantined", "elapsed_s")},
+            "restore": mp_l["b"]["restore"],
+            "victim_read": mp_l["b"]["victim_read"],
+            "unit_equals_older_table": mp_l["b"]["unit_equals_older_table"],
+            "block_fp_launches": mp_l["launches"]["b_train"]["block_fp"]},
+        "b_release": mp_l["b"]["release"]
+        | {"block_fp_launches": mp_l["launches"]["b_release"]["block_fp"]},
+        "b_seconds": mp_l["b"]["seconds"], "seconds": mp_l["seconds"],
+        "budget_seconds": SCRUB_BUDGET_S} | card}))
     print(json.dumps({"kernels": [k | card for k in kernels]}))
 
 
@@ -4537,7 +4885,7 @@ def main() -> int:
                             "3d": {"serve": {}, "store": {}},
                             "3e": {"train": {}, "store": {}, "serve": {}},
                             "3f": {}, "3g": {}, "3h": {}, "3i": {},
-                            "3j": {}, "3k": {}}}
+                            "3j": {}, "3k": {}, "3l": {}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
@@ -4555,6 +4903,8 @@ def main() -> int:
         log(f"phase 3g done at {time.perf_counter() - t_start:.1f} s")
         phase_3k(torch, dev, store, mp["3k"])
         log(f"phase 3k done at {time.perf_counter() - t_start:.1f} s")
+        phase_3l(torch, dev, store, mp["3l"])
+        log(f"phase 3l done at {time.perf_counter() - t_start:.1f} s")
         phase_3h(torch, dev, store, ref, mp["3a"], mp["3h"])
         shutil.rmtree(store / "3a", ignore_errors=True)
         torch.cuda.empty_cache()

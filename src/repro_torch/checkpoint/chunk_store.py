@@ -47,9 +47,18 @@ package.  Canonical bytes of an fp object (an XOR delta's base, when a
 store switched paths across a restart) or of a lossy object are rebuilt
 through the reader's ``materialize`` hook, which places the tensors on the
 caller's device, dequantizing there, and checks an fp object's table
-there (``restore.device_materializer``).  zstd-compressed objects raise
-``CodecUnavailable``.  Lifetimes are refcounted from the committed
-manifests; ``gc_objects`` deletes objects no manifest references.
+there (``restore.device_materializer``).  Objects the JAX package
+compressed with zstd are read through the port's decoder (``_zstd``); a
+zstd full object is lossless, and its canonical bytes are rebuilt on the
+host.  Lifetimes are refcounted from the committed manifests;
+``gc_objects`` deletes objects no manifest references.
+
+``verify_object_blob`` checks one copy of an object (one tier's bytes)
+against its digest, its table on a device; the scrub
+(``checkpoint/scrub.py``) runs it over every tier and records the digests
+it finds corrupt everywhere in ``QUARANTINE.json`` at the root, which the
+store loads at init and the restore's planner honours (the JAX package's
+file, byte for byte).
 
 Writes run on the async writer's threads while the training thread makes
 the next event's decisions, so ``write``, ``write_fp``, ``note_dedup`` and
@@ -63,6 +72,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import logging
 import threading
 import time
@@ -74,6 +84,7 @@ from repro_torch.checkpoint import _msgpack, faults, workers
 from repro_torch.checkpoint import fingerprint as fputil
 from repro_torch.checkpoint.async_io import INLINE_DISPATCH, IoDispatch
 from repro_torch.checkpoint.backends import StorageBackend, make_backend
+from repro_torch.checkpoint.backends.localfs import atomic_write
 from repro_torch.checkpoint.backends.retry import RetryPolicy
 from repro_torch.checkpoint.block_cache import BlockCache
 from repro_torch.checkpoint.serial import (ChunkCorruption,
@@ -265,6 +276,15 @@ class ReadSession:
                 cell["event"].set()
             return cell["value"]
 
+    def seed_envelope(self, digest: str, env: Dict[str, Any]) -> None:
+        """Serve ``env`` as ``digest``'s envelope in this session: a copy
+        the caller read itself stands in for the store's."""
+        cell = {"event": threading.Event(), "value": env, "error": None,
+                "owner": threading.get_ident()}
+        cell["event"].set()
+        with self._lock:
+            self._cells[("env", digest)] = cell
+
     def _count_read(self, digest: str, tier: Optional[str],
                     nbytes: int) -> None:
         with self._lock:
@@ -367,7 +387,7 @@ class ReadSession:
                 env = workers.parse_envelope(blob, digest)
                 fp = env.get("fp") is not None
                 lossy = (env.get("format") == "full"
-                         and env.get("codec") != "none")
+                         and env.get("codec") in workers.LOSSY_CODECS)
             dispatch = self.store.dispatch
             if fp or lossy:
                 items, fp_blob = self._decode_offload(digest)
@@ -398,6 +418,21 @@ class ReadSession:
         with self._lock:
             for memo in ("env", "blob", "canon", "tree"):
                 self._cells.pop((memo, digest), None)
+
+
+# Codecs of full fp-addressed objects whose tensors are what their table
+# describes: a lossy full object decodes to other tensors, and its record
+# crc32s are its check.
+_TABLE_CHECKED_FULL_CODECS = ("none", "zstd")
+
+
+def table_checked(env: Dict[str, Any]) -> bool:
+    """Whether verifying an object recomputes its fingerprint table (the
+    JAX package's rule, ``repro/checkpoint/chunk_store.py:676-680``): every
+    fp-addressed object but a full one of a lossy codec."""
+    return env.get("fp") is not None and (
+        env.get("format") != "full"
+        or env.get("codec") in _TABLE_CHECKED_FULL_CODECS)
 
 
 def _tree_of(items: workers.Items) -> Any:
@@ -471,6 +506,11 @@ class ChunkStore:
         # Transient read errors a retry absorbed, for the life of the store
         # (a restore reports its own share as ``io_retries``).
         self.io_retries = 0
+        # Digests a scrub found corrupt in every tier (``QUARANTINE.json``):
+        # the restore's planner skips them; a later scrub that finds a good
+        # copy releases them.
+        self._quarantine: Dict[str, Dict[str, Any]] = \
+            self._load_quarantine()
 
     # ---- addressing ----
     def object_relpath(self, digest: str) -> str:
@@ -553,6 +593,41 @@ class ChunkStore:
                 self._canon_cache_bytes -= len(self._canon_cache.pop(lru))
             self._canon_cache[digest] = canon
             self._canon_cache_bytes += nbytes
+
+    # ---- quarantine (see checkpoint/scrub.py) ----
+    @property
+    def quarantine_path(self) -> Path:
+        return self.root / "QUARANTINE.json"
+
+    def _load_quarantine(self) -> Dict[str, Dict[str, Any]]:
+        try:
+            return dict(json.loads(self.quarantine_path.read_bytes()))
+        except FileNotFoundError:
+            return {}
+        except Exception:  # noqa: BLE001 - a mangled file reads as empty;
+            return {}      # the next scrub rewrites it
+
+    def quarantined(self, digest: str) -> bool:
+        with self._lock:
+            return digest in self._quarantine
+
+    def quarantine(self) -> Dict[str, Dict[str, Any]]:
+        with self._lock:
+            return {d: dict(v) for d, v in self._quarantine.items()}
+
+    def set_quarantine(self, entries: Dict[str, Dict[str, Any]]) -> None:
+        """Replace the quarantine (the scrub's call): written atomically
+        with the JAX package's bytes, removed when empty."""
+        with self._lock:
+            self._quarantine = {d: dict(v) for d, v in entries.items()}
+        if entries:
+            atomic_write(self.quarantine_path,
+                         json.dumps(entries, indent=2).encode())
+        else:
+            try:
+                self.quarantine_path.unlink()
+            except FileNotFoundError:
+                pass
 
     # ---- object io ----
     def _remember(self, digest: str, env: Dict[str, Any],
@@ -644,11 +719,14 @@ class ChunkStore:
         return dict(info)
 
     # ---- blob-level copy (the merge engine) ----
-    def read_object_bytes(self, digest: str) -> memoryview:
-        """The raw envelope blob of ``digest``: no decode, no verify.  The
-        merge moves objects between stores with this and
-        ``write_object_bytes`` without materializing tensors."""
-        return self._read_blob(digest)
+    def read_object_bytes(self, digest: str,
+                          alloc: Optional[Callable[[int], Any]] = None
+                          ) -> memoryview:
+        """The raw envelope blob of ``digest`` (in a buffer from
+        ``alloc(nbytes)``): no decode, no verify.  The merge moves objects
+        between stores with this and ``write_object_bytes`` without
+        materializing tensors."""
+        return self._read_blob(digest, alloc)
 
     def write_object_bytes(self, digest: str, blob) -> int:
         """Store a pre-encoded envelope blob under its digest (atomic and
@@ -1009,7 +1087,8 @@ class ChunkStore:
             env = s.envelope(digest)
             fmt = env.get("format")
             fp = env.get("fp") is not None
-        if fp or (fmt == "full" and env.get("codec") != "none"):
+        if fp or (fmt == "full"
+                   and env.get("codec") in workers.LOSSY_CODECS):
             # decode (and, for an fp object, resolve its block delta),
             # place on the device, check the table there, re-frame
             items, fp_blob = self.read_items(digest, session=s)
@@ -1021,7 +1100,7 @@ class ChunkStore:
             canon = workers.encode_chunk_blob(items, {})
         elif fmt == "full":
             with _decoding(digest):
-                canon = env["payload"]
+                canon = workers.canonical_payload(env, s.verify)
         elif fmt == "delta":
             with _decoding(digest):
                 base_digest = env["base"]
@@ -1035,6 +1114,50 @@ class ChunkStore:
         if not fp and s.verify and content_digest(canon) != digest:
             raise ChunkCorruption(f"digest mismatch for {digest}")
         return canon
+
+    def verify_object_blob(self, digest: str, blob,
+                           device=None) -> Dict[str, Any]:
+        """Check one copy of an object, ``blob`` (one tier's bytes, not
+        the store's), against ``digest`` and return its envelope: the JAX
+        store's ``verify_object_blob``.  A canonical object's payload is
+        rebuilt (an XOR delta on its base, a zstd object decoded) and
+        hashed to the address, a lossy one's records checked by crc32; an
+        fp object's records are checked by crc32 and its table hashed to
+        the address, then, where :func:`table_checked`, its tensors placed
+        on ``device`` and fingerprinted there (``restore.verify_placed``:
+        the ``block_fp`` kernel on the card, its plain version on the CPU;
+        ``devices.resolve_device``).  Delta bases are read through the
+        store.  Nothing is remembered of this copy but a table that hashed
+        to its address, so probing a corrupt tier poisons no cache.
+        Raises ``ChunkCorruption`` (a base no tier holds included), or
+        ``CodecUnavailable`` for a zstd frame that needs a dictionary."""
+        # restore imports this module; the device half lives there
+        from repro_torch.checkpoint import restore
+        from repro_torch.devices import resolve_device
+        dev = resolve_device(device)
+        with _decoding(digest):
+            env = workers.parse_envelope(memoryview(blob).cast("B"), digest)
+            lossy = (env.get("format") == "full"
+                     and env.get("codec") in workers.LOSSY_CODECS)
+        s = ReadSession(self, alloc=restore.host_buffer_alloc(dev),
+                        materialize=restore.device_materializer(dev))
+        s.seed_envelope(digest, env)
+        try:
+            if env.get("fp") is None and not lossy:
+                with s.guard("canon", digest):
+                    self._canonical(digest, s)
+                return env
+            items, _ = self.read_items(digest, session=s)
+        except FileNotFoundError as e:
+            raise ChunkCorruption(f"object {digest} replays a base no tier "
+                                  f"holds: {e}") from e
+        if table_checked(env):
+            leaves = restore.place_items(items, dev)
+            with _decoding(digest):
+                fp_blob = bytes(env["fp"])
+            restore.verify_placed(unflatten_from_paths(leaves), fp_blob,
+                                  digest)
+        return env
 
     # ---- delta runs ----
     def delta_run(self, unit: str, kind: str) -> int:

@@ -37,7 +37,9 @@ engine's keys (``pipelined``, ``io_threads``, ``verify``,
 ``io_backend`` and, on the process backend, the restore lane's
 ``workers`` counts), the tier each unit was served from (``unit_tiers``),
 the object reads per tier (``tier_reads``), the retried transient errors
-(``io_retries``) and the time split.
+(``io_retries``), the candidates dropped because a scrub quarantined
+their object or its base (``quarantined_skipped``: the planner never reads
+a digest in ``QUARANTINE.json``) and the time split.
 """
 from __future__ import annotations
 
@@ -121,6 +123,8 @@ class RestorePlan:
     # digest -> the targets (and their delta bases) that need it, over the
     # primary candidates: when a digest's count reaches 0 it is released
     dependents: Dict[str, int]
+    # candidates dropped because a scrub quarantined their object or base
+    quarantined_skipped: int = 0
 
     @property
     def unique_digests(self) -> int:
@@ -157,7 +161,9 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
     objects (and delta bases) some tier holds, best first, so an object
     already missing costs a lookup here and no failed read later; and the
     dependents count of every digest the primaries touch, each digest once
-    however many targets share it.  A caller-supplied ``manifest``
+    however many targets share it.  A candidate whose object or delta base
+    a scrub quarantined is left out and counted in
+    ``quarantined_skipped``.  A caller-supplied ``manifest``
     replaces the ``step`` lookup; the older manifests of the store still
     give the fallbacks."""
     parts = tuple(parts)
@@ -178,6 +184,7 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
                 older.setdefault((unit, kind), []).append((s, ref))
     targets: List[UnitRead] = []
     dependents: Dict[str, int] = {}
+    quarantined = 0
     for name in _select_units(unit_names, units):
         if name not in manifest.entries:
             raise RestoreError(f"manifest missing unit {name}")
@@ -191,13 +198,21 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
                 if not ref.digest or ref.digest in seen:
                     continue
                 seen.add(ref.digest)
-                if store.has(ref.digest) and (not ref.delta_base
-                                              or store.has(ref.delta_base)):
+                if not store.has(ref.digest):
+                    ok = False
+                elif (store.quarantined(ref.digest)
+                      or (ref.delta_base
+                          and store.quarantined(ref.delta_base))):
+                    quarantined += 1
+                    ok = False
+                else:
+                    ok = not ref.delta_base or store.has(ref.delta_base)
+                if ok:
                     chain.append(Candidate(s, ref))
                 elif s == manifest.step:
-                    log.warning("object for %s/%s at step %s is missing; "
-                                "fallback resolved at plan time", name,
-                                kind, s)
+                    log.warning("object for %s/%s at step %s is missing or "
+                                "quarantined; fallback resolved at plan "
+                                "time", name, kind, s)
             if not chain:
                 raise RestoreError(f"no readable chunk for unit {name}/{kind}")
             target = UnitRead(name, kind, tuple(chain))
@@ -205,7 +220,8 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
             for d in target.primary.digests():
                 dependents[d] = dependents.get(d, 0) + 1
     return RestorePlan(step=manifest.step, parts=parts, targets=targets,
-                       dependents=dependents)
+                       dependents=dependents,
+                       quarantined_skipped=quarantined)
 
 
 def place_leaves(dsts: Sequence[Tuple[torch.Tensor, Any]]) -> int:
@@ -503,6 +519,8 @@ class RestoreEngine:
             "tier_reads": dict(session.tier_reads),
             "unit_tiers": unit_tiers,
             "io_retries": self.store.io_retries - io_retries0,
+            # candidates the planner dropped: a scrub quarantined them
+            "quarantined_skipped": plan.quarantined_skipped,
             # host split of read_seconds, summed over the threads: file
             # reads, decoding + crc32 checks (in the workers' calls on
             # the process backend), and the block cache's copies

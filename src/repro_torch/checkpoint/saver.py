@@ -652,6 +652,15 @@ class CheckpointManager:
         durable tier (nothing to wait for on one tier)."""
         self.store.drain_spill()
 
+    def scrub(self, *, repair: bool = True, device=None) -> Dict[str, Any]:
+        """The store-wide integrity scrub and repair (fsck) over every
+        committed manifest, tables verified on ``device`` (the card unless
+        the caller asks for the CPU); returns the report.  See
+        :class:`repro_torch.checkpoint.scrub.StoreScrubber`."""
+        from repro_torch.checkpoint.scrub import StoreScrubber
+        return StoreScrubber(self.store, self.manifests,
+                             device=device).scrub(repair=repair)
+
     def close(self) -> None:
         """Drain and stop the writer (raising a write error it collected)
         and close the store, whose tiered backend drains its spills first;

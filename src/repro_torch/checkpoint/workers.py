@@ -9,9 +9,12 @@ where that package has no ``zstandard`` (every record's ``comp`` is
 bfloat16 tensor of at least 256 elements as its ``q`` (int8, 256 per
 block) followed by one float32 scale per block; the quantizing itself is
 the card's (``kernels/quantize``), so here a record is framed from, and
-decoded to, those bytes (:class:`Int8Record`).  ``zstd`` (and int8 records
-whose ``comp`` is ``zstd``, and compressed XD01 and BD02 deltas) raise
-``CodecUnavailable``: the port does not use ``zstandard``.  Large byte fields travel as zero-copy buffers
+decoded to, those bytes (:class:`Int8Record`).  What the JAX package
+compresses with ``zstandard`` (codec ``zstd`` records, int8 records whose
+``comp`` is ``zstd``, compressed XD01 and BD02 deltas) is read through the
+port's own decoder (``_zstd``); the port writes no zstd, and a frame that
+needs a dictionary raises ``CodecUnavailable``.  Large byte fields travel
+as zero-copy buffers
 (``_msgpack.Blob`` on the way out, memoryviews on the way in), so a
 multi-GB unit is never copied to build its object.
 
@@ -45,6 +48,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.checkpoint import _zstd
 from repro_torch.checkpoint._msgpack import Blob, pack_parts, unpackb
 
 CHUNK_FORMAT_VERSION = 1
@@ -115,6 +119,24 @@ def resolve_codec(codec: str) -> str:
     raise ValueError(f"unknown codec {codec!r}")
 
 
+def zstd_decompress(blob) -> bytearray:
+    """The content of the zstd frames in ``blob`` (the port's decoder);
+    malformed bytes raise ``CorruptObject``, a frame that needs a
+    dictionary ``CodecUnavailable``."""
+    try:
+        return _zstd.decompress(blob)
+    except _zstd.ZstdError as e:
+        raise CorruptObject(f"bad zstd data: {e}") from e
+    except _zstd.DictionaryFrame as e:
+        raise CodecUnavailable(f"{e}: the JAX package writes none, and the "
+                               "port reads none") from e
+
+
+def _raw_nbytes(shape: Sequence[int], dtype: str) -> int:
+    item = 2 if dtype == "bfloat16" else np.dtype(dtype).itemsize
+    return math.prod(shape) * item
+
+
 def int8_eligible(dtype: str, shape: Sequence[int]) -> bool:
     """Whether codec int8 quantizes a tensor: a float or bfloat16 tensor
     of at least 256 elements (the JAX package's rule); every other tensor
@@ -173,40 +195,56 @@ def decode_chunk_items(blob, verify: bool = True) -> Tuple[Dict, Items]:
         raise CorruptObject("bad chunk version")
     items: Items = []
     for t in payload["tensors"]:
-        if t["codec"] not in ("none", "int8"):
-            raise CodecUnavailable(f"tensor {t['name']} uses codec "
-                                   f"{t['codec']!r}: reading it needs "
-                                   "zstandard, which the port does not use")
+        if t["codec"] not in ("none", "int8", "zstd"):
+            # every codec the JAX package writes is read here
+            raise CorruptObject(f"tensor {t['name']} names an unknown "
+                                f"codec {t['codec']!r}")
         if verify and _crc(t["data"]) != t["crc"]:
             raise CorruptObject(f"crc mismatch for tensor {t['name']}")
         shape = tuple(t["shape"])
         data = t["data"]
         if t["codec"] == "int8":
             data = _int8_record(t, shape)
+        elif t["codec"] == "zstd":
+            data = zstd_decompress(data)
+            if len(data) != _raw_nbytes(shape, t["dtype"]):
+                raise CorruptObject(f"tensor {t['name']} decompresses to "
+                                    f"{len(data)} bytes, not its shape's")
         items.append((t["name"], shape, t["dtype"], data))
     return payload["meta"], items
+
+
+def canonical_payload(env: Dict[str, Any], verify: bool = True):
+    """The canonical payload of a full, canonically addressed, lossless
+    object: a codec-none payload as it is; any other (zstd) decoded and
+    framed codec none, its records' crc32 checked when ``verify`` (the
+    JAX store's transcode)."""
+    if env.get("codec") == "none":
+        return env["payload"]
+    meta, items = decode_chunk_items(env["payload"], verify)
+    return encode_chunk_blob(items, meta)
 
 
 def _int8_record(t: Dict[str, Any], shape: Tuple[int, ...]) -> Int8Record:
     extra = t.get("extra") or {}
     # records written before the optional-zstd split always compressed
     comp = extra.get("comp", "zstd")
-    if comp != "none":
-        raise CodecUnavailable(f"int8 tensor {t['name']} is compressed with "
-                               f"{comp!r}: reading it needs zstandard, which "
-                               "the port does not use")
+    if comp not in ("none", "zstd"):
+        raise CorruptObject(f"int8 tensor {t['name']} names an unknown "
+                            f"compression {comp!r}")
     if extra.get("block", QUANT_BLOCK) != QUANT_BLOCK:
-        raise CodecUnavailable(f"int8 tensor {t['name']} uses block "
-                               f"{extra['block']}, the port reads "
-                               f"{QUANT_BLOCK}")
+        # the JAX package writes no other block
+        raise CorruptObject(f"int8 tensor {t['name']} names block "
+                            f"{extra['block']}, not {QUANT_BLOCK}")
     n_q, n_scale = int(extra["n_q"]), int(extra["n_scale"])
+    data = zstd_decompress(t["data"]) if comp == "zstd" else t["data"]
     nb = -(-math.prod(shape) // QUANT_BLOCK)
     if (n_q != nb * QUANT_BLOCK or n_scale != nb
-            or memoryview(t["data"]).nbytes != n_q + 4 * n_scale):
+            or memoryview(data).nbytes != n_q + 4 * n_scale):
         raise CorruptObject(f"int8 tensor {t['name']}: {n_q} q and "
                             f"{n_scale} scales do not fit shape "
                             f"{list(shape)}")
-    return Int8Record(t["data"], n_q, n_scale, shape, t["dtype"])
+    return Int8Record(data, n_q, n_scale, shape, t["dtype"])
 
 
 # ---------------------------------------------------- XOR delta (XD01)
@@ -382,11 +420,8 @@ def delta_decode(blob, base) -> bytearray:
     mv = memoryview(blob).cast("B")
     if bytes(mv[:4]) != DELTA_MAGIC:
         raise ValueError("not a delta blob (bad magic)")
-    if mv[4] == 1:
-        raise CodecUnavailable("the XOR delta is compressed with zstd: "
-                               "reading it needs zstandard, which the port "
-                               "does not use")
-    d = unpackb(mv[5:], zero_copy=True)
+    body = zstd_decompress(mv[5:]) if mv[4] == 1 else mv[5:]
+    d = unpackb(body, zero_copy=True)
     n = d["n"]
     out = bytearray(n)
     off = 0
@@ -420,9 +455,8 @@ def block_delta_decode(blob) -> List[Dict]:
     mv = memoryview(blob).cast("B")
     if bytes(mv[:4]) != BLOCK_DELTA_MAGIC:
         raise ValueError("not a block-delta blob (bad magic)")
-    if mv[4] != 0:
-        raise CodecUnavailable("compressed block deltas are not ported yet")
-    d = unpackb(mv[5:], zero_copy=True)
+    body = zstd_decompress(mv[5:]) if mv[4] == 1 else mv[5:]
+    d = unpackb(body, zero_copy=True)
     if not isinstance(d, dict) or d.get("v") != 1:
         raise ValueError("bad block-delta body")
     return [{"name": name, "shape": shape, "dtype": dtype, "nbytes": nbytes,
@@ -486,13 +520,13 @@ def _decoding(digest: str):
 def _canonical_of(env: Dict[str, Any], digest: str, base,
                   verify: bool):
     """The canonical payload of a canonically addressed envelope: a full
-    codec-none object's payload, or an XOR delta rebuilt on ``base`` (its
-    base's canonical payload), checked against the digest when
-    ``verify``."""
+    lossless object's (``canonical_payload``), or an XOR delta rebuilt on
+    ``base`` (its base's canonical payload), checked against the digest
+    when ``verify``."""
     fmt = env.get("format")
     with _decoding(digest):
-        if fmt == "full" and env.get("codec") == "none":
-            canon = env["payload"]
+        if fmt == "full" and env.get("codec") not in LOSSY_CODECS:
+            canon = canonical_payload(env, verify)
         elif fmt == "delta":
             if base is None:
                 raise CorruptObject(f"delta object {digest} without its "
@@ -561,7 +595,7 @@ def decode_object(blob, digest: str, base=None, verify: bool = True
 
 def canonical_object(blob, digest: str, base=None, verify: bool = True):
     """The canonical payload of a canonically addressed object (a full
-    codec-none object or an XOR delta over ``base``, its base's canonical
+    lossless object or an XOR delta over ``base``, its base's canonical
     payload), checked against the digest when ``verify``.  An fp or lossy
     object's canonical bytes need its tensors on a device: ``ValueError``."""
     with _decoding(digest):

@@ -85,6 +85,23 @@ class Manifest:
                     counts[ref.delta_base] += 1
         return counts
 
+    def digest_provenance(self) -> Dict[str, List[Tuple[str, str, str]]]:
+        """Digest -> [(unit, kind, role)] for every object this manifest
+        depends on; role is "entry" (referenced) or "base" (a delta base
+        the entry replays through).  The scrub's report says with it
+        whose bytes an unrecoverable object held, and which manifests a
+        quarantined digest demotes."""
+        prov: Dict[str, List[Tuple[str, str, str]]] = {}
+        for unit, kinds in self.entries.items():
+            for kind, ref in kinds.items():
+                if ref.digest:
+                    prov.setdefault(ref.digest, []).append(
+                        (unit, kind, "entry"))
+                if ref.delta_base:
+                    prov.setdefault(ref.delta_base, []).append(
+                        (unit, kind, "base"))
+        return prov
+
 
 class ManifestStore:
     def __init__(self, root: Path | str):

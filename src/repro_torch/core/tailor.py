@@ -25,19 +25,19 @@ delta object brings its full base along, once.  A thread pool of
 ``workers`` overlaps the reads and writes.
 
 Verification (``verify=True``, the default) reads every copied object back
-from the output store: the crc32 of each record and the table->digest or
-payload->digest checks of ``ChunkStore.read_items`` (an XOR ``delta`` is
-rebuilt on its base and its canonical payload hashed; a lossy canonical
-object is checked by crc32 alone), and then, where the JAX package
-recomputes an object's fingerprint table (every fp-addressed object but a
-lossy full one, and an fp object that anchors an XOR delta), the tensors
-are placed on ``device`` and fingerprinted there
-(``restore.verify_placed``: the ``block_fp`` kernel on the card, its plain
-version on the CPU).  A mismatch raises ``ChunkCorruption`` and no
-manifest is committed.  A zstd-compressed object raises
-``CodecUnavailable`` (the port does not use ``zstandard``);
-``verify=False`` (``--no-verify``) copies it blob for blob, as the JAX
-merge does.  Device memory of the verification is one object's tensors
+from the output store and checks it with the store's
+``verify_object_blob``, the check the scrub runs: the table->digest or
+payload->digest checks (an XOR ``delta`` is rebuilt on its base and a zstd
+object of the JAX package decoded, and the canonical payload hashed; a
+lossy canonical object is checked by crc32 alone) and the crc32 of each
+record, and then, where the JAX package recomputes an object's fingerprint
+table (every fp-addressed object but a lossy full one, and an fp object
+that anchors an XOR delta), the tensors are placed on ``device`` and
+fingerprinted there (``restore.verify_placed``: the ``block_fp`` kernel on
+the card, its plain version on the CPU).  A mismatch raises
+``ChunkCorruption`` and no manifest is committed; ``verify=False``
+(``--no-verify``) copies objects blob for blob unchecked, as the JAX merge
+does.  Device memory of the verification is one object's tensors
 per worker, freed after its check.
 
 ``device`` is resolved by ``devices.resolve_device``: the card by default,
@@ -55,22 +55,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.checkpoint import workers as workers_lib
-from repro_torch.checkpoint.chunk_store import (ChunkRef, ChunkStore,
-                                                ReadSession)
-from repro_torch.checkpoint.restore import (device_materializer,
-                                            host_buffer_alloc, place_items,
-                                            verify_placed)
-from repro_torch.checkpoint.serial import unflatten_from_paths
+from repro_torch.checkpoint.chunk_store import (  # noqa: F401 (re-export)
+    ChunkRef, ChunkStore, table_checked)
+from repro_torch.checkpoint.restore import host_buffer_alloc
 from repro_torch.core.manifest import (Manifest, ManifestStore, entry_refs,
                                        is_sharded)
 from repro_torch.core.recipe import CheckpointRef, Recipe, expand_patterns
 from repro_torch.devices import resolve_device
-
-# Codecs of full fp-addressed objects whose tensors are what their table
-# describes (the JAX package's rule): a lossy full object decodes to other
-# tensors, and its record crc32s are its check.
-_TABLE_CHECKED_FULL_CODECS = ("none", "zstd")
 
 
 class MergeError(RuntimeError):
@@ -142,38 +133,16 @@ def _load_manifest(ref: CheckpointRef,
     return m, (store if store is not None else ChunkStore(ref.root))
 
 
-def table_checked(env: Dict[str, Any]) -> bool:
-    """Whether verifying an object recomputes its fingerprint table (the
-    JAX package's rule, ``repro/checkpoint/chunk_store.py:676-680``): every
-    fp-addressed object but a full one of a lossy codec."""
-    return env.get("fp") is not None and (
-        env.get("format") != "full"
-        or env.get("codec") in _TABLE_CHECKED_FULL_CODECS)
-
-
 def verify_object(store: ChunkStore, digest: str,
                   device: torch.device) -> None:
     """Read ``digest`` back from ``store`` and check it as the JAX
-    package's ``read_digest(verify=True)`` does: crc32 per record and the
-    address checks (``read_items``: an fp object's table hashes to its
-    digest; a canonical object's payload does, an XOR delta's once rebuilt
-    on its base, whose own table, if it is an fp object, is checked on
-    ``device``), then, where :func:`table_checked`, its tensors placed on
-    ``device`` against the stored table.  Raises ``ChunkCorruption``, or
-    ``CodecUnavailable`` for a zstd-compressed object."""
-    session = ReadSession(store, alloc=host_buffer_alloc(device),
-                          materialize=device_materializer(device))
-    try:
-        items, _ = store.read_items(digest, session=session)
-    except workers_lib.CodecUnavailable as e:
-        raise workers_lib.CodecUnavailable(
-            f"cannot verify object {digest}: {e} (--no-verify copies it "
-            "unverified)") from e
-    env = session.envelope(digest)
-    if not table_checked(env):
-        return
-    leaves = place_items(items, device)
-    verify_placed(unflatten_from_paths(leaves), bytes(env["fp"]), digest)
+    package's ``read_digest(verify=True)`` does, through the store's
+    :meth:`~ChunkStore.verify_object_blob` (the scrub's check): the
+    address checks, the crc32 of each record, and, where
+    :func:`table_checked`, its tensors placed on ``device`` against the
+    stored table.  Raises ``ChunkCorruption``."""
+    blob = store.read_object_bytes(digest, host_buffer_alloc(device))
+    store.verify_object_blob(digest, blob, device)
 
 
 def merge(recipe: Recipe, *, workers: int = 4, verify: bool = True,

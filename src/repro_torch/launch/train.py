@@ -46,6 +46,10 @@ checkpointing and Frankenstein resume, on the card by default.
 - ``--resume`` restores the implicit Frankenstein merge of the newest
   manifest and continues with byte-identical data (the data state rides in
   the manifest meta),
+- ``--scrub-on-start`` runs the store's scrub (``checkpoint/scrub.py``)
+  first, tables checked on ``--device``: corrupt tier copies repaired from
+  a good one, the unrecoverable quarantined so the resume's plan skips
+  them; the result carries its report (``scrub_report``),
 - ``--device cpu`` is the only way onto the CPU; ``--num-layers`` cuts the
   depth of a config (a full-width state that does not fit the card).
 """
@@ -133,6 +137,7 @@ def train(
     lr: float = 1e-3,
     device=None,
     num_layers: Optional[int] = None,
+    scrub_on_start: bool = False,
 ) -> Dict:
     dev = resolve_device(device)
     fail_step, fail_point, fail_hit = (None, None, 1)
@@ -170,6 +175,21 @@ def train(
     data = SyntheticTokens(vocab_size=cfg.vocab_size, batch=batch,
                            seq_len=seq_len, seed=seed)
     train_step = steps_lib.make_train_step(model, tcfg, registry)
+
+    scrub_report = None
+    if scrub_on_start:
+        # fsck before the store is touched: repair corrupt tier copies from
+        # a good one and quarantine the unrecoverable, so the resume's plan
+        # skips them up front
+        try:
+            scrub_report = mgr.scrub(device=dev)
+        except BaseException:
+            _close_quietly(ov, mgr)
+            raise
+        log.info("scrub-on-start: %d object(s) checked, %d repaired, %d "
+                 "unrecoverable", scrub_report["checked_objects"],
+                 len(scrub_report["repaired"]),
+                 len(scrub_report["unrecoverable"]))
 
     restore_stats = None
     if resume:
@@ -323,6 +343,8 @@ def train(
         "io_backend": io_backend,
         "spill_drain_seconds": spill_drain_seconds,
         "tier_stats": tier_stats,
+        # the report of the scrub-on-start pass (None when not run)
+        "scrub_report": scrub_report,
     }
 
 
@@ -387,6 +409,11 @@ def main() -> None:
     ap.add_argument("--sync-save", action="store_true",
                     help="write objects inline on the training thread "
                          "instead of on the writer threads")
+    ap.add_argument("--scrub-on-start", action="store_true",
+                    help="run the store-wide integrity scrub (fsck) before "
+                         "training or the resume: repair corrupt tier "
+                         "copies from a good one, quarantine the "
+                         "unrecoverable")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--fail-at",
                     help="N: simulated failure at the step-N boundary; "
@@ -414,7 +441,7 @@ def main() -> None:
                              "error_rate": args.remote_error_rate,
                              "seed": args.remote_seed},
                 io_backend=args.io_backend, io_workers=args.io_workers,
-                resume=args.resume,
+                resume=args.resume, scrub_on_start=args.scrub_on_start,
                 fail_at=args.fail_at, seed=args.seed, log_csv=args.log_csv,
                 lr=args.lr, device=args.device, num_layers=args.num_layers)
     out.pop("losses")

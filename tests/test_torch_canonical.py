@@ -273,11 +273,17 @@ def test_limit_stops_the_encoder_early_in_bounded_memory():
 
 
 def test_compressed_and_corrupt_deltas_raise(monkeypatch):
+    """A zstd-compressed XD01 of the JAX package decodes (the port's own
+    zstd decoder) to JAX's bytes; a mangled frame in it, a bad magic and a
+    junk body raise."""
     monkeypatch.setattr(jax_workers, "HAVE_ZSTD", True)
-    blob = jax_workers.delta_encode(b"abcdef" * 50, b"abc", compress="zstd")
+    cur, base = b"abcdef" * 50, b"abc"
+    blob = jax_workers.delta_encode(cur, base, compress="zstd")
     assert blob[4] == 1
-    with pytest.raises(workers.CodecUnavailable, match="zstandard"):
-        workers.delta_decode(blob, b"abc")
+    assert bytes(workers.delta_decode(blob, base)) == \
+        jax_workers.delta_decode(blob, base) == cur
+    with pytest.raises(ChunkCorruption, match="zstd"):
+        workers.delta_decode(blob[:-3], base)
     with pytest.raises(ValueError, match="magic"):
         workers.delta_decode(b"XD02\x00", b"")
     with pytest.raises(ValueError):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import msgpack
 import repro.checkpoint.workers as jax_workers
 from repro.checkpoint.saver import CheckpointManager as JaxManager
 from repro.checkpoint.swap import WeightService as JaxWeightService
@@ -133,6 +134,10 @@ def _state_payload_bytes(registry, state):
 
 
 # ------------------------------------------------------------------ records
+def msgpack_unpack(blob):
+    return msgpack.unpackb(blob, raw=False)
+
+
 def _raw_items(seed):
     """Items of every kind the codec meets: float and bf16 tensors at and
     around 256 elements (quantized or not), an all-zero one, int and bool
@@ -202,21 +207,47 @@ def test_codec_resolution():
 
 def test_zstd_compressed_int8_records_raise_codec_unavailable(tmp_path,
                                                               monkeypatch):
-    monkeypatch.setattr(jax_workers, "HAVE_ZSTD", True)
+    """The JAX package's int8 records with ``comp: zstd`` (``zstandard``
+    installed) decode in the port (its own zstd decoder) to the records of
+    the same items written with ``comp: none``; a JAX store written so
+    restores in the port equal to JAX's restore of it.  No zstd record
+    raises ``CodecUnavailable`` any more: only a dictionary frame would."""
     items = _raw_items(0)
+    plain = jax_workers.encode_chunk_items(items, {}, "int8")
+    monkeypatch.setattr(jax_workers, "HAVE_ZSTD", True)
     blob = jax_workers.encode_chunk_items(items, {}, "int8")
-    with pytest.raises(workers.CodecUnavailable, match="zstandard"):
-        workers.decode_chunk_items(blob)
-    # a JAX store written so does not restore in the port, naming why
+    comps = {t["name"]: (t["codec"], (t.get("extra") or {}).get("comp"))
+             for t in msgpack_unpack(blob)["tensors"]}
+    assert ("int8", "zstd") in comps.values() \
+        and ("zstd", None) in comps.values()
+    _, got = workers.decode_chunk_items(blob)
+    _, want = workers.decode_chunk_items(plain)
+    assert len(got) == len(want) == len(items)
+    for (gn, gs, gd, graw), (wn, ws, wd, wraw) in zip(got, want):
+        assert (gn, gs, gd) == (wn, ws, wd)
+        if isinstance(wraw, workers.Int8Record):
+            assert (graw.n_q, graw.n_scale, graw.shape, graw.dtype) == \
+                (wraw.n_q, wraw.n_scale, wraw.shape, wraw.dtype)
+            graw, wraw = graw.data, wraw.data
+        assert bytes(graw) == bytes(wraw), gn
+    # a JAX store written so restores in the port as in JAX
     jmodel, _ = _jax_side("yi-9b")
+    s0 = _jax_state(jmodel)
     jm = _jax_mgr(tmp_path, "yi-9b")
-    jm.save(_jax_state(jmodel), step=2)
+    jm.save(s0, step=2)
+    jm.save(_poke(s0), step=4)
     jm.close()
     pmodel, _ = _port_side("yi-9b")
     pm = _port_mgr(tmp_path, "yi-9b")
-    with pytest.raises(workers.CodecUnavailable, match="zstandard"):
-        pm.restore(steps.state_specs(pmodel), device=CPU)
+    got_state = pm.restore(steps.state_specs(pmodel), device=CPU)
     pm.close()
+    jm = _jax_mgr(tmp_path, "yi-9b")
+    want_state = jax.tree.map(np.asarray,
+                              jm.restore(jax_steps.state_specs(jmodel)))
+    jm.close()
+    assert int(got_state["step"]) == int(want_state["step"]) == 4
+    _assert_np_equal(state_to_numpy(_np_state(got_state), bf16_dtype=BF16),
+                     _np_state(want_state))
 
 
 # ------------------------------------------------------------------- stores

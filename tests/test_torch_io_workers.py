@@ -330,7 +330,8 @@ def test_worker_errors_map_to_inline_exceptions(tmp_path, backend):
             d.call("decode_object", b"not msgpack", "ab" * 20, None, True)
         with pytest.raises(ChunkCorruption):
             d.call("decode_object", b"\x81\xa1v\x07", "ab" * 20, None, True)
-        with pytest.raises(workers.CodecUnavailable):
+        # a compressed XD01 body that is no zstd frame: corrupt
+        with pytest.raises(ChunkCorruption, match="zstd"):
             d.call("delta_decode", b"XD01\x01" + b"\x00" * 2000, b"")
         with pytest.raises(FileNotFoundError):
             d.call("file_read", str(tmp_path / "missing" / "nope.chunk"))

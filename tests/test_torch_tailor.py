@@ -18,10 +18,12 @@ import os
 import shutil
 import subprocess
 import sys
+import zlib
 from pathlib import Path
 
 import jax
 import ml_dtypes
+import msgpack
 import numpy as np
 import pytest
 import torch
@@ -515,13 +517,11 @@ def test_lossy_full_objects_are_checked_by_crc_alone():
 @pytest.mark.parametrize("store", ["xor_delta", "zstd"])
 def test_objects_the_port_cannot_decode_raise_unless_unverified(tmp_path,
                                                                 store):
-    """A JAX store with XOR-delta (canonical path) or zstd objects.  XOR
-    deltas are decoded now: the verifying merge is byte-identical to the
-    JAX merge, and a flipped byte in an XD01 payload raises
-    ``ChunkCorruption`` in both packages (no manifest).  zstd objects are
-    not: the verifying merge raises CodecUnavailable naming zstandard and
-    commits no manifest; --no-verify copies blob for blob, byte-identical
-    to the JAX merge."""
+    """A JAX store with XOR-delta (canonical path) or zstd objects: both
+    are decoded now (zstd by the port's own decoder), so the verifying
+    merge is byte-identical to the JAX merge, and so is ``--no-verify``.  A
+    flipped byte in an XD01 payload, or in a zstd record under a recomputed
+    crc32, raises ``ChunkCorruption`` in both packages (no manifest)."""
     src = tmp_path / "src"
     jmodel, jreg = _jax_side()
     kw = (dict(codec="none", fingerprint=False) if store == "xor_delta"
@@ -555,15 +555,39 @@ def test_objects_the_port_cannot_decode_raise_unless_unverified(tmp_path,
             merge(Recipe.load(recipes["port"]), workers=1, device="cpu")
         assert ManifestStore(tmp_path / "merged_port").all_steps() == []
         return
-    with pytest.raises(workers.CodecUnavailable, match="zstandard"):
-        merge(Recipe.load(recipes["port"]), device="cpu")
-    assert ManifestStore(tmp_path / "merged_port").all_steps() == []
-    shutil.rmtree(tmp_path / "merged_port")
+    envs = {}
+    for kinds in ManifestStore(src).load(6).entries.values():
+        for ref in kinds.values():
+            envs[ref.digest] = (src / ref.relpath, workers.parse_envelope(
+                (src / ref.relpath).read_bytes(), ref.digest))
+    fmts = {(e["format"], e.get("codec") or bytes(e["payload"][:5]))
+            for _, e in envs.values()}
+    # full zstd objects and zstd-compressed block deltas
+    assert ("full", "zstd") in fmts and ("block_delta", b"BD02\x01") in fmts
+    path, env = next(v for v in envs.values()
+                     if v[1].get("codec") == "zstd")
     jax_merge(JaxRecipe.load(recipes["jax"]), workers=2)
-    merge(Recipe.load(recipes["port"]), workers=2, verify=False,
-          device="cpu")
-    assert _tree_bytes(tmp_path / "merged_port") == \
-        _tree_bytes(tmp_path / "merged_jax")
+    for verify in (True, False):
+        merge(Recipe.load(recipes["port"]), workers=2, verify=verify,
+              device="cpu")
+        assert _tree_bytes(tmp_path / "merged_port") == \
+            _tree_bytes(tmp_path / "merged_jax")
+        shutil.rmtree(tmp_path / "merged_port")
+    shutil.rmtree(tmp_path / "merged_jax")
+    # a byte of a zstd record flipped under a recomputed crc32
+    payload = msgpack.unpackb(bytes(env["payload"]), raw=False)
+    t = payload["tensors"][0]
+    data = bytearray(t["data"])
+    data[len(data) // 2] ^= 0x10
+    t["data"] = bytes(data)
+    t["crc"] = zlib.crc32(t["data"]) & 0xFFFFFFFF
+    env = dict(env, payload=msgpack.packb(payload, use_bin_type=True))
+    path.write_bytes(_msgpack.packb(env))
+    with pytest.raises(JaxChunkCorruption):
+        jax_merge(JaxRecipe.load(recipes["jax"]), workers=1)
+    with pytest.raises(ChunkCorruption):
+        merge(Recipe.load(recipes["port"]), workers=1, device="cpu")
+    assert ManifestStore(tmp_path / "merged_port").all_steps() == []
 
 
 # -------------------------------------------------------------- blob level
