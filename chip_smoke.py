@@ -141,29 +141,33 @@ which exits non-zero:
       a cold-loaded server give one ``tokens_digest``; then 3a's store is
       removed; (a) 3a's failing run and resume on the canonical path (the
       resume without its step-6 event since 3l came: the cut that pays
-      for it): the resumed losses within MODE_TOL of 3a's, step 4's
+      for it; since 3m, 3h's runs write their objects on
+      CANON_WRITER_THREADS writer threads, not inline): the resumed
+      losses within MODE_TOL of 3a's, step 4's
       objects holding 3a's step-4 tensors (their canonical digests), no
       ``block_fp`` launch, the events recorded beside 3a's; (b) the
       unchanged re-save
-      of step 6's embed unit, from one restore of a hard-linked copy of
-      3a's step-6 store: fingerprinted on that copy (moves 0 B) and
-      canonical on (a)'s root (moves and hashes the unit, writes 0 B,
-      both objects dedup hits); (d) the merge CLI copies (a)'s step-4
-      XOR-delta weights units and their bases into a merge on step 4
-      (weights only), verified, byte for byte; (e) one canonical int8
+      of step 6's embed unit, from one restore of that unit from a
+      hard-linked copy of 3a's step-6 store: fingerprinted on that copy
+      (moves 0 B) and canonical on (a)'s root (moves and hashes the unit,
+      writes 0 B, both objects dedup hits); (d) the merge (in this
+      process; 3g drives the CLI) copies (a)'s step-4 XOR-delta weights
+      units and their bases into a merge on step 4 (weights only),
+      verified, byte for byte; (e) one canonical int8
       event and its restore, at 1 of the 2 layers (``CANON_INT8_LAYERS``,
       with (a)'s and 3e's the cut that pays for 3l): ``quantize`` and
       ``dequantize`` launched,
       block_000's objects equal to the CPU path's, the restored leaves to
       their records dequantized;
    i. the storage tiers in 3a's configuration, after 3h (budget 150 s):
-      (a) 3a's failing run and resume through ``store_backend="tiered"``
-      (a RAM hot tier of 4 GiB spilling to the disk tree): the resumed
+      (a) 3a's failing run and resume (no save) through
+      ``store_backend="tiered"`` (a RAM hot tier of 4 GiB spilling to the
+      disk tree): the resumed
       losses equal 3a's within MODE_TOL, steps 2 and 4 hold 3a's digests
       (recorded before 3h), every drained object hashes to its name, the
       disk tree passes the store checks of 3a; (c) servers through
-      ``tiered`` and ``local`` on (a)'s root (cold load of 4, hot-swap to
-      6) serve equal parameters and one ``tokens_digest``; (b)
+      ``tiered`` and ``local`` on (a)'s root (cold load of 2, hot-swap to
+      4) serve equal parameters and one ``tokens_digest``; (b)
       ``remote3`` (RAM -> disk -> a simulated bucket, 2 ms an op, 1%
       seeded faults) with the bucket down during event 2, which commits
       disk-durable and degraded, healed and drained to full replication;
@@ -212,17 +216,34 @@ which exits non-zero:
       (``quarantined_skipped``) without reading it, the unit's restored
       tensors fingerprinting on the card to the older object's table; the
       good bytes put back, a second scrub releases it and removes the file;
+   m. the resiliency supervisor, after 3h removed 3a's store (budget 100
+      s): ``repro_torch.launch.supervisor.Supervisor`` runs 3a's model and
+      data (policy ``full``, a save every 3 steps, 6 steps) as child
+      trainers on the card; attempt 0 is SIGKILLed at step 4, attempt 1
+      resumes and gets SIGTERM at step 4 (a preemption save of every unit,
+      exit 17), attempt 2 resumes and completes; the store scrubbed and a
+      weights-only restore probed between attempts, here on the card:
+      the kill loses at most 3 steps with event 3 committed, the
+      preemption none, merged losses equal 3a's reference within
+      MODE_TOL, every scrub checks what the manifests name and finds
+      nothing unrecoverable, a last probe reads step 6; the children
+      report this card, and ``block_fp`` and ``fused_adamw`` launched in
+      them, ``block_fp`` here;
 4. print the main paths' step/save/restore times, the serve line, the
    Mamba line, the int8 line, the merge line, the canonical path's
    ``{"legacy": ...}`` line, the tiers line, the ``{"io": ...}`` line,
-   the ``{"cache": ...}`` line, the ``{"scrub": ...}`` line, the kernels
-   line, the card line, and last
+   the ``{"cache": ...}`` line, the ``{"scrub": ...}`` line, the
+   ``{"supervisor": ...}`` line, the kernels line, the card line, and
+   last
    the ``{"ok": true, "device": ...}`` line; each phase logs its wall
    time; with ``--record PATH``, the full record of every phase also goes
    to PATH (written even when a check fails).
 
-The stores live under ``build/`` in this checkout and are removed at the
-end.
+The stores live under ``build/`` in this checkout; a part's store, once
+done with, is renamed into ``build/chip_smoke_trash`` and deleted on a
+background thread while the next part runs (``REMOVER``), and whatever
+is left goes at the end.  The child processes keep their bytecode under
+``build/pycache`` (``cache_bytecode``).
 """
 from __future__ import annotations
 
@@ -233,11 +254,13 @@ import glob
 import json
 import math
 import os
+import queue
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -318,6 +341,13 @@ SSM_TRAIN_LAYERS = 4
 # (with 3h (a)'s resume saving no event 6 and 3e's depth, the cut that
 # pays for phase 3l); every check of (e) stays
 CANON_INT8_LAYERS = 1
+# 3h's trainer runs write their objects (each object's blake2b, XOR diff,
+# framing and file write) on this many writer threads, not inline as 3a
+# does: the cut that pays for phase 3m (inline, a canonical event stalls
+# 36-72 s).  So 3h's events stand beside 3a's with two things changed,
+# the path and the writes (the record says ``writes`` and
+# ``writes_3a``).  Every check of 3h stays.
+CANON_WRITER_THREADS = 4
 SSM_BATCH = 4
 SSM_SEQ = 1024
 SSM_STEPS = 8
@@ -369,12 +399,92 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+# Trees a part is done with go here and are deleted behind the next part.
+TRASH = ROOT / "build" / "chip_smoke_trash"
+
+
+class _Remover:
+    """Deletes trees on one background thread: ``discard`` renames a tree
+    into TRASH (on the same filesystem: its path is free at once) and queues
+    its deletion, which runs while the next part does (an rmtree on the
+    H100 machine's root filesystem takes ~0.23 s per GB).  When fewer than
+    STORE_BYTES_NEEDED bytes are free, ``discard`` and ``free_bytes`` wait
+    for the queue first.  ``seconds`` adds up the deletions' time."""
+
+    def __init__(self) -> None:
+        self._queue: queue.Queue = queue.Queue()
+        self._thread = None
+        self._n = 0
+        self.seconds = 0.0
+
+    def discard(self, path: Path) -> None:
+        path = Path(path)
+        if not path.exists():
+            return
+        TRASH.mkdir(parents=True, exist_ok=True)
+        self._n += 1
+        dst = TRASH / f"{self._n:04d}-{path.name}"
+        os.rename(path, dst)
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._run, daemon=True,
+                                            name="chip-smoke-remover")
+            self._thread.start()
+        self._queue.put(dst)
+        self.free_bytes(TRASH)
+
+    def _run(self) -> None:
+        while True:
+            path = self._queue.get()
+            t = time.perf_counter()
+            shutil.rmtree(path, ignore_errors=True)
+            self.seconds += time.perf_counter() - t
+            self._queue.task_done()
+
+    def drain(self) -> None:
+        """Wait until every queued tree is deleted."""
+        self._queue.join()
+
+    def free_bytes(self, path: Path) -> int:
+        """The free bytes under ``path``, after the queue's deletions when
+        fewer than STORE_BYTES_NEEDED are free."""
+        free = shutil.disk_usage(path).free
+        if free < STORE_BYTES_NEEDED:
+            self.drain()
+            free = shutil.disk_usage(path).free
+        return free
+
+
+REMOVER = _Remover()
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def cache_bytecode() -> dict:
+    """Let the child processes this script starts (the merge CLI, the
+    supervisor's trainers, IO workers) keep the bytecode of what they
+    import under ``build/pycache``, also where the environment says not
+    to write bytecode (``PYTHONDONTWRITEBYTECODE``, which then stays set
+    for this process): where the Python installation holds none, every
+    process compiles torch's sources again (seconds for ``import
+    torch``, seconds more for the ``torch._dynamo`` that the first
+    ``torch.utils.checkpoint`` call imports).  Returns what this
+    interpreter says of its bytecode."""
+    import torch
+
+    tree = Path(torch.__file__).parent
+    out = {"dont_write_bytecode": sys.dont_write_bytecode,
+           "torch_pycache_files": len(list(
+               (tree / "__pycache__").glob("*.pyc")))}
+    os.environ.setdefault("PYTHONPYCACHEPREFIX",
+                          str(ROOT / "build" / "pycache"))
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    return out | {"pycache_prefix": os.environ["PYTHONPYCACHEPREFIX"]}
 
 
 def cuda_ms(fn, reps: int, torch) -> float:
@@ -861,7 +971,10 @@ def block_gather_at_main_shape(torch, dev, store: Path) -> dict:
         raise AssertionError(f"embed/opt of manifest 4 is from step "
                              f"{cur_ref.step}")
     base_tbl = mgr.store.load_fp_table(base_ref.digest)
-    state = mgr.restore(steps.state_specs(model), device=dev, step=4)
+    # the embed unit's optimizer state alone (the other units restore as
+    # zeros)
+    state = mgr.restore(steps.state_specs(model), device=dev, step=4,
+                        parts=("opt",), units=["embed"])
     mgr.close()
     tree = registry.extract_opt_unit(state["opt"], "embed")
     arrs = [a.contiguous() for _, a in flatten_with_paths(tree)]
@@ -1676,8 +1789,34 @@ def _entry_digests(root: Path, step: int) -> dict:
             for k, r in kinds.items()}
 
 
+def _fill(f, buf: bytearray) -> int:
+    """Read from ``f`` until ``buf`` is full or the file ends."""
+    view, n = memoryview(buf), 0
+    while n < len(buf):
+        k = f.readinto(view[n:])
+        if not k:
+            break
+        n += k
+    return n
+
+
 def _files_equal(a: Path, b: Path) -> bool:
-    return subprocess.run(["cmp", "-s", str(a), str(b)]).returncode == 0
+    """Whether two files hold the same bytes, read 64 MiB at a time
+    (``cmp`` reads a page at a time: 4 GiB took it 24.4 s on the H100
+    machine's root filesystem, where ``cat`` reads it in 1.2 s)."""
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    piece = 64 << 20
+    ba, bb = bytearray(piece), bytearray(piece)
+    with open(a, "rb", buffering=0) as fa, open(b, "rb", buffering=0) as fb:
+        while True:
+            na, nb = _fill(fa, ba), _fill(fb, bb)
+            if na != nb:
+                return False
+            if na < piece:
+                return ba[:na] == bb[:nb]
+            if ba != bb:
+                return False
 
 
 def phase_3g(torch, dev, store: Path, resumed_3a, out: dict) -> None:
@@ -1760,7 +1899,7 @@ def phase_3g(torch, dev, store: Path, resumed_3a, out: dict) -> None:
                              "the run's")
     _check_launched({"block_fp": cli["block_fp_launches"]}, ["block_fp"],
                     "the merge CLI")
-    shutil.rmtree(merged_a)
+    REMOVER.discard(merged_a)
     _release(torch)
 
     # (b) a Frankenstein and its zero-copy variant
@@ -1834,7 +1973,7 @@ def phase_3g(torch, dev, store: Path, resumed_3a, out: dict) -> None:
                              f"{base_differs}")
     _check_launched({"block_fp": merge_b_launches}, ["block_fp"],
                     "the merge of (b)")
-    shutil.rmtree(merged_b)
+    REMOVER.discard(merged_b)
     _release(torch)
 
     # (c) a flipped byte under a recomputed crc32
@@ -1864,11 +2003,11 @@ def phase_3g(torch, dev, store: Path, resumed_3a, out: dict) -> None:
     except ChunkCorruption as e:
         caught = str(e)
     committed = ManifestStore(merged_c).all_steps()
-    shutil.rmtree(merged_c)
+    REMOVER.discard(merged_c)
     merge(recipe_c, verify=False, device=dev)
     copied = _files_equal(merged_c / bad.relpath, bad_path)
-    shutil.rmtree(merged_c)
-    shutil.rmtree(scr)
+    REMOVER.discard(merged_c)
+    REMOVER.discard(scr)
     torch.cuda.synchronize()
     launches = _read_counts()
     out["c"] = {"caught": caught, "manifests_committed": committed,
@@ -1954,9 +2093,11 @@ def _state_bytes(state) -> int:
 def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
              out: dict) -> None:
     """The canonical save path (``ckpt_fingerprint=False``) at 3a's
-    configuration, the launch counts set to 0 before each part and read
-    after it: (c) on 3a's store, a resume to step 8 whose event writes
-    canonical objects over fp bases (their tables checked by ``block_fp``),
+    configuration, its objects written on CANON_WRITER_THREADS writer
+    threads (the cut that pays for phase 3m), the launch counts set to 0
+    before each part and read after it: (c) on 3a's store, a resume to
+    step 8 whose event writes canonical objects over fp bases (their
+    tables checked by ``block_fp``),
     then a weights-only cold load of 6 hot-swapped to 8, equal to a cold
     load of 8, and hot vs cold ``tokens_digest``; (a) 3a's run on the
     canonical path (fail at 5, resume to 6 with no event: 3a's events 2
@@ -1964,10 +2105,10 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     3l): resumed losses equal to 3a's within MODE_TOL, step 4's objects
     decoding to 3a's step-4 tensors, no ``block_fp`` launch; (b) the
     unchanged re-save of step 6's embed unit (its content saved at step 4)
-    from one restore of a hard-linked copy of 3a's step-6 store taken
-    before (c): fingerprint path on that copy, canonical on (a)'s root;
-    (d) the merge CLI copies (a)'s step-4 XOR-delta weights objects and
-    their bases into a merge on step 4 (weights only), verified, byte for
+    from one restore of that unit from a hard-linked copy of 3a's step-6
+    store taken before (c): fingerprint path on that copy, canonical on
+    (a)'s root; (d) the merge (in this process) copies (a)'s step-4
+    XOR-delta weights objects and their bases into a merge on step 4 (weights only), verified, byte for
     byte; (e) one canonical int8 event and its restore (``quantize``,
     ``dequantize``) at CANON_INT8_LAYERS (1) of 3a's 2 layers,
     block_000's objects equal to the CPU path's and the restored leaves to
@@ -1980,9 +2121,11 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     from repro_torch.checkpoint.saver import CheckpointManager
     from repro_torch.checkpoint.serial import flatten_with_paths
     from repro_torch.checkpoint.swap import WeightService
+    from repro_torch.core import Recipe, merge
     from repro_torch.core.layer_registry import LayerRegistry
     from repro_torch.core.manifest import ManifestStore
     from repro_torch.core.policies import make_policy
+    from repro_torch.kernels import block_fp as bfp
     from repro_torch.launch import steps
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import SimulatedFailure, train
@@ -1992,7 +2135,8 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     root = store / "3h"
     kw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
               batch=BATCH, seq_len=SEQ, policy_name="parity", seed=SEED,
-              device=str(dev), ckpt_async=False, ckpt_fingerprint=False)
+              device=str(dev), ckpt_async=True,
+              writer_threads=CANON_WRITER_THREADS, ckpt_fingerprint=False)
     model = _model()
     registry = LayerRegistry(model)
     like = steps.state_specs(model)
@@ -2081,7 +2225,7 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     # 3a's step-4 tensors, as (a) must store them; then 3a's store goes
     canon_3a = _canonical_digests(run3a, 4)
     disk["after_c"] = _used_bytes(store)
-    shutil.rmtree(store / "3a")
+    REMOVER.discard(store / "3a")
 
     # (a) 3a's run on the canonical path
     ta = time.perf_counter()
@@ -2110,12 +2254,15 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     out["a"] = {"losses_resumed": res_a["losses"],
                 "loss_diffs_vs_3a_resumed": diffs,
                 "events": _event_rows(events),
+                "writes": f"{CANON_WRITER_THREADS} writer threads",
                 "events_3a": _event_rows(rec_a["save_events"]),
+                "writes_3a": "inline",
                 "restore_on_resume": res_a["restore_stats"],
                 "event4_xd01": xd01_4}
     log(f"3h (a) resumed losses vs 3a: {diffs}; XD01 at event 4: {xd01_4}")
     for e, e3 in zip(out["a"]["events"], out["a"]["events_3a"]):
-        log(f"3h (a) event {e['step']}: {e} | 3a: {e3}")
+        log(f"3h (a) event {e['step']} ({CANON_WRITER_THREADS} writer "
+            f"threads): {e} | 3a (inline): {e3}")
     if [s for s, _ in res_a["losses"]] != [s for s, _ in want.items()] \
             or not all(d <= MODE_TOL for d in diffs.values()):
         raise AssertionError(f"3h (a): resumed losses off 3a's: {diffs}")
@@ -2134,18 +2281,20 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     _release(torch)
 
     # (b) the unchanged re-save of the embed unit, both paths, from one
-    # restore of the step-6 state (from the fingerprint root: the
+    # restore of its step-6 tensors (from the fingerprint root: the
     # canonical re-save's dedup hits prove it is (a)'s step 6 as well)
     tb = time.perf_counter()
     _zero_counts()
     fp_root = root / "fp_resave"
     mgr = CheckpointManager(fp_root, registry, policy, async_save=False)
-    state = mgr.restore(like, device=dev, step=STEPS)
+    # the embed unit alone (the other units restore as zeros)
+    state = mgr.restore(like, device=dev, step=STEPS, units=["embed"])
     resave = {}
     for path, where in (("fingerprint", fp_root), ("canonical", run)):
         if path == "canonical":
-            mgr = CheckpointManager(where, registry, policy,
-                                    async_save=False, fingerprint=False)
+            mgr = CheckpointManager(
+                where, registry, policy, fingerprint=False,
+                async_save=True, writer_threads=CANON_WRITER_THREADS)
         mgr.save(state, step=STEPS + 1, units=["embed"])
         resave[path] = dict(mgr.last_save_stats, unit_bytes=sum(
             x.numel() * x.element_size() for tree in (
@@ -2161,7 +2310,8 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
                                                          "seconds")}
                 for p, r in resave.items()}
     out["b"]["roots"] = ("the embed unit re-saved at step 7 from one "
-                         "restore of 3a's step-6 store (a hard-linked "
+                         "restore of that unit from 3a's step-6 store "
+                         "(a hard-linked "
                          "copy taken before (c)): fingerprint path on "
                          "that copy, canonical path on (a)'s root")
     out["b"]["seconds"] = time.perf_counter() - tb
@@ -2174,7 +2324,7 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     if not (rf["d2h_bytes"] == 0 and rf["written_bytes"] == 0
             and rf["dedup_hits"] == 2):
         raise AssertionError(f"3h (b): the fingerprint re-save {rf}")
-    shutil.rmtree(fp_root)
+    REMOVER.discard(fp_root)
 
     # (d) the merge of canonical objects: XOR deltas and their bases
     td = time.perf_counter()
@@ -2183,9 +2333,11 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     if not picked:
         raise AssertionError("3h (d): event 4 wrote no XD01 object to merge")
     merged = root / "merged"
-    cli = _tailor_cli(_write_recipe(root / "d.yaml", f"{run}@4",
-                                    merged, [(picked, f"{run}@4")],
-                                    optimizer=False), dev)
+    n0 = bfp.KERNEL.launches
+    stats_d = merge(Recipe.load(_write_recipe(
+        root / "d.yaml", f"{run}@4", merged, [(picked, f"{run}@4")],
+        optimizer=False)), workers=4, device=dev)
+    merge_d_launches = bfp.KERNEL.launches - n0
     objs = sorted((merged / "objects").glob("*/*.chunk"))
     fmts = [workers.parse_envelope(p.read_bytes(), p.stem)["format"]
             for p in objs]
@@ -2194,17 +2346,17 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
             lambda p: _files_equal(p, run / p.relative_to(merged)), objs))
     launches["d"] = _read_counts()
     disk["after_d"] = _used_bytes(store)
-    out["d"] = {"recipe_units_from_step4": picked, "merge": cli["stats"],
-                "merge_block_fp_launches": cli["block_fp_launches"],
+    out["d"] = {"recipe_units_from_step4": picked, "merge": stats_d,
+                "merge_block_fp_launches": merge_d_launches,
                 "objects": len(objs), "xd01_objects": fmts.count("delta"),
                 "seconds": time.perf_counter() - td}
-    log(f"3h (d) merge {cli['stats']}, {len(objs)} objects, "
+    log(f"3h (d) merge {stats_d}, {len(objs)} objects, "
         f"{fmts.count('delta')} XD01")
     if not fmts.count("delta") or not objs or not all(same):
         raise AssertionError(f"3h (d): no XD01 object merged ({fmts}), or a "
                              "merged object differs from its source")
-    shutil.rmtree(merged)
-    shutil.rmtree(root)
+    REMOVER.discard(merged)
+    REMOVER.discard(root)
     _release(torch)
 
     # (e) canonical int8: one event and its restore, at CANON_INT8_LAYERS
@@ -2240,7 +2392,7 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
         torch, dev, root_e, store / "3h_e_cpu", fingerprint=False,
         num_layers=CANON_INT8_LAYERS)
     out["e"]["seconds"] = time.perf_counter() - te
-    shutil.rmtree(root_e)
+    REMOVER.discard(root_e)
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 3h in {out['seconds']:.1f} s; launches {launches}")
 
@@ -2251,7 +2403,7 @@ TIER_REMOTE = {"latency": 0.002, "error_rate": 0.01, "seed": 0}
 
 
 def _check_free(store: Path, what: str) -> float:
-    free = shutil.disk_usage(store).free
+    free = REMOVER.free_bytes(store)
     if free < STORE_BYTES_NEEDED:
         raise RuntimeError(f"{what}: only {free / 1e9:.1f} GB free under "
                            f"{store}, want {STORE_BYTES_NEEDED / 1e9:.0f} GB")
@@ -2407,14 +2559,14 @@ def phase_3i(torch, dev, store: Path, rec_a: dict, out: dict) -> None:
 
     (a) ``store_backend="tiered"`` (RAM hot tier, 4 GiB budget, spill to
     the disk tree, no barrier): the run that fails at step 5 and its
-    resume to 6; the resumed losses equal 3a's within MODE_TOL, steps 2
+    resume to 6, which saves nothing; the resumed losses equal 3a's within MODE_TOL, steps 2
     and 4 hold 3a's digests, every drained object hashes to its name, the
     durable tree passes ``check_store``; per event the stall beside 3a's,
     ``durable_on`` and ``spill_pending`` at commit; the drain, hot bytes,
     evictions, reads per tier and the host's peak RSS recorded.
     (c) servers on (a)'s root at 2 layers (batch 8 x 1024, 128 tokens)
-    through ``tiered`` and ``local``: a weights-only cold load of 4
-    hot-swapped to 6 serves equal parameters and one ``tokens_digest``;
+    through ``tiered`` and ``local``: a weights-only cold load of 2
+    hot-swapped to 4 serves equal parameters and one ``tokens_digest``;
     the loads' and swaps' reads per tier recorded.
     (b) ``store_backend="remote3"`` (RAM -> disk -> remote; 2 ms per op, 1%
     seeded faults, seed 0), cut to event 2 to fit the budget: a run to
@@ -2491,8 +2643,9 @@ def phase_3i(torch, dev, store: Path, rec_a: dict, out: dict) -> None:
             raise AssertionError("3i (a): the checkpointed run did not fail")
         except SimulatedFailure as e:
             failed = e
+        # the resume saves nothing: (c) swaps 2 -> 4
         res = train(ckpt_dir=str(run_a), total_steps=STEPS,
-                    ckpt_interval=CKPT_INTERVAL, resume=True,
+                    ckpt_interval=STEPS + 1, resume=True,
                     store_backend="tiered", **kw)
     torch.cuda.synchronize()
     launches["a"] = _read_counts()
@@ -2532,8 +2685,8 @@ def phase_3i(torch, dev, store: Path, rec_a: dict, out: dict) -> None:
     skw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
                batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
                new_tokens=SERVE_NEW, seed=SEED, device=str(dev),
-               from_ckpt=str(run_a), from_step=4, hot_swap=True,
-               swap_wait=0.0)
+               from_ckpt=str(run_a), from_step=CKPT_INTERVAL,
+               hot_swap=True, swap_wait=0.0)
     runs, served = {}, {}
     for backend in ("tiered", "local"):
         with _served_params([]) as trees:
@@ -2560,10 +2713,11 @@ def phase_3i(torch, dev, store: Path, rec_a: dict, out: dict) -> None:
         raise AssertionError("3i (c): tiered and local loads and swaps "
                              "serve different parameters")
     if (len(set(out["c"]["tokens_digest"].values())) != 1
-            or set(out["c"]["served_step"].values()) != {STEPS}):
+            or set(out["c"]["served_step"].values())
+            != {2 * CKPT_INTERVAL}):
         raise AssertionError(f"3i (c): servers differ: {out['c']}")
     _check_launched(launches["c"], ("flash_attention",), "3i (c)")
-    shutil.rmtree(run_a)
+    REMOVER.discard(run_a)
 
     # (b) RAM -> disk -> remote, an outage on event 2, a lost disk copy;
     # cut to event 2 (the second cut of 3i to its 150-s budget)
@@ -2637,7 +2791,7 @@ def phase_3i(torch, dev, store: Path, rec_a: dict, out: dict) -> None:
                              "after the resume's drain")
     _check_launched(launches["b"], ("block_fp", "fused_adamw"), "3i (b)")
     out["b"]["seconds"] = time.perf_counter() - tb
-    shutil.rmtree(run_b)
+    REMOVER.discard(run_b)
     _release(torch)
 
     # (d) a merge from a live RAM tier, over TIER_MERGE_UNITS
@@ -2703,7 +2857,7 @@ def phase_3i(torch, dev, store: Path, rec_a: dict, out: dict) -> None:
         raise AssertionError(f"3i (d): block_fp launched "
                              f"{launches['d_merge']['block_fp']} times for "
                              f"{stats['chunks']} copied objects")
-    shutil.rmtree(root)
+    REMOVER.discard(root)
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 3i in {out['seconds']:.1f} s; launches {launches}")
 
@@ -2924,7 +3078,7 @@ def phase_3j(torch, dev, store: Path, rec_a: dict, out: dict) -> None:
     out["b"].update({"steps": steps_b, "digests_equal": digests_equal,
                      "objects_named": named, "sizes_equal": sizes_equal,
                      "seconds": time.perf_counter() - tb})
-    shutil.rmtree(run_b, ignore_errors=True)
+    REMOVER.discard(run_b)
     log(f"3j (b) {out['b']}")
     if not digests_equal or not sizes_equal:
         raise AssertionError("3j (b): the process backend's entries or "
@@ -3475,7 +3629,7 @@ def phase_3l(torch, dev, store: Path, out: dict) -> None:
         "quarantine_file_removed": not (copy / "QUARANTINE.json").exists(),
         "seconds": time.perf_counter() - tr}
     out["b"]["seconds"] = time.perf_counter() - tb
-    shutil.rmtree(copy)
+    REMOVER.discard(copy)
     out["seconds"] = time.perf_counter() - t0
     out["within_budget"] = out["seconds"] <= SCRUB_BUDGET_S
     log(f"3l (b) release {out['b']['release']}; phase 3l in "
@@ -3489,6 +3643,156 @@ def phase_3l(torch, dev, store: Path, out: dict) -> None:
         raise AssertionError(f"3l (b): the release scrub launched block_fp "
                              f"{launches['b_release']['block_fp']} times, "
                              f"want {n_table}")
+
+
+# ---------------------------------------------------------------- phase 3m
+# Phase 3m: its budget, stated before its first run (three events of ~10
+# s at 3a's event 2, two restores of ~8 s, three process starts, two
+# scrubs of 6-11 s as 3l's, two params-only probes) and its drill.
+SUPERVISOR_BUDGET_S = 100.0
+SUP_STEPS = 6
+SUP_INTERVAL = 3
+SUP_KILL_AT = 4
+SUP_TERM_AT = 4
+
+
+def phase_3m(torch, dev, store: Path, ref: dict, out: dict) -> None:
+    """The resiliency supervisor at 3a's configuration (model, data, seed,
+    lr; policy ``full``, a save every SUP_INTERVAL steps, SUP_STEPS
+    steps), after 3h removed 3a's store, the launch counts set to 0 before
+    it and read after it.  Budget: SUPERVISOR_BUDGET_S.  Fills ``out``
+    before its checks.
+
+    ``Supervisor`` runs ``python -m repro_torch.launch.train`` on the card
+    as a child: attempt 0 is SIGKILLed once it reports step SUP_KILL_AT
+    (event 3 committed), attempt 1 resumes and gets SIGTERM at step
+    SUP_TERM_AT (a preemption save of every unit one or two steps later,
+    exit 17), attempt 2 resumes from it, commits event 6 and exits 0;
+    between attempts the supervisor scrubs the store and probes a
+    weights-only restore, both on the card in this process.  Checks (the
+    JAX package's acceptance drill, ``tests/test_resiliency.py``): the run
+    completes; the kill loses at most SUP_INTERVAL steps with event 3
+    committed; the preemption loses none and commits the step it reached;
+    every MTTR window closes; no probe falls back; goodput in (0, 1]; the
+    merged losses cover every step, each within MODE_TOL of 3a's
+    uninterrupted run ``ref`` (policies do not change training); a last
+    probe reads step SUP_STEPS with no fallback; each scrub finds nothing
+    unrecoverable and checks as many objects as the manifests name; the
+    preempted and the completed child ran on this card (their
+    ``device`` and ``peak_device_bytes``) and launched ``fused_adamw``
+    and ``block_fp``; the scrubs and probes launched ``block_fp``
+    here."""
+    from repro_torch.core.manifest import ManifestStore
+    from repro_torch.launch import elastic
+    from repro_torch.launch.supervisor import (EXIT_PREEMPTED, Injection,
+                                               Supervisor, merged_losses)
+
+    t0 = time.perf_counter()
+    log(f"phase 3m: budget {SUPERVISOR_BUDGET_S:.0f} s")
+    _release(torch)
+    root = store / "3m"
+    ckpt = root / "ckpt"
+    _zero_counts()
+    sup = Supervisor(
+        ckpt, run_dir=root / "run", arch=ARCH, reduced=REDUCED,
+        num_layers=NUM_LAYERS, batch=BATCH, seq_len=SEQ, seed=SEED,
+        policy="full", steps=SUP_STEPS, interval=SUP_INTERVAL,
+        injections=[Injection("kill", at_step=SUP_KILL_AT),
+                    Injection("sigterm", at_step=SUP_TERM_AT)],
+        verify_restore=True, scrub_on_restart=True, io_backend="thread",
+        device=str(dev), max_restarts=0, attempt_timeout=300)
+    report = sup.run()
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    _release(torch)
+    _zero_counts()
+    final = elastic.probe_restore(ckpt, ARCH, reduced=REDUCED,
+                                  num_layers=NUM_LAYERS, device=dev)
+    final["block_fp_launches"] = _read_counts()["block_fp"]
+    _release(torch)
+    merged = merged_losses(root / "run")
+    # the digests that the manifests on disk named when each scrub ran
+    # (those up to the step then committed: nothing is removed at keep 8)
+    ms = ManifestStore(ckpt)
+    named = {s: set(ms.load(s).digest_provenance()) for s in ms.all_steps()}
+    scrubs = [dict(i["scrub"], named_digests=len(set().union(
+        *(d for s, d in named.items() if s <= i["committed_step"]))))
+        for i in report["interruptions"] if i.get("scrub")]
+    probes = [i["restore_probe"] for i in report["interruptions"]]
+    ref_loss = dict(ref["losses"])
+    diffs = {s: abs(l - ref_loss[s]) for s, l in merged.items()}
+    attempts = report["attempts"]
+    child_launches = {
+        a["attempt"]: (a["result"] or {}).get("kernel_launches")
+        for a in attempts}
+    out.update({
+        "config": f"{ARCH} full width, {NUM_LAYERS} layers, batch {BATCH}, "
+                  f"seq {SEQ}, full, ckpt every {SUP_INTERVAL}, "
+                  f"{SUP_STEPS} steps, kill at {SUP_KILL_AT}, sigterm at "
+                  f"{SUP_TERM_AT}, thread IO backend",
+        "report": report, "scrubs": scrubs, "probes": probes,
+        "final_probe": final, "merged_losses": merged,
+        "loss_diffs_vs_3a_reference": diffs, "launches": launches,
+        "child_launches": child_launches})
+    # the phase's seconds end once its store is out of the way (its
+    # deletion runs behind the next phase)
+    REMOVER.discard(root)
+    out["seconds"] = time.perf_counter() - t0
+    out["within_budget"] = out["seconds"] <= SUPERVISOR_BUDGET_S
+    for a in attempts:
+        log(f"3m attempt {a['attempt']}: exit {a['exit_code']}, "
+            f"{a['steps_executed']} steps to {a['reached_step']} in "
+            f"{a['seconds']:.1f} s, first progress after "
+            f"{a['launch_to_first_progress']:.1f} s, startup "
+            f"{a['startup']}, result {a['result']}")
+    for i in report["interruptions"]:
+        log(f"3m interruption {i}")
+    log(f"3m scrubs {scrubs}; probes {probes}; final probe {final}; loss "
+        f"diffs vs 3a {diffs}; phase 3m in {out['seconds']:.1f} s (to its "
+        f"store's discard) of its {SUPERVISOR_BUDGET_S:.0f}-s budget, "
+        f"launches {launches}")
+    if not report["completed"] or len(report["interruptions"]) != 2:
+        raise AssertionError(f"3m: the supervised run: {report}")
+    kill, preempt = report["interruptions"]
+    if not (kill["kind"] == "kill" and not kill["preempted"]
+            and 0 <= kill["lost_steps"] <= SUP_INTERVAL
+            and kill["committed_step"] >= SUP_INTERVAL):
+        raise AssertionError(f"3m: the kill {kill}")
+    if not (preempt["kind"] == "sigterm" and preempt["preempted"]
+            and preempt["exit_code"] == EXIT_PREEMPTED
+            and preempt["lost_steps"] == 0
+            and preempt["committed_step"] == preempt["reached_step"]):
+        raise AssertionError(f"3m: the preemption {preempt}")
+    for i in (kill, preempt):
+        if i["mttr_seconds"] is None or i["restore_probe"]["fallback_units"]:
+            raise AssertionError(f"3m: an open MTTR window or a probe that "
+                                 f"fell back: {i}")
+    if not 0 < report["goodput_steps"] <= 1:
+        raise AssertionError(f"3m: goodput_steps {report['goodput_steps']}")
+    if sorted(merged) != list(range(SUP_STEPS)) or \
+            not all(d <= MODE_TOL for d in diffs.values()):
+        raise AssertionError(f"3m: merged losses off 3a's reference: "
+                             f"{diffs}")
+    if final["step"] != SUP_STEPS or final["fallback_units"]:
+        raise AssertionError(f"3m: the last probe {final}")
+    if len(scrubs) != 2 or any(
+            s["unrecoverable"] or s["checked_objects"] != s["named_digests"]
+            for s in scrubs):
+        raise AssertionError(f"3m: the scrubs between attempts: {scrubs}")
+    on_card = dev.type == "cuda"
+    name = torch.cuda.get_device_name(dev) if on_card else "cpu"
+    for a in attempts[1:]:
+        r = a["result"] or {}
+        if r.get("device") != name or (on_card and
+                                       not r.get("peak_device_bytes")):
+            raise AssertionError(f"3m: attempt {a['attempt']} did not run "
+                                 f"on {name}: {r}")
+    # (the last attempt runs no step when the preemption came at the end)
+    _check_launched({k: sum(a["result"]["kernel_launches"][k]
+                            for a in attempts[1:])
+                     for k in ("fused_adamw", "block_fp")},
+                    ("fused_adamw", "block_fp"), "3m's children")
+    _check_launched(launches, ("block_fp",), "3m's scrubs and probes")
 
 
 _EVENT_KEYS = ("step", "selected_units", "snapshot_seconds", "stage_seconds",
@@ -3530,7 +3834,7 @@ def phase_3b(torch, dev, store: Path, ref: dict, out: dict) -> None:
     # saving does not change training: the control resumes without saves
     ctl_res = train(ckpt_dir=str(ctl), resume=True,
                     **{**kw, "ckpt_interval": OV_STEPS + 1})
-    shutil.rmtree(ctl, ignore_errors=True)
+    REMOVER.discard(ctl)
     torch.cuda.empty_cache()
 
     run = store / "run"
@@ -3668,7 +3972,7 @@ def _check_cpu_path_objects(torch, dev, run: Path, scratch: Path,
                      "cpu_path_d2h_bytes": acc["d2h_bytes"]}
         del host
     cpu.close()
-    shutil.rmtree(scratch, ignore_errors=True)
+    REMOVER.discard(scratch)
     del state
     _release(torch)
     log(f"{what}: event 2's block_000 objects equal the CPU path's: {out}")
@@ -3941,7 +4245,7 @@ def phase_3e_train(torch, dev, store: Path, out: dict) -> None:
         sigs = {s: _signature(root, s) for s in (2, 4)}
         _release(torch)
         res = train(resume=True, **{**ckw, **no_saves})
-        shutil.rmtree(root, ignore_errors=True)
+        REMOVER.discard(root)
         _release(torch)
         return events, sigs, res
 
@@ -3950,7 +4254,7 @@ def phase_3e_train(torch, dev, store: Path, out: dict) -> None:
     t0 = time.perf_counter()
     ref = train(ckpt_dir=str(store / "ref"), **{**kw, **no_saves})
     peak_ref = torch.cuda.max_memory_allocated(dev)
-    shutil.rmtree(store / "ref", ignore_errors=True)
+    REMOVER.discard(store / "ref")
     full_events, _, full_res = control("full_control", "full")
     ctl_events, ctl_sigs, ctl_res = control("sync_control", "topk_delta")
 
@@ -4550,7 +4854,7 @@ def phase_3e(torch, dev, store: Path, out: dict) -> None:
                    out["store"], model=build_model(_ssm_train_cfg()),
                    serve_kw=dict(arch=SSM_ARCH, reduced=REDUCED,
                                  num_layers=SSM_TRAIN_LAYERS), drift=False)
-    shutil.rmtree(store, ignore_errors=True)
+    REMOVER.discard(store)
     serve_full_depth(torch, dev, out["serve"], SSM_ARCH,
                      {"flash_attention": 0, "ssd_scan": cfg.num_layers},
                      DECODE_SSM_TOL)
@@ -4593,6 +4897,45 @@ def write_record(record: dict, path) -> None:
         path.write_text(json.dumps(record, indent=1))
 
 
+def supervisor_summary(mp_m: dict) -> dict:
+    """3m's line: per interruption its losses and MTTR with MTTR's parts
+    (the scrub and the probe here, then the next attempt's start: its
+    interpreter and imports, the card's context, the model, the restore),
+    per attempt its steps and seconds, both goodputs and the phase's
+    seconds against its budget."""
+    rep = mp_m["report"]
+    attempts = rep["attempts"]
+    inter = []
+    for i in rep["interruptions"]:
+        nxt = attempts[i["attempt"] + 1]
+        inter.append({
+            **{k: i[k] for k in ("kind", "exit_code", "reached_step",
+                                 "committed_step", "lost_steps",
+                                 "lost_seconds", "mttr_seconds")},
+            "mttr_parts": {
+                "scrub_seconds": i["scrub"]["seconds"],
+                "probe_seconds": i["restore_probe"]["seconds"],
+                "launch_to_first_progress": nxt["launch_to_first_progress"],
+                "next_startup": nxt["startup"]}})
+    return {
+        "interruptions": inter,
+        "attempts": [{k: a[k] for k in ("exit_code", "steps_executed",
+                                        "reached_step", "seconds")}
+                     | {k: (a["result"] or {}).get(k) for k in (
+                         "peak_device_bytes", "kernels_compiled",
+                         "exit_seconds")}
+                     | {"first_step_seconds": ((a["result"] or {}).get(
+                         "step_seconds") or [None])[0]}
+                     for a in attempts],
+        "goodput_steps": rep["goodput_steps"],
+        "goodput_wall": rep["goodput_wall"],
+        "scrubs": mp_m["scrubs"], "final_probe": mp_m["final_probe"],
+        "loss_diffs_vs_3a_reference": mp_m["loss_diffs_vs_3a_reference"],
+        "launches": mp_m["launches"], "seconds": mp_m["seconds"],
+        "within_budget": mp_m["within_budget"],
+        "budget_seconds": SUPERVISOR_BUDGET_S}
+
+
 def report(record: dict, path) -> None:
     """Fill the kernels' launch counts from the main paths, rewrite the
     record, log the per-event split and print the summary lines."""
@@ -4614,11 +4957,10 @@ def report(record: dict, path) -> None:
         k["launches_merge_path"] = mp["3g"]["launches"][k["name"]] + (
             mp["3g"]["a"]["merge_block_fp_launches"]
             if k["name"] == "block_fp" else 0)
-        # the canonical path (3h), summed over its parts
+        # the canonical path (3h), summed over its parts (its merge runs
+        # in this process)
         k["launches_canonical_path"] = sum(
-            c[k["name"]] for c in mp["3h"]["launches"].values()) + (
-            mp["3h"]["d"]["merge_block_fp_launches"]
-            if k["name"] == "block_fp" else 0)
+            c[k["name"]] for c in mp["3h"]["launches"].values())
         # the storage tiers (3i), by part
         k["launches_tiers_path"] = {
             part: c[k["name"]] for part, c in mp["3i"]["launches"].items()}
@@ -4634,6 +4976,12 @@ def report(record: dict, path) -> None:
         # the scrub (3l), by part
         k["launches_scrub_path"] = {
             part: c[k["name"]] for part, c in mp["3l"]["launches"].items()}
+        # the supervised drill (3m): the scrubs and probes in this process,
+        # and each child that reported its counts (a killed one cannot)
+        k["launches_supervisor_path"] = {
+            "supervisor": mp["3m"]["launches"][k["name"]],
+            "children": {a: (c or {}).get(k["name"]) for a, c in
+                         mp["3m"]["child_launches"].items()}}
     write_record(record, path)
     a_secs = {e["step"]: e["seconds"] for e in mp_a["save_events"]}
     ctl_secs = {e["step"]: e["seconds"]
@@ -4744,8 +5092,8 @@ def report(record: dict, path) -> None:
             "event8_xd01_over_fp_bases",
             "launches_when_the_resume_restore_ended", "swap_6_to_8", "tokens_digest", "seconds")},
         "a_canonical_run": {k: mp_h["a"][k] for k in (
-            "loss_diffs_vs_3a_resumed", "events", "events_3a",
-            "event4_xd01", "step4_equal_3a", "seconds")}
+            "loss_diffs_vs_3a_resumed", "events", "writes", "events_3a",
+            "writes_3a", "event4_xd01", "step4_equal_3a", "seconds")}
         | {"restore_seconds": mp_h["a"]["restore_on_resume"]["seconds"]},
         "b_resave": mp_h["b"], "d_merge": mp_h["d"],
         "e_int8": {k: mp_h["e"][k] for k in (
@@ -4830,6 +5178,7 @@ def report(record: dict, path) -> None:
         | {"block_fp_launches": mp_l["launches"]["b_release"]["block_fp"]},
         "b_seconds": mp_l["b"]["seconds"], "seconds": mp_l["seconds"],
         "budget_seconds": SCRUB_BUDGET_S} | card}))
+    print(json.dumps({"supervisor": supervisor_summary(mp["3m"]) | card}))
     print(json.dumps({"kernels": [k | card for k in kernels]}))
 
 
@@ -4847,6 +5196,7 @@ def main() -> int:
 
     card = card_line()
     log(f"card: {card}")
+    log(f"bytecode: {cache_bytecode()}")
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4873,6 +5223,7 @@ def main() -> int:
 
     store = ROOT / "build" / "chip_smoke_store"
     shutil.rmtree(store, ignore_errors=True)
+    shutil.rmtree(TRASH, ignore_errors=True)
     store.mkdir(parents=True)
     free = shutil.disk_usage(store).free
     log(f"{free / 1e9:.1f} GB free under {store}")
@@ -4885,7 +5236,7 @@ def main() -> int:
                             "3d": {"serve": {}, "store": {}},
                             "3e": {"train": {}, "store": {}, "serve": {}},
                             "3f": {}, "3g": {}, "3h": {}, "3i": {},
-                            "3j": {}, "3k": {}, "3l": {}}}
+                            "3j": {}, "3k": {}, "3l": {}, "3m": {}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
@@ -4906,9 +5257,11 @@ def main() -> int:
         phase_3l(torch, dev, store, mp["3l"])
         log(f"phase 3l done at {time.perf_counter() - t_start:.1f} s")
         phase_3h(torch, dev, store, ref, mp["3a"], mp["3h"])
-        shutil.rmtree(store / "3a", ignore_errors=True)
+        REMOVER.discard(store / "3a")
         torch.cuda.empty_cache()
         log(f"phase 3h done at {time.perf_counter() - t_start:.1f} s")
+        phase_3m(torch, dev, store, ref, mp["3m"])
+        log(f"phase 3m done at {time.perf_counter() - t_start:.1f} s")
         phase_3i(torch, dev, store, mp["3a"], mp["3i"])
         log(f"phase 3i done at {time.perf_counter() - t_start:.1f} s")
         phase_3b(torch, dev, store / "3b", ref, mp["3b"])
@@ -4919,11 +5272,11 @@ def main() -> int:
                        mp["3b"]["restore_on_resume"]["bytes_read"],
                        mp["3d"]["store"])
         log(f"phase 3d (store) done at {time.perf_counter() - t_start:.1f} s")
-        shutil.rmtree(store / "3b", ignore_errors=True)
+        REMOVER.discard(store / "3b")
         phase_3f(torch, dev, store / "3f", ref, mp["3f"],
                  {"3a_events": mp["3a"]["save_events"],
                   "3d_store": mp["3d"]["store"]})
-        shutil.rmtree(store / "3f", ignore_errors=True)
+        REMOVER.discard(store / "3f")
         log(f"phase 3f done at {time.perf_counter() - t_start:.1f} s")
         mp["3c"].update(phase_3c(torch, dev, store / "3c"))
         log(f"phase 3c done at {time.perf_counter() - t_start:.1f} s")
@@ -4932,7 +5285,11 @@ def main() -> int:
         phase_3e(torch, dev, store / "3e", mp["3e"])
         log(f"phase 3e done at {time.perf_counter() - t_start:.1f} s")
     finally:
+        REMOVER.drain()
+        record["removal_seconds"] = REMOVER.seconds
+        log(f"trees deleted behind the phases in {REMOVER.seconds:.1f} s")
         shutil.rmtree(store, ignore_errors=True)
+        shutil.rmtree(TRASH, ignore_errors=True)
         write_record(record, args.record)
     report(record, args.record)
     print(card)

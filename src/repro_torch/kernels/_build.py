@@ -58,6 +58,9 @@ class _Builder:
         self._lock = threading.Lock()
         self._libs: Dict[str, ctypes.CDLL] = {}
         self.logs: Dict[str, str] = {}
+        # the libraries this process compiled (a library found built is
+        # loaded, not compiled)
+        self.compiled: List[str] = []
 
     def build(self, names: Iterable[str]) -> Dict[str, Path]:
         """Compile every library in ``names`` that is not built yet, all
@@ -90,6 +93,7 @@ class _Builder:
             else:
                 paths[n].with_suffix(".log").write_text(self.logs[n])
                 os.replace(tmp, paths[n])
+                self.compiled.append(n)
         if errors:
             raise KernelBuildError("\n".join(errors))
         return paths

@@ -50,14 +50,37 @@ checkpointing and Frankenstein resume, on the card by default.
   first, tables checked on ``--device``: corrupt tier copies repaired from
   a good one, the unrecoverable quarantined so the resume's plan skips
   them; the result carries its report (``scrub_report``),
+- ``--fail-mode exit`` makes an armed crash point end the process at once
+  (``os._exit`` with ``faults.EXIT_CRASHED``, 43: no unwinding, no
+  flushing) instead of raising: the supervisor's crash drills,
+- ``--handle-sigterm`` turns SIGTERM into a preemption: the handler only
+  sets a flag, and at the next step boundary the trainer commits a save of
+  every unit with the durability barrier waived, drains the spill backlog
+  and exits with ``EXIT_PREEMPTED`` (17): nothing committed is lost and no
+  queued write is abandoned,
+- ``--progress-file`` appends ``kind,step,unix-time`` lines (``start``,
+  ``step``, ``ckpt``, ``preempt``, ``preempt_durable``, ``done``), the
+  feed the supervisor (``launch/supervisor.py``) tails,
+- ``--log-csv`` gets a ``step,loss`` line as each step ends (flushed, so
+  a process killed mid-run leaves the steps it ran; the JAX package
+  writes the file at the run's end),
+- ``--shard-participants`` takes 1 only: sharded saves are ROADMAP A4,
 - ``--device cpu`` is the only way onto the CPU; ``--num-layers`` cuts the
   depth of a config (a full-width state that does not fit the card).
+
+Exit codes of the CLI: 0 the run completed, ``EXIT_PREEMPTED`` (17) a
+preemption save committed, ``faults.EXIT_CRASHED`` (43) an armed crash
+point in ``--fail-mode exit``, anything else a failure.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
+import signal
+import sys
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Optional, Union
@@ -75,10 +98,19 @@ from repro_torch.core.layer_registry import LayerRegistry
 from repro_torch.core.policies import make_policy
 from repro_torch.data.synthetic import SyntheticTokens
 from repro_torch.devices import resolve_device
+from repro_torch.kernels import _build
+from repro_torch.kernels import block_fp as bfp
+from repro_torch.kernels import block_gather as bg
+from repro_torch.kernels import fused_adamw as fadam
+from repro_torch.kernels import quantize as qz
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import build_model
 
 log = logging.getLogger("repro_torch.train")
+
+#: Exit code of a clean preemption (SIGTERM handled, the save committed):
+#: the supervisor restarts the run but does not count it as a crash.
+EXIT_PREEMPTED = 17
 
 POLICIES = ("full", "parity", "filtered", "interval", "topk_delta")
 _SPLIT = ("snapshot_seconds", "stage_seconds", "writeback_seconds",
@@ -95,6 +127,44 @@ class SimulatedFailure(RuntimeError):
         self.save_events = list(save_events)
 
 
+class _Lines:
+    """Lines written to ``path`` (nothing when it is None), each flushed
+    as it is written: the reader may be another process, and the writer
+    may die at any moment."""
+
+    def __init__(self, path: Optional[str], mode: str = "a"):
+        self._f = None
+        if path:
+            Path(path).parent.mkdir(parents=True, exist_ok=True)
+            self._f = open(path, mode, buffering=1)
+
+    def write(self, line: str) -> None:
+        if self._f is not None:
+            self._f.write(line + "\n")
+            self._f.flush()
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+
+
+class _Progress(_Lines):
+    """The supervisor's feed: one ``kind,step,unix-time`` line per
+    event."""
+
+    def emit(self, kind: str, step: int) -> None:
+        self.write(f"{kind},{step},{time.time():.6f}")
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """This process's launch counts of the training path's kernels."""
+    return {"block_fp": bfp.KERNEL.launches,
+            "fused_adamw": fadam.KERNEL.launches,
+            "block_gather": bg.KERNEL.launches,
+            "quantize": qz.QUANTIZE.launches,
+            "dequantize": qz.DEQUANTIZE.launches}
+
+
 def _close_quietly(ov: Optional[OverlappedSaver],
                    mgr: CheckpointManager) -> None:
     """Failure path: drop the in-flight event and shut the writer down
@@ -106,6 +176,30 @@ def _close_quietly(ov: Optional[OverlappedSaver],
             close()
         except Exception as e:  # noqa: BLE001
             log.warning("close after failure: %r", e)
+
+
+@contextlib.contextmanager
+def _preemption_flag(handle_sigterm: bool):
+    """A flag that SIGTERM sets while the block runs (``handle_sigterm``);
+    the handler it replaced comes back on the way out.  Only the flag is
+    set: the save happens on the training thread at the next step
+    boundary, where the state is whole."""
+    flag = threading.Event()
+    installed = False
+    if handle_sigterm:
+        try:
+            prev = signal.signal(signal.SIGTERM,
+                                 lambda signum, frame: flag.set())
+            installed = True
+        except ValueError:
+            log.warning("cannot install SIGTERM handler off the main "
+                        "thread; preemption handling disabled")
+    try:
+        yield flag
+    finally:
+        if installed:
+            signal.signal(signal.SIGTERM,
+                          signal.SIG_DFL if prev is None else prev)
 
 
 def train(
@@ -138,11 +232,25 @@ def train(
     device=None,
     num_layers: Optional[int] = None,
     scrub_on_start: bool = False,
+    shard_participants: int = 1,
+    fail_mode: str = "raise",
+    handle_sigterm: bool = False,
+    progress_file: Optional[str] = None,
 ) -> Dict:
+    started = time.time()
+    if shard_participants != 1:
+        raise ValueError(f"shard_participants={shard_participants}: sharded "
+                         "saves are not ported yet (ROADMAP A4); the port "
+                         "saves with 1 participant")
+    t = time.perf_counter()
     dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)   # the card's context, timed here
+    startup = {"device_seconds": time.perf_counter() - t}
     fail_step, fail_point, fail_hit = (None, None, 1)
     if fail_at is not None:
         fail_step, fail_point, fail_hit = faults.parse_fail_at(fail_at)
+    t = time.perf_counter()
     cfg = get_config(arch, reduced=reduced)
     if num_layers is not None:
         cfg = cfg.replace(num_layers=int(num_layers))
@@ -175,177 +283,231 @@ def train(
     data = SyntheticTokens(vocab_size=cfg.vocab_size, batch=batch,
                            seq_len=seq_len, seed=seed)
     train_step = steps_lib.make_train_step(model, tcfg, registry)
+    startup["build_seconds"] = time.perf_counter() - t
 
-    scrub_report = None
-    if scrub_on_start:
-        # fsck before the store is touched: repair corrupt tier copies from
-        # a good one and quarantine the unrecoverable, so the resume's plan
-        # skips them up front
+    with _preemption_flag(handle_sigterm) as preempt_flag, \
+            contextlib.closing(_Progress(progress_file)) as progress, \
+            contextlib.closing(_Lines(log_csv, "w")) as loss_log:
+        scrub_report = None
+        t = time.perf_counter()
+        if scrub_on_start:
+            # fsck before the store is touched: repair corrupt tier copies
+            # from a good one and quarantine the unrecoverable, so the
+            # resume's plan skips them up front
+            try:
+                scrub_report = mgr.scrub(device=dev)
+            except BaseException:
+                _close_quietly(ov, mgr)
+                raise
+            log.info("scrub-on-start: %d object(s) checked, %d repaired, "
+                     "%d unrecoverable", scrub_report["checked_objects"],
+                     len(scrub_report["repaired"]),
+                     len(scrub_report["unrecoverable"]))
+        startup["scrub_seconds"] = time.perf_counter() - t
+        t = time.perf_counter()
+        restore_stats = None
+        if resume:
+            state = mgr.restore(steps_lib.state_specs(model), device=dev)
+            restore_stats = mgr.last_restore_stats
+            meta = mgr.restore_meta()
+            if "data_state" in meta:
+                data.load_state(meta["data_state"])
+            start = int(state["step"])
+            log.info("resumed at step %d (policy=%s)", start, policy.name)
+        else:
+            state = steps_lib.init_state(model, seed, dev)
+            start = 0
+            if tracker:
+                tracker.reset(state["params"])
+        startup["state_seconds"] = time.perf_counter() - t
+        preempted_at: Optional[int] = None
+        progress.emit("start", start)
+
+        def event_meta():
+            return {"data_state": data.state_dict(), "arch": arch,
+                    "reduced": reduced, "tcfg": tcfg.to_json()}
+
+        losses, step_seconds, save_events = [], [], []
+        # event step -> seconds of the steps whose tick served that event
+        tick_seconds: Dict[int, List[float]] = {}
+
+        def absorb_event(manifest) -> None:
+            """Account one committed event (either mode) and, for an
+            overlapped one, advance the tracker to its snapshot
+            fingerprints."""
+            ev = dict(mgr.last_save_stats)
+            # the same list the loop appends to: a commit may precede the
+            # seconds of the step whose tick made it
+            ev["tick_step_seconds"] = tick_seconds.setdefault(ev["step"],
+                                                              [])
+            save_events.append(ev)
+            progress.emit("ckpt", manifest.step)
+            if ov is not None and tracker:
+                for u in manifest.saved_units:
+                    if u in ov.last_snapshot_fps:
+                        tracker.set_reference(u, ov.last_snapshot_fps[u])
+
+        loss_log.write("step,loss")
+        t0 = time.perf_counter()
         try:
-            scrub_report = mgr.scrub(device=dev)
+            for step in range(start, total_steps):
+                t_step = time.perf_counter()
+                raw = data.peek(step)
+                data.state.step = step + 1
+                tokens = torch.from_numpy(raw["tokens"]).to(dev)
+                state, metrics = train_step(state, {"tokens": tokens})
+                ticked = ov.event_step if ov is not None else None
+                if ticked is not None:
+                    # One spread slice per step, between dispatching the
+                    # step and reading its loss: the host stages and writes
+                    # while the card computes.
+                    done = ov.tick()
+                    if done is not None:
+                        absorb_event(done)
+                loss = float(metrics["loss"])
+                step_seconds.append(time.perf_counter() - t_step)
+                if ticked is not None:
+                    tick_seconds.setdefault(ticked, []).append(
+                        step_seconds[-1])
+                losses.append((step, loss))
+                loss_log.write(f"{step},{loss}")
+                progress.emit("step", step + 1)
+                if fail_step is not None and step + 1 == fail_step:
+                    if fail_point is None:
+                        raise SimulatedFailure(
+                            f"injected failure at step {fail_step}", losses,
+                            save_events)
+                    # The death happens inside the save machinery (possibly
+                    # on a writer thread, surfacing on a drain), not here.
+                    faults.arm(fail_point, hit=fail_hit, mode=fail_mode)
+                    log.info("armed crash point %r (hit=%d mode=%s) at step "
+                             "%d", fail_point, fail_hit, fail_mode, fail_step)
+                if preempt_flag.is_set():
+                    # The preemption save: every unit (unchanged ones dedup
+                    # and move nothing), so the resume is exact whatever the
+                    # policy, with the durable spill barrier waived so the
+                    # manifest commits now; the grace period drains the
+                    # spill backlog below.  An event in flight commits first
+                    # (FIFO).
+                    if ov is not None and ov.active:
+                        absorb_event(ov.finish())
+                    manifest = mgr.save(state, step=step + 1,
+                                        meta=event_meta(),
+                                        units=policy.all_units(),
+                                        durability_barrier=False)
+                    save_events.append(dict(mgr.last_save_stats,
+                                            tick_step_seconds=[],
+                                            preemption=True))
+                    preempted_at = step + 1
+                    progress.emit("preempt", step + 1)
+                    log.info("preempted: hot save committed at step %d "
+                             "(durable_on=%s)", step + 1,
+                             manifest.meta["storage"]["durable_on"])
+                    break
+                if (step + 1) % ckpt_interval == 0:
+                    if ov is not None and ov.active:
+                        # Events are FIFO: the one still in flight commits
+                        # first (begin would force it as well), so its
+                        # snapshot fingerprints are the tracker's references
+                        # below.
+                        absorb_event(ov.finish())
+                    scores = (tracker.scores(state["params"]) if tracker
+                              else None)
+                    if ov is not None:
+                        # Device reads and decisions now, while the state
+                        # still holds this step's values; the rest rides the
+                        # ticks.
+                        ov.begin(state, step + 1, meta=event_meta(),
+                                 drift_scores=scores)
+                    else:
+                        manifest = mgr.save(state, step=step + 1,
+                                            meta=event_meta(),
+                                            drift_scores=scores)
+                        if tracker:
+                            tracker.mark_saved(state["params"],
+                                               manifest.saved_units)
+                        absorb_event(manifest)
+            if ov is not None and ov.active:
+                # Run end: the last event may still be mid-spread.
+                absorb_event(ov.finish())
+            if fail_point is not None and fail_point in faults.pending():
+                faults.disarm(fail_point)
+                raise SimulatedFailure(
+                    f"crash point {fail_point!r} armed at step {fail_step} "
+                    "was never reached before the run ended", losses,
+                    save_events)
+            total = time.perf_counter() - t0
+            # How far durability lagged the hot tier at the end of the run
+            # (0 on one tier): the last manifests become durable-tier backed
+            # before the process exits.
+            t_drain = time.perf_counter()
+            mgr.drain_spill()
+            spill_drain_seconds = time.perf_counter() - t_drain
         except BaseException:
             _close_quietly(ov, mgr)
             raise
-        log.info("scrub-on-start: %d object(s) checked, %d repaired, %d "
-                 "unrecoverable", scrub_report["checked_objects"],
-                 len(scrub_report["repaired"]),
-                 len(scrub_report["unrecoverable"]))
 
-    restore_stats = None
-    if resume:
-        state = mgr.restore(steps_lib.state_specs(model), device=dev)
-        restore_stats = mgr.last_restore_stats
-        meta = mgr.restore_meta()
-        if "data_state" in meta:
-            data.load_state(meta["data_state"])
-        start = int(state["step"])
-        log.info("resumed at step %d (policy=%s)", start, policy.name)
-    else:
-        state = steps_lib.init_state(model, seed, dev)
-        start = 0
-        if tracker:
-            tracker.reset(state["params"])
-
-    def event_meta():
-        return {"data_state": data.state_dict(), "arch": arch,
-                "reduced": reduced, "tcfg": tcfg.to_json()}
-
-    losses, step_seconds, save_events = [], [], []
-    # event step -> seconds of the steps whose tick served that event
-    tick_seconds: Dict[int, List[float]] = {}
-
-    def absorb_event(manifest) -> None:
-        """Account one committed event (either mode) and, for an
-        overlapped one, advance the tracker to its snapshot fingerprints."""
-        ev = dict(mgr.last_save_stats)
-        # the same list the loop appends to: a commit may precede the
-        # seconds of the step whose tick made it
-        ev["tick_step_seconds"] = tick_seconds.setdefault(ev["step"], [])
-        save_events.append(ev)
-        if ov is not None and tracker:
-            for u in manifest.saved_units:
-                if u in ov.last_snapshot_fps:
-                    tracker.set_reference(u, ov.last_snapshot_fps[u])
-
-    t0 = time.perf_counter()
-    try:
-        for step in range(start, total_steps):
-            t_step = time.perf_counter()
-            raw = data.peek(step)
-            data.state.step = step + 1
-            tokens = torch.from_numpy(raw["tokens"]).to(dev)
-            state, metrics = train_step(state, {"tokens": tokens})
-            ticked = ov.event_step if ov is not None else None
-            if ticked is not None:
-                # One spread slice per step, between dispatching the step
-                # and reading its loss: the host stages and writes while
-                # the card computes.
-                done = ov.tick()
-                if done is not None:
-                    absorb_event(done)
-            loss = float(metrics["loss"])
-            step_seconds.append(time.perf_counter() - t_step)
-            if ticked is not None:
-                tick_seconds.setdefault(ticked, []).append(step_seconds[-1])
-            losses.append((step, loss))
-            if fail_step is not None and step + 1 == fail_step:
-                if fail_point is None:
-                    raise SimulatedFailure(
-                        f"injected failure at step {fail_step}", losses,
-                        save_events)
-                # The death happens inside the save machinery (possibly on
-                # a writer thread, surfacing on a drain), not here.
-                faults.arm(fail_point, hit=fail_hit)
-                log.info("armed crash point %r (hit=%d) at step %d",
-                         fail_point, fail_hit, fail_step)
-            if (step + 1) % ckpt_interval == 0:
-                if ov is not None and ov.active:
-                    # Events are FIFO: the one still in flight commits
-                    # first (begin would force it as well), so its snapshot
-                    # fingerprints are the tracker's references below.
-                    absorb_event(ov.finish())
-                scores = tracker.scores(state["params"]) if tracker else None
-                if ov is not None:
-                    # Device reads and decisions now, while the state still
-                    # holds this step's values; the rest rides the ticks.
-                    ov.begin(state, step + 1, meta=event_meta(),
-                             drift_scores=scores)
-                else:
-                    manifest = mgr.save(state, step=step + 1,
-                                        meta=event_meta(),
-                                        drift_scores=scores)
-                    if tracker:
-                        tracker.mark_saved(state["params"],
-                                           manifest.saved_units)
-                    absorb_event(manifest)
-        if ov is not None and ov.active:
-            # Run end: the last event may still be mid-spread.
-            absorb_event(ov.finish())
-        if fail_point is not None and fail_point in faults.pending():
-            faults.disarm(fail_point)
-            raise SimulatedFailure(
-                f"crash point {fail_point!r} armed at step {fail_step} was "
-                "never reached before the run ended", losses, save_events)
-        total = time.perf_counter() - t0
-        # How far durability lagged the hot tier at the end of the run (0
-        # on one tier): the last manifests become durable-tier backed
-        # before the process exits.
-        t_drain = time.perf_counter()
-        mgr.drain_spill()
-        spill_drain_seconds = time.perf_counter() - t_drain
-    except BaseException:
-        _close_quietly(ov, mgr)
-        raise
-
-    if log_csv:
-        Path(log_csv).parent.mkdir(parents=True, exist_ok=True)
-        with open(log_csv, "w") as f:
-            f.write("step,loss\n")
-            for s, l in losses:
-                f.write(f"{s},{l}\n")
-    tier_stats = mgr.store.tier_stats()
-    if ov is not None:
-        ov.close()
-    mgr.close()
-    usage = mgr.disk_usage()
-    # The loop only ever blocked for the stall portion of an event: that is
-    # what save_seconds means in both modes.
-    save_seconds = sum(e["stall_seconds"] for e in save_events)
-    return {
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
-        "final_loss": losses[-1][1] if losses else float("nan"),
-        "losses": losses,
-        "step_seconds": step_seconds,
-        "train_seconds": total,
-        "save_seconds": save_seconds,
-        "ckpt_time_fraction": save_seconds / total if total else 0.0,
-        **{k: sum(e[k] for e in save_events) for k in _SPLIT},
-        "save_mode": "overlapped" if ov is not None else "sync",
-        "codec": mgr.store.codec,
-        "ckpt_spread_steps": ckpt_spread_steps,
-        "overlap_slices": sum(e.get("spread_slices", 0)
-                              for e in save_events),
-        "overflow_redispatches": sum(e.get("overflow_redispatches", 0)
-                                     for e in save_events),
-        "save_events": save_events,
-        "restore_stats": restore_stats,
-        "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
-                              if dev.type == "cuda" else None),
-        "ckpt_bytes": usage["total"],
-        "d2h_bytes": sum(e["d2h_bytes"] for e in save_events),
-        "hashed_bytes": sum(e["hashed_bytes"] for e in save_events),
-        "dirty_block_frac": (float(np.mean([e["dirty_block_frac"]
-                                            for e in save_events]))
-                             if save_events else 0.0),
-        "steps": total_steps - start,
-        "store_backend": store_backend,
-        "io_backend": io_backend,
-        "spill_drain_seconds": spill_drain_seconds,
-        "tier_stats": tier_stats,
-        # the report of the scrub-on-start pass (None when not run)
-        "scrub_report": scrub_report,
-    }
+        tier_stats = mgr.store.tier_stats()
+        if ov is not None:
+            ov.close()
+        mgr.close()
+        usage = mgr.disk_usage()
+        if preempted_at is not None:
+            progress.emit("preempt_durable", preempted_at)
+        else:
+            progress.emit("done", total_steps)
+        # The loop only ever blocked for the stall portion of an event: that
+        # is what save_seconds means in both modes.
+        save_seconds = sum(e["stall_seconds"] for e in save_events)
+        return {
+            "preempted": preempted_at is not None,
+            "preempted_at": preempted_at,
+            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                       else "cpu"),
+            "final_loss": losses[-1][1] if losses else float("nan"),
+            "losses": losses,
+            "step_seconds": step_seconds,
+            "train_seconds": total,
+            "save_seconds": save_seconds,
+            "ckpt_time_fraction": save_seconds / total if total else 0.0,
+            **{k: sum(e[k] for e in save_events) for k in _SPLIT},
+            "save_mode": "overlapped" if ov is not None else "sync",
+            "codec": mgr.store.codec,
+            "ckpt_spread_steps": ckpt_spread_steps,
+            "overlap_slices": sum(e.get("spread_slices", 0)
+                                  for e in save_events),
+            "overflow_redispatches": sum(e.get("overflow_redispatches", 0)
+                                         for e in save_events),
+            "save_events": save_events,
+            "restore_stats": restore_stats,
+            "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
+            "ckpt_bytes": usage["total"],
+            "d2h_bytes": sum(e["d2h_bytes"] for e in save_events),
+            "hashed_bytes": sum(e["hashed_bytes"] for e in save_events),
+            "dirty_block_frac": (float(np.mean([e["dirty_block_frac"]
+                                                for e in save_events]))
+                                 if save_events else 0.0),
+            "steps": total_steps - start,
+            "store_backend": store_backend,
+            "io_backend": io_backend,
+            "spill_drain_seconds": spill_drain_seconds,
+            "tier_stats": tier_stats,
+            # the report of the scrub-on-start pass (None when not run)
+            "scrub_report": scrub_report,
+            "shard_participants": 1,
+            # what came before the first step: the unix time ``train`` was
+            # entered, and the seconds of the card's context, the model and
+            # manager, the scrub and the restore (or the initial state); and
+            # the unix time it returned
+            "started_unix": started,
+            "startup": startup,
+            "finished_unix": time.time(),
+            # the kernel libraries this process compiled (none when it found
+            # them built) and its launch counts at the run's end
+            "kernels_compiled": list(_build.BUILDER.compiled),
+            "kernel_launches": _kernel_launches(),
+        }
 
 
 def main() -> None:
@@ -418,6 +580,21 @@ def main() -> None:
     ap.add_argument("--fail-at",
                     help="N: simulated failure at the step-N boundary; "
                          "N@point[:hit]: arm that crash point at step N")
+    ap.add_argument("--fail-mode", default="raise",
+                    choices=["raise", "exit"],
+                    help="armed crash points raise InjectedCrash, or end "
+                         "the process at once with exit code %d (no "
+                         "unwinding, no flushing)" % faults.EXIT_CRASHED)
+    ap.add_argument("--handle-sigterm", action="store_true",
+                    help="treat SIGTERM as a preemption: a save of every "
+                         "unit at the next step boundary, the spill backlog "
+                         "drained, exit code %d" % EXIT_PREEMPTED)
+    ap.add_argument("--progress-file",
+                    help="append kind,step,unix-time progress lines here "
+                         "(the supervisor's feed)")
+    ap.add_argument("--shard-participants", type=int, default=1,
+                    help="save participants: 1 only (sharded saves are "
+                         "ROADMAP A4)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--log-csv")
@@ -442,10 +619,16 @@ def main() -> None:
                              "seed": args.remote_seed},
                 io_backend=args.io_backend, io_workers=args.io_workers,
                 resume=args.resume, scrub_on_start=args.scrub_on_start,
-                fail_at=args.fail_at, seed=args.seed, log_csv=args.log_csv,
-                lr=args.lr, device=args.device, num_layers=args.num_layers)
+                fail_at=args.fail_at, fail_mode=args.fail_mode,
+                handle_sigterm=args.handle_sigterm,
+                progress_file=args.progress_file,
+                shard_participants=args.shard_participants, seed=args.seed,
+                log_csv=args.log_csv, lr=args.lr, device=args.device,
+                num_layers=args.num_layers)
     out.pop("losses")
     print(json.dumps(out, indent=2))
+    if out["preempted"]:
+        sys.exit(EXIT_PREEMPTED)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 """The port stands alone: repro_torch and chip_smoke.py import neither jax
 nor the JAX package, nor msgpack, zstandard, pydantic or ml_dtypes, also
 not when they train, resume, serve, merge (``python -m
-repro_torch.core.tailor``) and save on the canonical path (``python -m
-repro_torch.launch.train --no-fingerprint``) in one process; and the
-subprocess IO workers of ``--io-backend process`` (a train, its failure
-and resume, and a server's load through them) import none of these, nor
-torch."""
+repro_torch.core.tailor``), save on the canonical path (``python -m
+repro_torch.launch.train --no-fingerprint``), supervise a trainer
+(``launch/supervisor.py``) and probe a store (``launch/elastic.py``) in
+one process; and the subprocess IO workers of ``--io-backend process`` (a
+train, its failure and resume, and a server's load through them) import
+none of these, nor torch."""
 import ast
 import os
 import subprocess
@@ -113,6 +114,15 @@ assert mgr.last_restore_stats["workers"]["tasks"] > 0
 worker_bad = sorted(m for m in mgr.transfer_pool.workers.call("modules")
                     if m.split(".")[0] in {FORBIDDEN!r} + ("torch",))
 mgr.close()
+# one supervised attempt (a child trainer on the CPU) and a probe
+from repro_torch.launch.elastic import probe_restore
+from repro_torch.launch.supervisor import Supervisor
+rep = Supervisor({str(tmp_path / 'sup')!r}, run_dir={str(tmp_path / 'srun')!r},
+                 arch={arch!r}, steps=2, interval=2, num_layers=2,
+                 device="cpu", attempt_timeout=240).run()
+assert rep["completed"] and rep["attempts"][0]["exit_code"] == 0, rep
+assert probe_restore({str(tmp_path / 'sup')!r}, {arch!r}, num_layers=2,
+                     device="cpu")["step"] == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in {FORBIDDEN!r})
 print("BAD", bad, "WORKER_BAD", worker_bad)
