@@ -144,8 +144,9 @@ which exits non-zero:
       for it; since 3m, 3h's runs write their objects on
       CANON_WRITER_THREADS writer threads, not inline): the resumed
       losses within MODE_TOL of 3a's, step 4's
-      objects holding 3a's step-4 tensors (their canonical digests), no
-      ``block_fp`` launch, the events recorded beside 3a's; (b) the
+      objects holding 3a's step-4 tensors (the resume's restore checks
+      each object's canonical digest; what it decoded fingerprints to 3a's
+      step-4 entry digests), no ``block_fp`` launch, the events recorded beside 3a's; (b) the
       unchanged re-save
       of step 6's embed unit, from one restore of that unit from a
       hard-linked copy of 3a's step-6 store: fingerprinted on that copy
@@ -229,11 +230,22 @@ which exits non-zero:
       nothing unrecoverable, a last probe reads step 6; the children
       report this card, and ``block_fp`` and ``fused_adamw`` launched in
       them, ``block_fp`` here;
+   n. shard-native saves (ROADMAP A4.1), last (budget 60 s): 3a's run saved
+      by 4 virtual participants (events 2 and 4) fails at step 5 and
+      resumes by 2 (event 6, the elastic path): every event's shard sets
+      tile the model's leaves and take one ``block_fp`` launch per shard
+      object; the resumed losses equal 3a's within MODE_TOL; the resume's
+      restore of step 4 fingerprints to 3a's step-4 entry digests, unit
+      by unit (3a's store is gone by then); owned restores of
+      step 4 by each of 2 participants read fewer bytes than it and
+      ``combine_states`` of them equals it bitwise; an unchanged 4-wide
+      re-save moves and writes 0 B;
 4. print the main paths' step/save/restore times, the serve line, the
    Mamba line, the int8 line, the merge line, the canonical path's
    ``{"legacy": ...}`` line, the tiers line, the ``{"io": ...}`` line,
    the ``{"cache": ...}`` line, the ``{"scrub": ...}`` line, the
-   ``{"supervisor": ...}`` line, the kernels line, the card line, and
+   ``{"supervisor": ...}`` line, the ``{"sharded": ...}`` line, the
+   kernels line, the card line, and
    last
    the ``{"ok": true, "device": ...}`` line; each phase logs its wall
    time; with ``--record PATH``, the full record of every phase also goes
@@ -1789,6 +1801,23 @@ def _entry_digests(root: Path, step: int) -> dict:
             for k, r in kinds.items()}
 
 
+def _unit_fp_digests(registry, state) -> dict:
+    """"unit/kind" -> the digest the fingerprint save path gives the
+    unit's tensors in ``state`` (``fp_digest`` of their packed ``block_fp``
+    table): equal to a store's entry digest when they hold its content."""
+    from repro_torch.checkpoint import fingerprint as fputil
+    from repro_torch.kernels import block_fp as bfp
+
+    out = {}
+    for unit in registry.unit_names():
+        for kind, tree in (
+                ("weights", registry.extract_unit(state["params"], unit)),
+                ("opt", registry.extract_opt_unit(state["opt"], unit))):
+            out[f"{unit}/{kind}"] = fputil.fp_digest(fputil.pack_table(
+                bfp.tree_to_host(bfp.fingerprint_tree(tree))))
+    return out
+
+
 def _fill(f, buf: bytearray) -> int:
     """Read from ``f`` until ``buf`` is full or the file ends."""
     view, n = memoryview(buf), 0
@@ -2062,26 +2091,6 @@ def _used_bytes(store: Path) -> int:
     return total
 
 
-def _canonical_digests(root: Path, step: int) -> dict:
-    """(unit, kind) -> the blake2b of the canonical payload of the
-    tensors the step-``step`` entry decodes to (read, crc32-checked and
-    re-framed on the host, 4 objects at a time)."""
-    from repro_torch.checkpoint import workers
-    from repro_torch.checkpoint.chunk_store import ChunkStore, content_digest
-    from repro_torch.core.manifest import ManifestStore
-
-    store = ChunkStore(root)
-    refs = {(u, k): r for u, kinds in ManifestStore(root).load(
-        step).entries.items() for k, r in kinds.items()}
-
-    def digest(ref):
-        items, _ = store.read_items(ref.digest)
-        return content_digest(workers.encode_chunk_blob(items, {}))
-
-    with ThreadPoolExecutor(4) as pool:
-        return dict(zip(refs, pool.map(digest, refs.values())))
-
-
 def _state_bytes(state) -> int:
     from repro_torch.checkpoint.serial import flatten_with_paths
 
@@ -2103,7 +2112,9 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     canonical path (fail at 5, resume to 6 with no event: 3a's events 2
     and 4, and no event 6, the cut that with (e)'s and 3e's pays for phase
     3l): resumed losses equal to 3a's within MODE_TOL, step 4's objects
-    decoding to 3a's step-4 tensors, no ``block_fp`` launch; (b) the
+    decoding to 3a's step-4 tensors (the resume's restore, which checks
+    each object's canonical digest, fingerprinted to 3a's step-4 entry
+    digests after the launch counts are read), no ``block_fp`` launch; (b) the
     unchanged re-save of step 6's embed unit (its content saved at step 4)
     from one restore of that unit from a hard-linked copy of 3a's step-6
     store taken before (c): fingerprint path on that copy, canonical on
@@ -2222,8 +2233,6 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
                              f"differ: {out['c']['tokens_digest']}")
     _check_launched(launches["c_serve"], ("flash_attention",), "3h (c)")
     _release(torch)
-    # 3a's step-4 tensors, as (a) must store them; then 3a's store goes
-    canon_3a = _canonical_digests(run3a, 4)
     disk["after_c"] = _used_bytes(store)
     REMOVER.discard(store / "3a")
 
@@ -2238,8 +2247,10 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
     except SimulatedFailure as e:
         failed = e
     # the resume saves nothing: (b) and (d) use the step-4 objects
-    res_a = train(ckpt_dir=str(run), total_steps=STEPS,
-                  ckpt_interval=STEPS + 1, resume=True, **kw)
+    restored = {}
+    with _restored_state(restored):
+        res_a = train(ckpt_dir=str(run), total_steps=STEPS,
+                      ckpt_interval=STEPS + 1, resume=True, **kw)
     torch.cuda.synchronize()
     launches["a"] = _read_counts()
     disk["after_a"] = _used_bytes(store)
@@ -2270,14 +2281,19 @@ def phase_3h(torch, dev, store: Path, ref: dict, rec_a: dict,
         raise AssertionError(f"3h (a): block_fp launched on the canonical "
                              f"path: {launches['a']}")
     _check_launched(launches["a"], ("fused_adamw",), "3h (a)")
-    got4 = {(u, k): r.digest for u, kinds in m4.entries.items()
-            for k, r in kinds.items()}
-    out["a"]["step4_equal_3a"] = canon_3a == got4
+    # step 4 as the resume decoded it (each object checked against its
+    # canonical digest), fingerprinted as 3a's store addressed its step 4
+    if restored["stats"]["step"] != 4:
+        raise AssertionError(f"3h (a): the resume restored "
+                             f"{restored['stats']}")
+    got4 = _unit_fp_digests(registry, restored.pop("state"))
+    want4 = rec_a["entry_digests"]["4"]
+    out["a"]["step4_equal_3a"] = got4 == want4
     out["a"]["seconds"] = time.perf_counter() - ta
-    if canon_3a != got4:
+    if got4 != want4:
         raise AssertionError("3h (a): step 4's objects do not decode to 3a's "
                              "step-4 tensors: " + str(sorted(
-                                 k for k in got4 if got4[k] != canon_3a.get(k))))
+                                 k for k in got4 if got4[k] != want4.get(k))))
     _release(torch)
 
     # (b) the unchanged re-save of the embed unit, both paths, from one
@@ -3795,6 +3811,274 @@ def phase_3m(torch, dev, store: Path, ref: dict, out: dict) -> None:
     _check_launched(launches, ("block_fp",), "3m's scrubs and probes")
 
 
+# ---------------------------------------------------------------- phase 3n
+SHARD_BUDGET_S = 60.0
+SHARD_PARTICIPANTS = 4          # the failing run's save participants
+SHARD_RESUME_PARTICIPANTS = 2   # the resume's (the elastic path)
+_SHARD_EVENT_KEYS = ("stall_seconds", "snapshot_seconds", "commit_seconds",
+                     "participant_seconds",
+                     "participant_fingerprint_seconds",
+                     "participant_d2h_seconds", "participant_write_seconds",
+                     "d2h_bytes", "written_bytes", "dedup_hits",
+                     "delta_chunks", "full_chunks")
+
+
+@contextlib.contextmanager
+def _restored_state(into: dict):
+    """Keep in ``into`` a copy of the state and the stats of the first
+    ``CheckpointManager.restore`` made while the block runs (a trainer's
+    resume: its state is then trained in place)."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+
+    plain = CheckpointManager.restore
+
+    def restore(self, *args, **kwargs):
+        state = plain(self, *args, **kwargs)
+        if not into:
+            into["state"] = clone_state(state)
+            into["stats"] = dict(self.last_restore_stats)
+        return state
+
+    CheckpointManager.restore = restore
+    try:
+        yield into
+    finally:
+        CheckpointManager.restore = plain
+
+
+@contextlib.contextmanager
+def _sharded_events(into: list):
+    """Append a row to ``into`` for each ``ShardedCheckpointer.save`` that
+    commits: its step, participants and shard objects, the ``block_fp``
+    launches made while it ran (the trainers of 3n launch nothing else
+    meanwhile) and its stats."""
+    from repro_torch.checkpoint.sharded import ShardedCheckpointer
+    from repro_torch.kernels import block_fp as bfp
+
+    plain = ShardedCheckpointer.save
+
+    def save(self, *args, **kwargs):
+        n0 = bfp.KERNEL.launches
+        manifest = plain(self, *args, **kwargs)
+        st = self.mgr.last_save_stats
+        into.append({"step": manifest.step,
+                     "participants": st["participants"],
+                     "shard_objects": st["shard_objects"],
+                     "block_fp_launches": bfp.KERNEL.launches - n0}
+                    | {k: st[k] for k in _SHARD_EVENT_KEYS})
+        return manifest
+
+    ShardedCheckpointer.save = save
+    try:
+        yield into
+    finally:
+        ShardedCheckpointer.save = plain
+
+
+def phase_3n(torch, dev, store: Path, rec_a: dict, out: dict) -> None:
+    """Shard-native saves with virtual participants (ROADMAP A4.1) at 3a's
+    configuration (model, data, seed, parity, a save every 2 steps, the
+    crash at step 5): a run saving through SHARD_PARTICIPANTS (4)
+    participants fails at step 5, and its resume from step 4 saves through
+    SHARD_RESUME_PARTICIPANTS (2), the elastic path; the launch counts set
+    to 0 before the runs and read after them.  Budget: SHARD_BUDGET_S.
+    ``rec_a`` is 3a's record (3a's store is gone by then: 3n runs last and
+    holds nothing of the phases before it).  Fills ``out`` before its
+    checks.
+
+    (a) every event (2 and 4 by 4 participants, 6 by 2) commits shard sets
+    that the coordinator finds tiling the model's leaves, each with as
+    many shard objects as the event reports, and its ``block_fp``
+    launches equal those shard objects: one per (unit, kind, participant)
+    with a piece; (b) the resumed losses equal 3a's within MODE_TOL (the
+    same Frankenstein from the same bytes); (c) step 4 restored from 3n's
+    store (the resume's full restore, copied on the card as it returned)
+    fingerprints to 3a's step-4 entry digests, the content addresses 3a's
+    store gave its step-4 tensors, unit by unit; (d) owned restores of step 4 by each of 2
+    participants each read fewer bytes than that full restore, and
+    ``combine_states`` of them equals it bitwise; (e) the unchanged
+    re-save of the restored step 4 by 4 participants moves 0 B device->
+    host and writes 0 B."""
+    from repro_torch.checkpoint.saver import CheckpointManager
+    from repro_torch.checkpoint.sharded import (ShardCoordinator,
+                                                ShardedCheckpointer,
+                                                combine_states,
+                                                participant_wanted)
+    from repro_torch.core.layer_registry import LayerRegistry
+    from repro_torch.core.manifest import ManifestStore, is_sharded
+    from repro_torch.core.policies import make_policy
+    from repro_torch.kernels import block_fp as bfp
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import SimulatedFailure, train
+
+    t0 = time.perf_counter()
+    log(f"phase 3n: budget {SHARD_BUDGET_S:.0f} s")
+    _release(torch)
+    root = store / "3n"
+    run = root / "run"
+    model = _model()
+    registry = LayerRegistry(model)
+    like = steps.state_specs(model)
+    parts = ("params", "opt")
+    kw = dict(arch=ARCH, reduced=REDUCED, num_layers=NUM_LAYERS,
+              batch=BATCH, seq_len=SEQ, policy_name="parity", seed=SEED,
+              device=str(dev), ckpt_async=False, ckpt_dir=str(run),
+              total_steps=STEPS, ckpt_interval=CKPT_INTERVAL)
+    events, restored = [], {}
+    _zero_counts()
+    with _sharded_events(events):
+        try:
+            train(fail_at=FAIL_AT, shard_participants=SHARD_PARTICIPANTS,
+                  **kw)
+            raise AssertionError("3n: the sharded run did not fail")
+        except SimulatedFailure as e:
+            losses_failed = list(e.losses)
+        with _restored_state(restored):
+            res = train(resume=True,
+                        shard_participants=SHARD_RESUME_PARTICIPANTS, **kw)
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    t_runs = time.perf_counter() - t0
+    want = dict(rec_a["losses_resumed"])
+    diffs = {s: abs(l - want[s]) for s, l in res["losses"]}
+    out.update({
+        "config": f"{ARCH} full width, {NUM_LAYERS} layers, batch {BATCH}, "
+                  f"seq {SEQ}, parity, ckpt every {CKPT_INTERVAL}, sync "
+                  f"inline saves by {SHARD_PARTICIPANTS} participants, the "
+                  f"resume by {SHARD_RESUME_PARTICIPANTS}",
+        "events": events, "launches": launches,
+        "losses_failed_run": losses_failed,
+        "losses_resumed": res["losses"], "loss_diffs_vs_3a_resumed": diffs,
+        "restore_on_resume": res["restore_stats"],
+        "runs_seconds": t_runs})
+    _release(torch)
+    log(f"3n runs in {t_runs:.1f} s: events {events}; resumed losses vs "
+        f"3a {diffs}; launches {launches}")
+
+    # (a) the shard sets of every event, and one block_fp per shard object
+    ms = ManifestStore(run)
+    mgr = CheckpointManager(run, registry,
+                            make_policy("parity", model.layer_units()),
+                            async_save=False)
+    coord = ShardCoordinator(mgr)
+    specs = model.param_specs()
+    covers = {}
+    for ev in events:
+        m = ms.load(ev["step"])
+        n_refs = 0
+        for unit in m.saved_units:
+            for kind, entry in m.entries[unit].items():
+                if not is_sharded(entry):
+                    raise AssertionError(f"3n (a): event {ev['step']} "
+                                         f"saved {unit}/{kind} unsharded")
+                coord._check_cover(unit, kind, entry, specs)
+                n_refs += len(entry)
+        covers[ev["step"]] = {
+            "participants": m.meta["sharded"]["n_participants"],
+            "shard_refs": n_refs}
+    out["a"] = covers
+    if [ev["step"] for ev in events] != [2, 4, STEPS] or \
+            [ev["participants"] for ev in events] != [
+                SHARD_PARTICIPANTS, SHARD_PARTICIPANTS,
+                SHARD_RESUME_PARTICIPANTS]:
+        raise AssertionError(f"3n (a): events {events}")
+    for ev in events:
+        c = covers[ev["step"]]
+        if not (c["participants"] == ev["participants"]
+                and c["shard_refs"] == ev["shard_objects"]
+                == ev["block_fp_launches"] > 0):
+            raise AssertionError(f"3n (a): event {ev['step']}: {ev}, "
+                                 f"manifest {c}")
+    _check_launched(launches, ("block_fp", "fused_adamw"), "phase 3n")
+
+    # (b) the same Frankenstein from the same bytes
+    if [s for s, _ in res["losses"]] != list(want) or \
+            not all(d <= MODE_TOL for d in diffs.values()):
+        raise AssertionError(f"3n (b): resumed losses off 3a's: {diffs}")
+
+    # (c) step 4 of 3n's store against 3a's step-4 content addresses
+    tc = time.perf_counter()
+    full, full_stats = restored.pop("state"), restored.pop("stats")
+    if full_stats["step"] != 4:
+        raise AssertionError(f"3n: the resume restored {full_stats}")
+    got4 = _unit_fp_digests(registry, full)
+    want4 = rec_a["entry_digests"]["4"]
+    out["c"] = {"equal_3a_step4": got4 == want4,
+                "units_compared": len(got4),
+                "seconds": time.perf_counter() - tc}
+    if got4 != want4:
+        raise AssertionError("3n (c): step 4 of 3n's store differs from "
+                             "3a's: " + str(sorted(
+                                 k for k in got4 if got4[k] != want4.get(k))))
+
+    # (d) owned restores by 2 participants, stitched (one after the
+    # other: two at once took 15.3 s against 7.6, PERF.md section 6)
+    td = time.perf_counter()
+    results, wanteds, owned = [], [], []
+    for pid in range(SHARD_RESUME_PARTICIPANTS):
+        wanted = participant_wanted(registry, pid,
+                                    SHARD_RESUME_PARTICIPANTS)
+        results.append(mgr.restore(like, device=dev, step=4, owned=wanted))
+        wanteds.append(wanted)
+        owned.append({k: mgr.last_restore_stats[k] for k in (
+            "seconds", "bytes_read", "targets", "shards_skipped")})
+    combined = combine_states(like, registry, results, wanteds)
+    del results
+    combined_equal = all(_params_equal(torch, full[p], combined[p])
+                         for p in parts)
+    del combined
+    _release(torch)
+    out["d"] = {"owned": owned, "full_bytes_read": full_stats["bytes_read"],
+                "combined_equal_full": combined_equal,
+                "seconds": time.perf_counter() - td}
+    if not combined_equal or not all(
+            0 < o["bytes_read"] < full_stats["bytes_read"]
+            and o["shards_skipped"] > 0 for o in owned):
+        raise AssertionError(f"3n (d): owned restores {out['d']}")
+
+    # (e) the unchanged re-save, 4 participants
+    n0 = bfp.KERNEL.launches
+    ShardedCheckpointer(mgr, SHARD_PARTICIPANTS).save(
+        full, step=4, units=registry.unit_names())
+    resave = dict(mgr.last_save_stats)
+    out["e"] = {k: resave[k] for k in ("d2h_bytes", "written_bytes",
+                                       "dedup_hits", "shard_objects",
+                                       "stall_seconds")} | {
+        "block_fp_launches": bfp.KERNEL.launches - n0}
+    mgr.close()
+    del full
+    _release(torch)
+    if resave["d2h_bytes"] != 0 or resave["written_bytes"] != 0:
+        raise AssertionError(f"3n (e): the unchanged re-save moved bytes: "
+                             f"{out['e']}")
+    REMOVER.discard(root)
+    out["seconds"] = time.perf_counter() - t0
+    out["within_budget"] = out["seconds"] <= SHARD_BUDGET_S
+    log(f"phase 3n in {out['seconds']:.1f} s of its "
+        f"{SHARD_BUDGET_S:.0f}-s budget: runs {t_runs:.1f}, (c) "
+        f"{out['c']['seconds']:.1f}, (d) {out['d']['seconds']:.1f}; "
+        f"(d) {out['d']}; (e) {out['e']}")
+
+
+def sharded_summary(mp_n: dict) -> dict:
+    """3n's line: per event its participants, shard objects, block_fp
+    launches, stall and bytes; the resumed losses against 3a's; the
+    resume's (full) and the owned restores of step 4; the re-save;
+    seconds and budget."""
+    return {
+        "events": [{k: e[k] for k in (
+            "step", "participants", "shard_objects", "block_fp_launches",
+            "stall_seconds", "snapshot_seconds", "commit_seconds",
+            "participant_d2h_seconds", "d2h_bytes", "written_bytes")}
+            for e in mp_n["events"]],
+        "loss_diffs_vs_3a_resumed": mp_n["loss_diffs_vs_3a_resumed"],
+        "restore_on_resume": {k: mp_n["restore_on_resume"][k] for k in (
+            "seconds", "bytes_read", "targets")},
+        "owned_restores_step4": mp_n["d"]["owned"],
+        "resave": mp_n["e"], "launches": mp_n["launches"],
+        "seconds": mp_n["seconds"], "budget_seconds": SHARD_BUDGET_S}
+
+
 _EVENT_KEYS = ("step", "selected_units", "snapshot_seconds", "stage_seconds",
                "writeback_seconds", "commit_seconds", "gc_seconds",
                "stall_seconds", "seconds", "d2h_bytes",
@@ -4982,6 +5266,8 @@ def report(record: dict, path) -> None:
             "supervisor": mp["3m"]["launches"][k["name"]],
             "children": {a: (c or {}).get(k["name"]) for a, c in
                          mp["3m"]["child_launches"].items()}}
+        # the sharded saves (3n): its two runs
+        k["launches_sharded_path"] = mp["3n"]["launches"][k["name"]]
     write_record(record, path)
     a_secs = {e["step"]: e["seconds"] for e in mp_a["save_events"]}
     ctl_secs = {e["step"]: e["seconds"]
@@ -5179,6 +5465,7 @@ def report(record: dict, path) -> None:
         "b_seconds": mp_l["b"]["seconds"], "seconds": mp_l["seconds"],
         "budget_seconds": SCRUB_BUDGET_S} | card}))
     print(json.dumps({"supervisor": supervisor_summary(mp["3m"]) | card}))
+    print(json.dumps({"sharded": sharded_summary(mp["3n"]) | card}))
     print(json.dumps({"kernels": [k | card for k in kernels]}))
 
 
@@ -5236,7 +5523,8 @@ def main() -> int:
                             "3d": {"serve": {}, "store": {}},
                             "3e": {"train": {}, "store": {}, "serve": {}},
                             "3f": {}, "3g": {}, "3h": {}, "3i": {},
-                            "3j": {}, "3k": {}, "3l": {}, "3m": {}}}
+                            "3j": {}, "3k": {}, "3l": {}, "3m": {},
+                            "3n": {}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
@@ -5284,6 +5572,8 @@ def main() -> int:
         log(f"phase 3d (serve) done at {time.perf_counter() - t_start:.1f} s")
         phase_3e(torch, dev, store / "3e", mp["3e"])
         log(f"phase 3e done at {time.perf_counter() - t_start:.1f} s")
+        phase_3n(torch, dev, store, mp["3a"], mp["3n"])
+        log(f"phase 3n done at {time.perf_counter() - t_start:.1f} s")
     finally:
         REMOVER.drain()
         record["removal_seconds"] = REMOVER.seconds

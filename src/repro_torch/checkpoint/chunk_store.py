@@ -147,16 +147,20 @@ class ChunkRef:
     digest: str = ""
     stored: str = "full"            # "full" | "delta"
     delta_base: Optional[str] = None  # digest of the full base, if delta
+    # Shard objects only: the shard spec (participant, and per leaf its
+    # path, global shape, dtype and blocks; ``checkpoint/sharded.py``).
+    # It lives in the manifest, not the envelope: one digest may be named
+    # with different specs by different save layouts.
+    spec: Optional[Dict[str, Any]] = None
 
     def to_json(self) -> Dict[str, Any]:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        if d["spec"] is None:
+            del d["spec"]  # global-object manifests keep their bytes
+        return d
 
     @staticmethod
     def from_json(d: Dict[str, Any]) -> "ChunkRef":
-        if d.get("spec") is not None:
-            raise ValueError("shard objects are not ported to repro_torch "
-                             "yet")
-        d = {k: v for k, v in d.items() if k != "spec"}
         return ChunkRef(**d)
 
 

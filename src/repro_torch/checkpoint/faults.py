@@ -49,9 +49,9 @@ each task of a lane (``pool:write``, ``pool:spill``, ...).
 The port's save path reaches ``fingerprint``, ``gather``,
 ``object_write``, ``manifest_commit``, ``manifest_latest``,
 ``snapshot_overlap``, ``spread_slice``, ``pool:write``, and with a tiered
-backend ``spill`` and ``pool:spill``; its hot-swap reaches
-``swap_apply``; the sharded points are cataloged for the stage still to
-port.
+backend ``spill`` and ``pool:spill``; its sharded save
+(``checkpoint/sharded.py``) adds ``participant_record`` and ``barrier``;
+its hot-swap reaches ``swap_apply``.
 
 Arming semantics (:func:`arm`):
 

@@ -69,8 +69,9 @@ from repro_torch.checkpoint import fingerprint as fputil
 from repro_torch.checkpoint.async_io import (PendingResult, StagingArena,
                                              StagingSlot)
 from repro_torch.checkpoint.saver import (MAX_DIRTY_FRAC, CheckpointManager,
-                                          _usable_prev, full_sources)
+                                          full_sources)
 from repro_torch.checkpoint.serial import flatten_with_paths
+from repro_torch.checkpoint.sharded import _usable_prev
 from repro_torch.core.manifest import Manifest
 from repro_torch.core.policies import PolicyContext
 from repro_torch.kernels import block_fp as bfp

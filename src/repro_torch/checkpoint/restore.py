@@ -31,6 +31,10 @@ one device work off the calling thread).  A candidate that fails, on the
 host or on the device, falls through to the next one (an object absent
 from every tier, or still unreadable after the store's transient-IO
 retries, included); a unit with no good candidate raises ``RestoreError``.
+A shard set (``checkpoint/sharded.py``) is one target per shard object,
+its blocks copied straight into their places in the unit's leaves and its
+table checked on those views; ``owned=`` plans only the shard objects a
+participant's blocks meet, the rest of those units restoring as zeros.
 ``verify=False`` skips every check.  ``last_stats`` records the JAX
 engine's keys (``pipelined``, ``io_threads``, ``verify``,
 ``objects_read``, ``unique_digests``, ``planned_object_reads``,
@@ -59,9 +63,13 @@ from repro_torch.checkpoint.chunk_store import (ChunkRef, ChunkStore,
 from repro_torch.checkpoint.serial import (ChunkCorruption,
                                            flatten_with_paths,
                                            unflatten_from_paths)
+from repro_torch.checkpoint.sharded import (WantedFn, check_spec,
+                                            shard_views, spec_key,
+                                            spec_overlaps)
 from repro_torch.checkpoint.workers import Int8Record, Items
 from repro_torch.core.layer_registry import OPT_KINDS, LayerRegistry
-from repro_torch.core.manifest import Manifest, ManifestStore
+from repro_torch.core.manifest import (Manifest, ManifestStore, entry_refs,
+                                       is_sharded)
 from repro_torch.dtypes import byte_view, dtype_name, from_bytes, torch_dtype
 from repro_torch.kernels import block_fp as bfp
 from repro_torch.kernels import quantize as qz
@@ -105,10 +113,13 @@ class Candidate:
 @dataclasses.dataclass(frozen=True)
 class UnitRead:
     """A target's read plan: the manifest's object first, then the
-    older manifests' different objects for the unit, newest first."""
+    older manifests' different objects for the unit, newest first.  A
+    shard set plans one target per scheduled shard object (``spec`` its
+    shard spec); a global entry one target with ``spec=None``."""
     unit: str
     kind: str               # "weights" | "opt"
     chain: Tuple[Candidate, ...]
+    spec: Optional[Dict[str, Any]] = None
 
     @property
     def primary(self) -> Candidate:
@@ -125,6 +136,12 @@ class RestorePlan:
     dependents: Dict[str, int]
     # candidates dropped because a scrub quarantined their object or base
     quarantined_skipped: int = 0
+    # shard sets: (unit, kind) -> (scheduled, total) shard objects; fewer
+    # scheduled than total where ``owned`` ruled some out (those blocks
+    # restore as zeros)
+    shard_groups: Dict[Tuple[str, str], Tuple[int, int]] = \
+        dataclasses.field(default_factory=dict)
+    shards_skipped: int = 0
 
     @property
     def unique_digests(self) -> int:
@@ -155,6 +172,7 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
                  unit_names: Sequence[str], *, step: Optional[int] = None,
                  parts: Sequence[str] = PARTS,
                  units: Optional[Sequence[str]] = None,
+                 owned: Optional[WantedFn] = None,
                  manifest: Optional[Manifest] = None) -> RestorePlan:
     """The read plan of the ``parts`` of the units ``units`` selects
     (``_select_units``): per (unit, kind) a chain of candidates whose
@@ -165,7 +183,16 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
     a scrub quarantined is left out and counted in
     ``quarantined_skipped``.  A caller-supplied ``manifest``
     replaces the ``step`` lookup; the older manifests of the store still
-    give the fallbacks."""
+    give the fallbacks.
+
+    A shard set plans one target per shard object; ``owned`` (a
+    participant's resolver, ``sharded.participant_wanted``) keeps only the
+    shard objects whose blocks meet its own (``shards_skipped`` counts the
+    rest).  A shard's fallbacks are older shards of the same layout (equal
+    ``spec_key``), never a global object.  Where any scheduled shard of a
+    unit falls back, every shard of it is anchored on the newest step all
+    of them can serve: a tensor is never assembled from two steps, and no
+    such step at all raises ``RestoreError``."""
     parts = tuple(parts)
     if not parts or any(p not in PARTS for p in parts):
         raise RestoreError(f"restore parts {parts!r} must be a "
@@ -174,54 +201,133 @@ def plan_restore(manifests: ManifestStore, store: ChunkStore,
         manifest = manifests.load(step)
     if manifest is None:
         raise RestoreError(f"no manifest found in {manifests.root}")
-    older: Dict[Tuple[str, str], List[Tuple[int, ChunkRef]]] = {}
+    older: Dict[Tuple[str, str], List[Tuple[int, Any]]] = {}
     for s in manifests.all_steps():
         if s >= manifest.step:
             continue
         m = manifests.load(s)
-        for unit, refs in (m.entries.items() if m else ()):
-            for kind, ref in refs.items():
-                older.setdefault((unit, kind), []).append((s, ref))
+        for unit, entries in (m.entries.items() if m else ()):
+            for kind, entry in entries.items():
+                older.setdefault((unit, kind), []).append((s, entry))
     targets: List[UnitRead] = []
     dependents: Dict[str, int] = {}
-    quarantined = 0
+    shard_groups: Dict[Tuple[str, str], Tuple[int, int]] = {}
+    quarantined = shards_skipped = 0
+
+    def readable(ref: ChunkRef) -> bool:
+        nonlocal quarantined
+        if not store.has(ref.digest):
+            return False
+        if (store.quarantined(ref.digest)
+                or (ref.delta_base and store.quarantined(ref.delta_base))):
+            quarantined += 1
+            return False
+        return not ref.delta_base or store.has(ref.delta_base)
+
+    def add(target: UnitRead) -> None:
+        targets.append(target)
+        for d in target.primary.digests():
+            dependents[d] = dependents.get(d, 0) + 1
+
     for name in _select_units(unit_names, units):
         if name not in manifest.entries:
             raise RestoreError(f"manifest missing unit {name}")
         for kind in (_PART_KIND[p] for p in parts):
             if kind not in manifest.entries[name]:
                 raise RestoreError(f"manifest missing {name}/{kind}")
-            cands = [(manifest.step, manifest.entries[name][kind])]
-            cands += list(reversed(older.get((name, kind), [])))
-            chain, seen = [], set()
-            for s, ref in cands:
-                if not ref.digest or ref.digest in seen:
+            entry = manifest.entries[name][kind]
+            past = list(reversed(older.get((name, kind), [])))
+            if not is_sharded(entry):
+                cands = [(manifest.step, entry)] + [
+                    (s, e) for s, e in past if not is_sharded(e)]
+                chain, seen = [], set()
+                for s, ref in cands:
+                    if not ref.digest or ref.digest in seen:
+                        continue
+                    seen.add(ref.digest)
+                    if readable(ref):
+                        chain.append(Candidate(s, ref))
+                    elif s == manifest.step:
+                        log.warning("object for %s/%s at step %s is "
+                                    "missing or quarantined; fallback "
+                                    "resolved at plan time", name, kind, s)
+                if not chain:
+                    raise RestoreError(
+                        f"no readable chunk for unit {name}/{kind}")
+                add(UnitRead(name, kind, tuple(chain)))
+                continue
+
+            refs = entry_refs(entry)
+            # the older shards by layout, newest first, in one pass
+            by_layout: Dict[Tuple, List[Candidate]] = {}
+            for s, e in past:
+                if is_sharded(e):
+                    for r in entry_refs(e):
+                        if r.spec is not None:
+                            by_layout.setdefault(spec_key(r.spec),
+                                                 []).append(Candidate(s, r))
+            group: List[UnitRead] = []
+            # per target: manifest step -> the readable candidate serving
+            # it (an unchanged shard dedups to one digest across steps,
+            # so one object can serve several steps)
+            step_maps: List[Dict[int, Candidate]] = []
+            for ref in refs:
+                if ref.spec is None:
+                    raise RestoreError(
+                        f"sharded entry for {name}/{kind} has a ref "
+                        "without a shard spec — manifest is corrupt")
+                if owned is not None and not spec_overlaps(ref.spec, owned,
+                                                           name, kind):
+                    shards_skipped += 1
                     continue
-                seen.add(ref.digest)
-                if not store.has(ref.digest):
-                    ok = False
-                elif (store.quarantined(ref.digest)
-                      or (ref.delta_base
-                          and store.quarantined(ref.delta_base))):
-                    quarantined += 1
-                    ok = False
-                else:
-                    ok = not ref.delta_base or store.has(ref.delta_base)
-                if ok:
-                    chain.append(Candidate(s, ref))
-                elif s == manifest.step:
-                    log.warning("object for %s/%s at step %s is missing or "
-                                "quarantined; fallback resolved at plan "
-                                "time", name, kind, s)
-            if not chain:
-                raise RestoreError(f"no readable chunk for unit {name}/{kind}")
-            target = UnitRead(name, kind, tuple(chain))
-            targets.append(target)
-            for d in target.primary.digests():
-                dependents[d] = dependents.get(d, 0) + 1
+                cands = ([Candidate(manifest.step, ref)]
+                         + by_layout.get(spec_key(ref.spec), []))
+                chain, steps, seen = [], {}, set()
+                for c in cands:
+                    if not c.ref.digest or not readable(c.ref):
+                        if c is cands[0]:
+                            log.warning(
+                                "shard object for %s/%s at step %s missing "
+                                "on disk; fallback resolved at plan time",
+                                name, kind, c.manifest_step)
+                        continue
+                    steps[c.manifest_step] = c
+                    if c.ref.digest not in seen:
+                        seen.add(c.ref.digest)
+                        chain.append(c)
+                if not chain:
+                    raise RestoreError(
+                        f"no readable shard object for unit {name}/{kind} "
+                        f"(participant {ref.spec.get('participant')})")
+                group.append(UnitRead(name, kind, tuple(chain),
+                                      spec=ref.spec))
+                step_maps.append(steps)
+            if (len(group) > 1
+                    and any(t.primary.manifest_step != manifest.step
+                            for t in group)):
+                common = set.intersection(*(set(m) for m in step_maps))
+                if not common:
+                    raise RestoreError(
+                        f"unit {name}/{kind}: no single manifest step is "
+                        "readable by every shard — refusing to assemble "
+                        "a mixed-step tensor")
+                best = max(common)
+                group = [dataclasses.replace(
+                    t, chain=(m[best],) + tuple(
+                        c for c in t.chain
+                        if c.ref.digest != m[best].ref.digest))
+                    for t, m in zip(group, step_maps)]
+                log.warning("unit %s/%s: aligning all %d shards on "
+                            "manifest step %s (newest step readable by "
+                            "every shard)", name, kind, len(group), best)
+            for t in group:
+                add(t)
+            shard_groups[(name, kind)] = (len(group), len(refs))
     return RestorePlan(step=manifest.step, parts=parts, targets=targets,
                        dependents=dependents,
-                       quarantined_skipped=quarantined)
+                       quarantined_skipped=quarantined,
+                       shard_groups=shard_groups,
+                       shards_skipped=shards_skipped)
 
 
 def place_leaves(dsts: Sequence[Tuple[torch.Tensor, Any]]) -> int:
@@ -372,6 +478,22 @@ class RestoreEngine:
         else:
             dst = self.registry.extract_opt_unit(state["opt"], name)
         want = dict(flatten_with_paths(dst))
+        if target.spec is not None:
+            # A shard object: each block straight into its place in the
+            # unit's leaves (an axis-0 block of a leaf is contiguous), and
+            # the object's table checked on those views.
+            try:
+                pairs = check_spec(target.spec, want, tree)
+            except ValueError as e:
+                raise ChunkCorruption(f"shard object {digest}: {e}") from e
+            moved = place_leaves(pairs)
+            t2 = time.perf_counter()
+            if fp_blob is not None:
+                verify_placed(shard_views(target.spec, want), fp_blob,
+                              digest)
+            timings["h2d_seconds"] += t2 - t1
+            timings["verify_seconds"] += time.perf_counter() - t2
+            return moved
         got = flatten_with_paths(tree)
         if {p for p, _ in got} != set(want):
             raise ChunkCorruption(f"object {digest} holds leaves "
@@ -403,6 +525,7 @@ class RestoreEngine:
                 parts: Sequence[str] = PARTS,
                 units: Optional[Sequence[str]] = None,
                 pipelined: bool = True,
+                owned: Optional[WantedFn] = None,
                 manifest: Optional[Manifest] = None) -> Dict[str, PyTree]:
         """Rebuild a train state from the manifest chain (the implicit
         Frankenstein merge).  ``state_like`` gives the structure as
@@ -410,12 +533,15 @@ class RestoreEngine:
         result holds them on ``device`` plus ``step`` (a host int32
         tensor).  ``parts=("params",)`` plans and reads only the weights
         objects; ``units`` keeps the units whose names start with one of
-        its prefixes (the others restore as zeros); ``manifest`` replaces
-        the ``step`` lookup."""
+        its prefixes (the others restore as zeros); ``owned`` reads only
+        the shard objects meeting a participant's blocks (the rest of
+        those units restore as zeros); ``manifest`` replaces the ``step``
+        lookup."""
         t0 = time.perf_counter()
         plan = plan_restore(self.manifests, self.store,
                             self.registry.unit_names(), step=step,
-                            parts=parts, units=units, manifest=manifest)
+                            parts=parts, units=units, owned=owned,
+                            manifest=manifest)
         state: Dict[str, PyTree] = {
             p: tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                               device=device), state_like[p])
@@ -510,6 +636,11 @@ class RestoreEngine:
             "unique_digests": plan.unique_digests,
             "planned_object_reads": plan.planned_object_reads,
             "h2d_bytes": h2d,
+            # shard objects among the targets, and those ``owned`` ruled
+            # out
+            "sharded_targets": sum(1 for t in plan.targets
+                                   if t.spec is not None),
+            "shards_skipped": plan.shards_skipped,
             "fallback_units": fallbacks,
             # read_seconds: the reads, decodes and host checks summed over
             # the threads that ran them; wait_seconds: the calling thread

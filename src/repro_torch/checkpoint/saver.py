@@ -97,8 +97,10 @@ from repro_torch.checkpoint.restore import (DEFAULT_IO_THREADS, PARTS,
                                             RestoreEngine,
                                             device_materializer)
 from repro_torch.checkpoint.serial import flatten_with_paths
+from repro_torch.checkpoint.sharded import WantedFn, _usable_prev
 from repro_torch.core.layer_registry import LayerRegistry
-from repro_torch.core.manifest import Manifest, ManifestStore
+from repro_torch.core.manifest import (Manifest, ManifestStore, entry_refs,
+                                       is_sharded)
 from repro_torch.core.policies import CheckpointPolicy, PolicyContext
 from repro_torch.dtypes import byte_view, dtype_name
 from repro_torch.kernels import block_fp as bfp
@@ -112,19 +114,6 @@ _TIMINGS = ("fingerprint_seconds", "d2h_seconds", "write_seconds")
 # Above this dirty fraction a block-sparse delta stops paying (index
 # overhead plus a near-full payload): write a full object instead.
 MAX_DIRTY_FRAC = 0.5
-
-
-def _usable_prev(prev: Optional[Manifest]) -> Optional[Manifest]:
-    """A manifest with digest-less refs cannot be carried forward (the
-    store reads by digest only): the event then starts a fresh full base."""
-    if prev is None:
-        return None
-    if any(not r.digest for kinds in prev.entries.values()
-           for r in kinds.values()):
-        log.warning("previous manifest at step %s predates content "
-                    "addressing; forcing a full save", prev.step)
-        return None
-    return prev
 
 
 def stage_to_host(srcs: Sequence[torch.Tensor]) -> List[memoryview]:
@@ -273,7 +262,9 @@ class CheckpointManager:
 
     def _rebuild_refcounts(self) -> None:
         """Object refcounts and per-unit delta-run lengths, derived from the
-        committed manifests (neither is persisted)."""
+        committed manifests (neither is persisted).  A shard object's run
+        is its participant's, keyed ``unit@p<pid>`` as the sharded saver
+        writes it."""
         counts: Counter = Counter()
         runs: Dict[Tuple[str, str], int] = {}
         last_digest: Dict[Tuple[str, str], str] = {}
@@ -283,13 +274,16 @@ class CheckpointManager:
                 continue
             counts.update(m.referenced_digests())
             for unit, kinds in m.entries.items():
-                for kind, ref in kinds.items():
-                    key = (unit, kind)
-                    if last_digest.get(key) == ref.digest:
-                        continue  # carried-over entry, not a new write
-                    last_digest[key] = ref.digest
-                    runs[key] = (runs.get(key, 0) + 1
-                                 if ref.stored == "delta" else 0)
+                for kind, entry in kinds.items():
+                    for ref in entry_refs(entry):
+                        ukey = (unit if ref.spec is None else
+                                f"{unit}@p{ref.spec.get('participant', 0)}")
+                        key = (ukey, kind)
+                        if last_digest.get(key) == ref.digest:
+                            continue  # carried-over entry, not a new write
+                        last_digest[key] = ref.digest
+                        runs[key] = (runs.get(key, 0) + 1
+                                     if ref.stored == "delta" else 0)
         self.store.set_refcounts(counts)
         self.store.seed_delta_runs(runs)
 
@@ -377,9 +371,16 @@ class CheckpointManager:
 
     def _prev_entry(self, prev: Optional[Manifest], name: str,
                     kind: str) -> Optional[ChunkRef]:
+        """The unit's previous global object: its dedup and delta anchor.
+        A shard set anchors no global object (another payload layout), so
+        a global save over a sharded chain starts the unit on a full base;
+        the shard set itself still carries over for unselected units."""
         if prev is None:
             return None
-        return prev.entries.get(name, {}).get(kind)
+        e = prev.entries.get(name, {}).get(kind)
+        if e is None or is_sharded(e):
+            return None
+        return e
 
     def _commit_event(self, *, step: int, entries, selected, meta,
                       new_fps, event_index: Optional[int] = None,
@@ -619,15 +620,19 @@ class CheckpointManager:
                 parts: Sequence[str] = PARTS,
                 units: Optional[Sequence[str]] = None,
                 pipelined: bool = True,
+                owned: Optional[WantedFn] = None,
                 manifest: Optional[Manifest] = None) -> Dict[str, PyTree]:
         """Rebuild the state (or, with ``parts=("params",)``, the weights
         alone, reading no optimizer object; with ``units``, the units of
         those name prefixes) from the manifest at ``step`` or the given
         ``manifest``, on ``restore_threads`` reader threads unless
-        ``pipelined=False``; see ``RestoreEngine.restore``."""
+        ``pipelined=False``; ``owned`` (``sharded.participant_wanted``)
+        reads only the shard objects meeting a participant's blocks; see
+        ``RestoreEngine.restore``."""
         return self.restorer.restore(state_like, device=device, step=step,
                                      parts=parts, units=units,
-                                     pipelined=pipelined, manifest=manifest)
+                                     pipelined=pipelined, owned=owned,
+                                     manifest=manifest)
 
     @property
     def last_restore_stats(self) -> Dict[str, Any]:

@@ -31,9 +31,8 @@ so the report is the JAX scrub's whatever the thread count.  A tier that cannot 
 skipped, not "repaired".  A later scrub that finds a quarantined digest
 good again releases it.  ``repair=False`` is an audit: the report alone,
 no write and no quarantine change.  ``CodecUnavailable`` (a zstd frame
-that needs a dictionary) propagates: it is no evidence of corruption.  A
-store whose manifests hold a sharded entry raises the port's ``ValueError``
-for those (ROADMAP A4) before anything is written.
+that needs a dictionary) propagates: it is no evidence of corruption.
+Shard objects (a shard set's refs) are checked like any other object.
 """
 from __future__ import annotations
 

@@ -30,6 +30,20 @@ def flatten_with_paths(tree: PyTree, prefix: str = ""
     return [(prefix.rstrip("/"), tree)]
 
 
+# A shard object (``checkpoint/sharded.py``) serializes each owned block of
+# a leaf as a tensor record of its own, the block's index in the record
+# name, so its payload is an ordinary chunk to everything below the
+# manifest.  Readers rebuild the names from the manifest's shard spec;
+# nothing parses them back.
+SHARD_KEY_SEP = "#b"
+
+
+def shard_leaf_key(path: str, block_index: int) -> str:
+    """Record name of block ``block_index`` of leaf ``path`` in a shard
+    object's payload."""
+    return f"{path}{SHARD_KEY_SEP}{block_index}"
+
+
 def unflatten_from_paths(items: Dict[str, Any]) -> PyTree:
     root: Dict[str, Any] = {}
     for path, value in items.items():

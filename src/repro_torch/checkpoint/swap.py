@@ -58,8 +58,10 @@ takes the manager's ``restore_threads`` reader threads, its
 swap reads its units through the manager's store on the calling thread,
 as the JAX service does.
 
-Not ported yet: swapping a sharded (shard-set) entry, which raises
-``SwapError`` (sharded checkpoints are ROADMAP A4).
+Shard sets (``checkpoint/sharded.py``) always load their unit whole, as
+the JAX service does: every shard object is read, its blocks copied into
+their places in the unit's staged tensors (``sharded.assemble_shards``)
+and each object's table checked on its blocks there.
 """
 from __future__ import annotations
 
@@ -75,7 +77,8 @@ from repro_torch.checkpoint.chunk_store import ReadSession
 from repro_torch.checkpoint.restore import (device_materializer,
                                             place_leaves, verify_placed)
 from repro_torch.checkpoint.serial import flatten_with_paths
-from repro_torch.core.manifest import Manifest
+from repro_torch.checkpoint.sharded import assemble_shards, shard_views
+from repro_torch.core.manifest import Manifest, is_sharded
 from repro_torch.core.tailor import variant_manifest
 from repro_torch.devices import resolve_device
 from repro_torch.dtypes import torch_dtype
@@ -92,15 +95,11 @@ class _ScatterUnsupported(Exception):
     instead (never user-visible)."""
 
 
-def _is_sharded(entry) -> bool:
-    return isinstance(entry, (list, tuple))
-
-
 def _entry_key(entry) -> Any:
     """The served-content identity of a manifest entry: the object digest
     (the sorted digest tuple for a shard set).  Equal keys mean
     bit-identical served bytes."""
-    if _is_sharded(entry):
+    if is_sharded(entry):
         return tuple(sorted(r.digest for r in entry))
     return entry.digest
 
@@ -326,9 +325,15 @@ class WeightService:
 
     def _apply_unit(self, staged: PyTree, cloned: set, unit: str, entry,
                     session: ReadSession, stats: Dict[str, Any]) -> None:
-        if _is_sharded(entry):
-            raise SwapError(f"unit {unit!r} is a shard set: swapping shard "
-                            "sets is not ported yet (ROADMAP A4)")
+        if is_sharded(entry):
+            parts, blobs = [], []
+            for ref in entry:
+                tree, fp_blob = session.read(ref.digest)
+                parts.append((ref.spec, tree))
+                blobs.append((ref, fp_blob))
+            stats["units_full"] += 1
+            self._replace_shards(staged, cloned, unit, parts, blobs, stats)
+            return
         served = self._served.get(unit)
         if (isinstance(served, str) and served and entry.stored == "delta"
                 and entry.delta_base == served):
@@ -388,6 +393,24 @@ class WeightService:
                                             for path, t in want])
         if fp_blob is not None:
             verify_placed(dst, fp_blob, digest)
+
+
+    def _replace_shards(self, staged: PyTree, cloned: set, unit: str,
+                        parts, blobs, stats: Dict[str, Any]) -> None:
+        """Wholesale unit replacement from a shard set's decoded objects:
+        every block into its place, then each object's table checked on
+        its blocks."""
+        want = dict(flatten_with_paths(
+            self._writable_unit(staged, cloned, unit)))
+        try:
+            _, moved = assemble_shards(parts, partial=False, out=want)
+        except ValueError as e:
+            raise SwapError(f"shard set of unit {unit!r}: {e}") from e
+        stats["h2d_bytes"] += moved
+        for ref, fp_blob in blobs:
+            if fp_blob is not None:
+                verify_placed(shard_views(ref.spec, want), fp_blob,
+                              ref.digest)
 
 
 class VariantSet:

@@ -26,31 +26,37 @@ from repro_torch.core import jsonutil
 
 
 def is_sharded(entry) -> bool:
-    """Whether a manifest entry is a shard set (a tuple of refs).  The
-    port reads no shard set (``Manifest.from_json`` raises), so its entries
-    are single refs; the merge keeps the JAX engine's shape all the same."""
+    """Whether a manifest entry is a shard set: a tuple of refs, one per
+    shard object, each carrying the spec of the blocks it holds
+    (``checkpoint/sharded.py``); a single ref is a global object."""
     return isinstance(entry, (tuple, list))
 
 
 def entry_refs(entry) -> Tuple[ChunkRef, ...]:
-    """The refs behind an entry (a 1-tuple for a single object)."""
+    """The refs behind an entry (a 1-tuple for a global object)."""
     return tuple(entry) if is_sharded(entry) else (entry,)
 
 
 @dataclasses.dataclass
 class Manifest:
     step: int
-    entries: Dict[str, Dict[str, ChunkRef]]   # unit -> kind -> ref
+    # unit -> kind -> a ref, or a tuple of shard refs (a shard set)
+    entries: Dict[str, Dict[str, Any]]
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # Units saved at exactly this step (the policy's selection).
     saved_units: List[str] = dataclasses.field(default_factory=list)
 
     def to_json(self) -> bytes:
+        def enc(entry):
+            if is_sharded(entry):
+                return [r.to_json() for r in entry]
+            return entry.to_json()
+
         d = {
             "step": self.step,
             "meta": self.meta,
             "saved_units": self.saved_units,
-            "entries": {u: {k: r.to_json() for k, r in kinds.items()}
+            "entries": {u: {k: enc(e) for k, e in kinds.items()}
                         for u, kinds in self.entries.items()},
         }
         return jsonutil.dumps(d, indent=True)
@@ -59,10 +65,9 @@ class Manifest:
     def from_json(blob: bytes) -> "Manifest":
         d = jsonutil.loads(blob)
 
-        def dec(e) -> ChunkRef:
+        def dec(e):
             if isinstance(e, list):
-                raise ValueError("sharded manifest entries are not ported "
-                                 "to repro_torch yet (ROADMAP A4)")
+                return tuple(ChunkRef.from_json(r) for r in e)
             return ChunkRef.from_json(e)
 
         return Manifest(
@@ -75,14 +80,16 @@ class Manifest:
 
     def referenced_digests(self) -> Counter:
         """Digest -> references held by this manifest; a delta object pins
-        its full base, so the base digest is counted too."""
+        its full base, so the base digest is counted too, and every ref of
+        a shard set counts."""
         counts: Counter = Counter()
         for kinds in self.entries.values():
-            for ref in kinds.values():
-                if ref.digest:
-                    counts[ref.digest] += 1
-                if ref.delta_base:
-                    counts[ref.delta_base] += 1
+            for entry in kinds.values():
+                for ref in entry_refs(entry):
+                    if ref.digest:
+                        counts[ref.digest] += 1
+                    if ref.delta_base:
+                        counts[ref.delta_base] += 1
         return counts
 
     def digest_provenance(self) -> Dict[str, List[Tuple[str, str, str]]]:
@@ -93,13 +100,14 @@ class Manifest:
         quarantined digest demotes."""
         prov: Dict[str, List[Tuple[str, str, str]]] = {}
         for unit, kinds in self.entries.items():
-            for kind, ref in kinds.items():
-                if ref.digest:
-                    prov.setdefault(ref.digest, []).append(
-                        (unit, kind, "entry"))
-                if ref.delta_base:
-                    prov.setdefault(ref.delta_base, []).append(
-                        (unit, kind, "base"))
+            for kind, entry in kinds.items():
+                for ref in entry_refs(entry):
+                    if ref.digest:
+                        prov.setdefault(ref.digest, []).append(
+                            (unit, kind, "entry"))
+                    if ref.delta_base:
+                        prov.setdefault(ref.delta_base, []).append(
+                            (unit, kind, "base"))
         return prov
 
 

@@ -209,7 +209,8 @@ def merge(recipe: Recipe, *, workers: int = 4, verify: bool = True,
 
     def copy_unit(unit: str) -> List[Tuple]:
         """Copy (and verify) every object behind one unit before its
-        entries are emitted."""
+        entries are emitted: a shard set whole, each ref keeping its spec,
+        so no output manifest names a partly copied shard set."""
         src_manifest, src_store = sources[str(assignment[unit])]
         if unit not in src_manifest.entries:
             raise MergeError(f"unit {unit!r} missing from "
@@ -236,7 +237,7 @@ def merge(recipe: Recipe, *, workers: int = 4, verify: bool = True,
                     out_step, unit, kind,
                     out_store.object_relpath(ref.digest),
                     ref.nbytes, digest=ref.digest, stored=ref.stored,
-                    delta_base=ref.delta_base))
+                    delta_base=ref.delta_base, spec=ref.spec))
             out_entry = (tuple(out_refs) if is_sharded(entry)
                          else out_refs[0])
             out_entries.append((unit, kind, out_entry, written, shared,

@@ -6,9 +6,9 @@ process and report what the restore plan had to do.
 The supervisor (``launch/supervisor.py``) runs it between a death and the
 relaunch, so a checkpoint a restarted trainer would choke on is caught
 before the restart, and ``fallback_units`` shows units that fell back to
-an older manifest.  The restore onto a mesh of several devices
-(``restore_on_mesh`` of the JAX package) needs the sharded save path and
-waits for ROADMAP A4.
+an older manifest.  It reads stores of global objects and of shard sets
+alike (a shard set restores whole).  The restore onto a mesh of several
+devices (``restore_on_mesh`` of the JAX package) is ROADMAP A4.2.
 """
 from __future__ import annotations
 

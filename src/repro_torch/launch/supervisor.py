@@ -11,8 +11,11 @@ survive its deaths and account for what they cost.
 Each attempt:
 
 1. launches ``python -m repro_torch.launch.train`` with
-   ``--handle-sigterm`` and a ``--progress-file`` feed, and ``--resume``
-   when the checkpoint root already has a committed manifest;
+   ``--handle-sigterm``, a ``--progress-file`` feed, the attempt's
+   ``--shard-participants`` from the ``participants`` plan (the elastic
+   plan: e.g. ``(4, 2)`` saves 4-wide, then resumes 2-wide from the
+   4-wide store), and ``--resume`` when the checkpoint root already has a
+   committed manifest;
 2. tails the feed and fires the attempt's injection: ``kill`` sends
    SIGKILL once the child reports the target step (a node lost, nothing
    flushed), ``sigterm`` sends SIGTERM (a preemption notice: the trainer
@@ -43,8 +46,6 @@ Where the port departs from the JAX package's supervisor:
   (``--device``, ``--full``, ``--num-layers``), the probe and the scrub;
   the defaults behave as the JAX package's (the card is the port's
   default device; ``run`` raises without one unless ``device="cpu"``);
-- a ``participants`` plan may hold 1 only: any other value raises before
-  the first launch, as sharded saves are ROADMAP A4;
 - the child's standard output (the trainer's JSON result) goes to
   ``attempt-N.out`` apart from its log, and each attempt's record carries
   the part of that result that says where the attempt's time and memory
@@ -186,10 +187,9 @@ class Supervisor:
         num_layers: Optional[int] = None,
     ) -> None:
         self.participants = [int(p) for p in participants] or [1]
-        if any(p != 1 for p in self.participants):
+        if any(p < 1 for p in self.participants):
             raise ValueError(f"participants plan {self.participants}: "
-                             "sharded saves are not ported yet (ROADMAP "
-                             "A4); every attempt runs 1 participant")
+                             "every attempt needs at least 1 participant")
         self.ckpt_dir = Path(ckpt_dir)
         self.run_dir = Path(run_dir)
         self.steps = int(steps)
@@ -215,6 +215,12 @@ class Supervisor:
         self._device = None     # resolved by ``run``
 
     # ----------------------------------------------------------- plumbing
+    def _participants_for(self, attempt: int) -> int:
+        """The attempt's save participants: the plan's entry, its last one
+        past its end (the elastic plan, e.g. 4 then 2)."""
+        plan = self.participants
+        return plan[attempt] if attempt < len(plan) else plan[-1]
+
     def _child_env(self) -> Dict[str, str]:
         env = dict(os.environ)
         src = str(Path(__file__).resolve().parents[2])
@@ -222,8 +228,8 @@ class Supervisor:
             os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
         return env
 
-    def _argv(self, injection: Optional[Injection], progress: Path,
-              losses: Path) -> List[str]:
+    def _argv(self, attempt: int, injection: Optional[Injection],
+              progress: Path, losses: Path) -> List[str]:
         argv = [
             sys.executable, "-m", "repro_torch.launch.train",
             "--arch", self.arch,
@@ -235,7 +241,7 @@ class Supervisor:
             "--ckpt-dir", str(self.ckpt_dir),
             "--store-backend", self.store_backend,
             "--io-backend", self.io_backend,
-            "--shard-participants", "1",
+            "--shard-participants", str(self._participants_for(attempt)),
             "--seed", str(self.seed),
             "--handle-sigterm",
             "--progress-file", str(progress),
@@ -317,8 +323,10 @@ class Supervisor:
             losses = self.run_dir / f"losses-{attempt}.csv"
             child_log = self.run_dir / f"attempt-{attempt}.log"
             child_out = self.run_dir / f"attempt-{attempt}.out"
-            argv = self._argv(injection, progress, losses)
-            log.info("attempt %d: injection=%s", attempt, injection)
+            argv = self._argv(attempt, injection, progress, losses)
+            n_parts = self._participants_for(attempt)
+            log.info("attempt %d: participants=%d injection=%s",
+                     attempt, n_parts, injection)
             t_launch = time.time()
             with open(child_log, "wb") as lf, open(child_out, "wb") as of:
                 proc = subprocess.Popen(argv, env=self._child_env(),
@@ -341,7 +349,7 @@ class Supervisor:
             result = _child_result(child_out)
             attempts.append({
                 "attempt": attempt,
-                "participants": 1,
+                "participants": n_parts,
                 "pid": proc.pid,
                 "exit_code": exit_code,
                 "steps_executed": steps_executed,
@@ -542,8 +550,8 @@ def main() -> None:
     ap.add_argument("--io-workers", type=int,
                     help="process backend: subprocess IO worker count")
     ap.add_argument("--participants", default="1",
-                    help="comma-separated per-attempt plan; 1 only "
-                         "(sharded saves are ROADMAP A4)")
+                    help="comma-separated per-attempt plan of save "
+                         "participants (the last entry repeats), e.g. 4,2")
     ap.add_argument("--inject", action="append", default=[],
                     help="kind:step[:point], e.g. kill:11, sigterm:30, "
                          "crash:12:spill (repeatable; one per attempt)")

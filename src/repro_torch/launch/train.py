@@ -64,7 +64,12 @@ checkpointing and Frankenstein resume, on the card by default.
 - ``--log-csv`` gets a ``step,loss`` line as each step ends (flushed, so
   a process killed mid-run leaves the steps it ran; the JAX package
   writes the file at the run's end),
-- ``--shard-participants`` takes 1 only: sharded saves are ROADMAP A4,
+- ``--shard-participants N`` (N > 1) saves shard-native
+  (``checkpoint/sharded.py``): N participants on threads each fingerprint
+  and write only their axis-0 blocks of every selected unit, and the
+  manifest commits through the two-phase barrier; a resume reads any N's
+  store (the next event's shards then start fresh bases).  With
+  ``--ckpt-spread-steps`` it raises ``ValueError``, as in the JAX package,
 - ``--device cpu`` is the only way onto the CPU; ``--num-layers`` cuts the
   depth of a config (a full-width state that does not fit the card).
 
@@ -91,6 +96,7 @@ import torch
 from repro_torch.checkpoint import faults
 from repro_torch.checkpoint.overlap import OverlappedSaver
 from repro_torch.checkpoint.saver import CheckpointManager
+from repro_torch.checkpoint.sharded import ShardedCheckpointer
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.delta import DeltaTracker
@@ -238,10 +244,12 @@ def train(
     progress_file: Optional[str] = None,
 ) -> Dict:
     started = time.time()
-    if shard_participants != 1:
-        raise ValueError(f"shard_participants={shard_participants}: sharded "
-                         "saves are not ported yet (ROADMAP A4); the port "
-                         "saves with 1 participant")
+    if shard_participants < 1:
+        raise ValueError(f"shard_participants={shard_participants}: a save "
+                         "needs at least one participant")
+    if ckpt_spread_steps > 0 and shard_participants > 1:
+        raise ValueError("--ckpt-spread-steps is incompatible with "
+                         "--shard-participants > 1")
     t = time.perf_counter()
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -272,6 +280,10 @@ def train(
                             remote_opts=remote_opts,
                             io_backend=io_backend, io_workers=io_workers)
     tracker = DeltaTracker(registry) if policy_name == "topk_delta" else None
+    # Shard-native saves: N participants on threads, one commit through the
+    # barrier; ``saver`` keeps ``CheckpointManager.save``'s signature.
+    saver = (ShardedCheckpointer(mgr, shard_participants)
+             if shard_participants > 1 else mgr)
     # Zero-stall pipeline: events begin at the step boundary and run their
     # host-side copy/encode/write across the next ``ckpt_spread_steps``.
     try:
@@ -391,10 +403,10 @@ def train(
                     # (FIFO).
                     if ov is not None and ov.active:
                         absorb_event(ov.finish())
-                    manifest = mgr.save(state, step=step + 1,
-                                        meta=event_meta(),
-                                        units=policy.all_units(),
-                                        durability_barrier=False)
+                    manifest = saver.save(state, step=step + 1,
+                                          meta=event_meta(),
+                                          units=policy.all_units(),
+                                          durability_barrier=False)
                     save_events.append(dict(mgr.last_save_stats,
                                             tick_step_seconds=[],
                                             preemption=True))
@@ -420,9 +432,9 @@ def train(
                         ov.begin(state, step + 1, meta=event_meta(),
                                  drift_scores=scores)
                     else:
-                        manifest = mgr.save(state, step=step + 1,
-                                            meta=event_meta(),
-                                            drift_scores=scores)
+                        manifest = saver.save(state, step=step + 1,
+                                              meta=event_meta(),
+                                              drift_scores=scores)
                         if tracker:
                             tracker.mark_saved(state["params"],
                                                manifest.saved_units)
@@ -495,7 +507,7 @@ def train(
             "tier_stats": tier_stats,
             # the report of the scrub-on-start pass (None when not run)
             "scrub_report": scrub_report,
-            "shard_participants": 1,
+            "shard_participants": shard_participants,
             # what came before the first step: the unix time ``train`` was
             # entered, and the seconds of the card's context, the model and
             # manager, the scrub and the restore (or the initial state); and
@@ -593,8 +605,8 @@ def main() -> None:
                     help="append kind,step,unix-time progress lines here "
                          "(the supervisor's feed)")
     ap.add_argument("--shard-participants", type=int, default=1,
-                    help="save participants: 1 only (sharded saves are "
-                         "ROADMAP A4)")
+                    help="N > 1: shard-native saves, N participants (each "
+                         "its axis-0 blocks) and a two-phase commit")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--log-csv")

@@ -458,30 +458,50 @@ def test_scrub_root_offline_entry(tmp_path):
 
 
 def test_sharded_entry_raises_the_a4_error_before_any_write(tmp_path):
-    """JAX's sharded kind: the port reads no shard set (ROADMAP A4), so a
-    scrub of a store holding one raises that error and writes nothing."""
-    store = JaxStore(tmp_path, backend="remote3",
-                     remote_opts=dict(REMOTE_OPTS))
+    """JAX's sharded kind (``tests/test_scrub.py``'s synthetic store: a
+    full object, an XOR delta on it and a shard set of two spec-carrying
+    refs), copied twice with one shard object flipped in the durable
+    tier: the port's scrub gives JAX's report but ``elapsed_s`` (four
+    objects checked, two of them shards, the flip repaired from a good
+    copy) and leaves equal bytes in every tier."""
+    src = tmp_path / "src"
+    store = JaxStore(src, backend="remote3", remote_opts=dict(REMOTE_OPTS))
     rs = np.random.RandomState(3)
+    base = {"w": rs.standard_normal(4096).astype(np.float32)}
+    r_full = store.write(10, "x0", "weights", base)
+    cur = {"w": base["w"].copy()}
+    cur["w"][5] += 1.0
+    r_delta = store.write(20, "x0", "weights", cur,
+                          delta_base=r_full.digest)
     refs = tuple(dataclasses.replace(
         store.write(20, "xs", "weights",
                     {"w": rs.standard_normal(256).astype(np.float32)}),
         spec={"participant": i}) for i in range(2))
-    JaxManifestStore(tmp_path).commit(JaxManifest(
-        step=20, entries={"xs": {"weights": refs}}))
+    JaxManifestStore(src).commit(JaxManifest(step=20, entries={
+        "x0": {"weights": r_delta}, "xs": {"weights": refs}}))
     store.drain_spill()
     store.close()
-    before = {str(p): p.read_bytes() for p in sorted(tmp_path.rglob("*"))
-              if p.is_file()}
-    with pytest.raises(ValueError, match="A4"):
-        scrub_root(tmp_path, backend="remote3",
-                   remote_opts=dict(REMOTE_OPTS), device="cpu")
-    after = {str(p): p.read_bytes() for p in sorted(tmp_path.rglob("*"))
-             if p.is_file()}
-    assert after == before
+    reports = {}
+    for pkg in ("jax", "port"):
+        root = tmp_path / pkg
+        shutil.copytree(src, root)
+        st = (JaxStore(root, backend="remote3", remote_opts=dict(REMOTE_OPTS))
+              if pkg == "jax" else
+              ChunkStore(root, backend="remote3",
+                         remote_opts=dict(REMOTE_OPTS)))
+        _flip(st.backend.tier_backends()["durable"], refs[0].digest)
+        rep = (JaxScrubber(st).scrub() if pkg == "jax"
+               else StoreScrubber(st, device="cpu").scrub())
+        st.close()
+        rep.pop("elapsed_s")
+        reports[pkg] = rep
+    assert reports["port"] == reports["jax"]
+    rep = reports["port"]
+    assert rep["checked_objects"] == 4 and not rep["unrecoverable"]
+    assert [r["digest"] for r in rep["repaired"]] == [refs[0].digest]
+    assert _tier_files(tmp_path / "port") == _tier_files(tmp_path / "jax")
 
 
-# ------------------------------------------------------ across packages
 def _tier_files(root):
     """Every object file of the disk tiers (objects/, remote/) and the
     quarantine, by path."""

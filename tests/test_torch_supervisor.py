@@ -256,21 +256,43 @@ def test_attempt_timeout_kills_the_child(tmp_path):
 
 @pytest.mark.parametrize("how", ["plan", "train", "cli"])
 def test_more_than_one_participant_names_a4(tmp_path, how):
+    """More than one save participant runs (ROADMAP A4.1): an elastic plan
+    ``(2, 1)`` saves 2-wide, is killed, and resumes 1-wide from the
+    sharded store; ``train(shard_participants=2)`` and the CLI's
+    ``--shard-participants 2`` commit shard sets of two participants."""
+    ckpt = tmp_path / "c"
     if how == "plan":
-        with pytest.raises(ValueError, match="ROADMAP A4"):
-            Supervisor(tmp_path / "c", run_dir=tmp_path / "r", steps=4,
-                       interval=2, participants=(2, 1), device="cpu")
-    elif how == "train":
-        with pytest.raises(ValueError, match="ROADMAP A4"):
-            train(arch="yi-9b", total_steps=2, device="cpu",
-                  ckpt_dir=str(tmp_path / "c"), shard_participants=2)
-        assert not (tmp_path / "c").exists()
+        report = Supervisor(
+            ckpt, run_dir=tmp_path / "r", arch="yi-9b", steps=4,
+            interval=2, participants=(2, 1), device="cpu",
+            injections=[Injection("kill", at_step=3)],
+            verify_restore=True, attempt_timeout=180).run()
+        assert report["completed"] and report["participants_plan"] == [2, 1]
+        assert [a["participants"] for a in report["attempts"]] == [2, 1]
+        assert report["interruptions"][0]["committed_step"] == 2
+        probe = report["interruptions"][0]["restore_probe"]
+        assert probe["step"] == 2 and not probe["fallback_units"]
+        m2 = ManifestStore(ckpt).load(2)
+        assert m2.meta["sharded"]["n_participants"] == 2
+        assert "sharded" not in ManifestStore(ckpt).load(4).meta
+        return
+    if how == "train":
+        out = train(arch="yi-9b", total_steps=2, ckpt_interval=2,
+                    batch=2, seq_len=16, device="cpu", ckpt_dir=str(ckpt),
+                    shard_participants=2)
+        assert out["shard_participants"] == 2
+        assert out["save_events"][0]["participants"] == 2
     else:
-        out = subprocess.run(
-            _trainer_cmd(tmp_path / "c", "--steps", "2",
+        res = subprocess.run(
+            _trainer_cmd(ckpt, "--steps", "2", "--ckpt-interval", "2",
                          "--shard-participants", "2"),
             env=_env(), capture_output=True, text=True, timeout=120)
-        assert out.returncode != 0 and "ROADMAP A4" in out.stderr
+        assert res.returncode == 0, res.stderr[-2000:]
+        assert json.loads(res.stdout)["shard_participants"] == 2
+    m = ManifestStore(ckpt).load()
+    assert m.step == 2 and m.meta["sharded"] == {"n_participants": 2}
+    assert all(len(e) == 2 for kinds in m.entries.values()
+               for e in kinds.values())
 
 
 def test_run_without_a_card_raises_before_any_launch(tmp_path, monkeypatch):

@@ -22,7 +22,7 @@ from repro.core.policies import make_policy as jax_make_policy
 from repro.launch import steps as jax_steps
 from repro.models import build_model as jax_build_model
 from repro_torch.checkpoint import faults
-from repro_torch.checkpoint.chunk_store import ChunkRef, ReadSession
+from repro_torch.checkpoint.chunk_store import ReadSession
 from repro_torch.checkpoint.faults import InjectedCrash
 from repro_torch.checkpoint.saver import CheckpointManager
 from repro_torch.checkpoint.serial import flatten_with_paths
@@ -218,21 +218,32 @@ def test_swap_apply_crash_leaves_old_weights_serving(tmp_path, setup):
 
 
 def test_shard_set_entries_raise(tmp_path, setup):
-    model, reg, s1, _ = setup
+    """A shard set loads its unit whole (as the JAX service does): from
+    step 10, a global save, to step 20, saved by two participants, the
+    swap equals a cold load of 20 bit for bit, every unit read in full;
+    a shard set whose objects do not tile the unit raises ``SwapError``
+    and the service keeps serving step 10."""
+    from repro_torch.checkpoint.sharded import ShardedCheckpointer
+
+    model, reg, s1, s2 = setup
     mgr = _mgr(tmp_path, reg, model)
     try:
         mgr.save(_port(s1), step=10)
+        ShardedCheckpointer(mgr, 2).save(_port(s2), step=20)
         svc = WeightService(mgr, _like(model), device="cpu", step=10)
-        m = mgr.manifests.load(10)
+        stats = svc.swap(mgr.manifests.load(20))
+        assert svc.step == 20 and stats["units_full"] == len(reg.units)
+        _assert_params_equal(svc.current(), _cold(mgr, model, 20))
+        _assert_params_equal(svc.current(), _port(s2)["params"])
+        m = mgr.manifests.load(20)
         unit = model.layer_units()[1].name
-        ref = m.entries[unit]["weights"]
-        shards = (ChunkRef(**{**ref.to_json(), "digest": "a" * 40}),
-                  ChunkRef(**{**ref.to_json(), "digest": "b" * 40}))
         entries = {u: dict(k) for u, k in m.entries.items()}
-        entries[unit]["weights"] = shards
-        with pytest.raises(SwapError, match="ROADMAP A4"):
-            svc.swap(Manifest(step=30, entries=entries))
-        assert svc.step == 10
+        entries[unit]["weights"] = m.entries[unit]["weights"][:1]
+        svc2 = WeightService(mgr, _like(model), device="cpu", step=10)
+        with pytest.raises(SwapError, match="shard set"):
+            svc2.swap(Manifest(step=30, entries=entries))
+        assert svc2.step == 10
+        _assert_params_equal(svc2.current(), _cold(mgr, model, 10))
     finally:
         mgr.close()
 

@@ -46,7 +46,7 @@ from repro.launch.train import SimulatedFailure as JaxSimulatedFailure
 from repro.launch.train import train as jax_train
 from repro.models import build_model as jax_build_model
 from repro_torch.checkpoint import _msgpack, workers
-from repro_torch.checkpoint.chunk_store import ChunkStore
+from repro_torch.checkpoint.chunk_store import ChunkRef, ChunkStore
 from repro_torch.checkpoint.saver import CheckpointManager
 from repro_torch.checkpoint.serial import ChunkCorruption
 from repro_torch.configs import get_config
@@ -193,17 +193,74 @@ def test_recipe_load_and_assignment_agree_with_jax(tmp_path, suffix):
 
 
 # ---------------------------------------------------------------- manifests
-def test_manifest_entries_are_single_refs_and_shard_sets_raise(tmp_path):
-    ms = ManifestStore(tmp_path)
+def test_manifest_entries_are_single_refs_and_shard_sets_raise(tmp_path,
+                                                              no_zstd):
+    """A shard set (a list of refs, each with its spec) reads as a tuple
+    of refs and writes back byte for byte; a store JAX's sharded
+    checkpointer wrote (two participants, a full and a delta event) merges
+    in the port byte-identically to JAX's merge of it, each shard set
+    whole with its specs, and the merged root restores to the state."""
+    from repro.checkpoint.sharded import ShardedCheckpointer as JaxSharded
+
+    ms = ManifestStore(tmp_path / "m")
     assert not is_sharded(object()) and is_sharded(())
     assert entry_refs("r") == ("r",) and entry_refs(["a", "b"]) == ("a", "b")
     ref = {"step": 1, "unit": "embed", "kind": "weights",
-           "relpath": "objects/ab/ab.chunk", "nbytes": 1, "digest": "ab"}
-    blob = (b'{"step": 1, "entries": {"embed": {"weights": [%s]}}}'
-            % str(ref).replace("'", '"').encode())
+           "relpath": "objects/ab/ab.chunk", "nbytes": 1, "digest": "ab",
+           "stored": "full", "delta_base": None,
+           "spec": {"participant": 0, "leaves": [
+               {"path": "w", "shape": [4, 2], "dtype": "bfloat16",
+                "blocks": [[[0, 4], [0, 2]]]}]}}
+    blob = Manifest(step=1, entries={"embed": {"weights": (
+        ChunkRef.from_json(ref),)}}).to_json()
     ms.path(1).write_bytes(blob)
-    with pytest.raises(ValueError, match="A4"):
-        ms.load(1)
+    got = ms.load(1).entries["embed"]["weights"]
+    assert is_sharded(got) and got[0].spec == ref["spec"]
+    assert ms.load(1).to_json() == blob
+    assert "spec" not in ChunkRef.from_json(
+        {k: v for k, v in ref.items() if k != "spec"}).to_json()
+
+    src = tmp_path / "src"
+    jmodel, jreg = _jax_side()
+    mgr = JaxManager(src, jreg, jax_make_policy("parity",
+                                                jmodel.layer_units()),
+                     codec="none", async_save=False, fp_block_bytes=BB)
+    states = _states()
+    for step, st in zip((2, 4), states):
+        JaxSharded(mgr, 2).save(st, step=step)
+    mgr.close()
+    recipes = {}
+    for pkg in ("jax", "port"):
+        recipes[pkg] = tmp_path / f"recipe_{pkg}.yaml"
+        recipes[pkg].write_text(
+            f"base: {src}@4\noutput: {tmp_path / f'merged_{pkg}'}\n"
+            f"select:\n  - units: block_000\n    from: {src}@2\n")
+    want = jax_merge(JaxRecipe.load(recipes["jax"]), workers=2)
+    got = merge(Recipe.load(recipes["port"]), workers=2, device="cpu")
+    assert _tree_bytes(tmp_path / "merged_port") == \
+        _tree_bytes(tmp_path / "merged_jax")
+    assert got["chunks"] == want["chunks"] > 2 * len(UNITS)
+    m = ManifestStore(tmp_path / "merged_port").load()
+    assert all(is_sharded(e) and all(r.spec for r in e)
+               for kinds in m.entries.values() for e in kinds.values())
+    model, reg = _port_side()
+    pm = CheckpointManager(tmp_path / "merged_port", reg,
+                           make_policy("full", model.layer_units()),
+                           async_save=False)
+    restored = state_to_numpy(pm.restore(steps.state_specs(model),
+                                         device=CPU), ml_dtypes.bfloat16)
+    pm.close()
+    for part in ("params", "opt"):
+        for (_, a), (_, b) in zip(
+                _flat_np(restored[part]), _flat_np(states[1][part])):
+            np.testing.assert_array_equal(a, b)
+
+
+def _flat_np(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _flat_np(tree[k], f"{prefix}{k}/")]
+    return [(prefix, np.asarray(tree))]
 
 
 # -------------------------------------------------------------------- stores
