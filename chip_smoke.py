@@ -21,28 +21,33 @@ which exits non-zero:
    ``fused_adamw`` at the main path's shapes (a full-width Yi-9B block's
    optimizer unit and its leaves), timed with CUDA events;
    ``flash_attention`` over causal (Sq == Sk and the top-left Sq < Sk),
-   non-causal, ragged-Sk, G = H, G = 1, bf16/float32, D 64/128 cases, a
-   decode step on a strided cache view, and cases at the edges of its
-   three routes (bf16 prefill on tensor cores, bf16 split-K decode,
-   float32): Sq on either side of ``ops.PREFILL_MIN_QUERIES``, causal and
-   not, D 64, G = 1, G = H, Sk = 1 and 4097 (every route must be reached);
-   then timed beside its plain version and SDPA (event time of one call,
-   profiler device time, kernels per call) at the serve path's prefill and
-   decode shapes, each on the route the wrapper picks, and the float32
-   route at the prefill shape; both bf16 shapes under the two-ulp check
-   below, SDPA recorded under it as a control; ``ptxas``'s registers and
-   spills of every flash kernel recorded;
+   non-causal, ragged-Sk, G = H, G = 1, bf16/float32, D 64/128 cases,
+   decode steps on strided cache views (D 128 and 80), and cases at the
+   edges of its three routes (bf16 prefill on tensor cores, bf16 split-K
+   decode, float32): Sq on either side of ``ops.PREFILL_MIN_QUERIES``,
+   causal and not, D 64, G = 1, G = H, Sk = 1 and 4097, and head dim 80
+   (Zamba2) on each route (every route must be reached); then timed
+   beside its plain version and SDPA (event time of one call, profiler
+   device time, kernels per call) at the serve path's prefill and decode
+   shapes at Yi-9B's heads and at Zamba2-2.7B's (32 / 32, D 80), each on
+   the route the wrapper picks, and the float32 route at Yi-9B's prefill
+   shape; every bf16 shape under the two-ulp check below, SDPA recorded
+   under it as a control; ``ptxas``'s registers and spills of every flash
+   kernel recorded;
    ``ssd_scan`` over full, ragged-S, odd-Q, S < Q, G = 1, G = 2 and G = H
    cases in bf16 and float32 through the wrapper (the f32 route, CUDA
-   cores), the bf16 cases also on the bf16 route (tensor cores), on
-   model-style strided views and contiguous inputs (two launches bitwise
-   equal), then both routes at the Mamba2-370m serve prefill shape under
-   the two-ulp check, with the plain version rounding its decayed scores
-   to bf16 as a control the check must reject, and the wrapper timed
-   beside its plain version; both routes timed on the same bf16 inputs
-   (event and device time, kernels per call, device time by kernel) there
-   and at batch 1 x 4096, with the bf16 route's scratch bytes and
-   ``ptxas``'s registers and spills; ``quantize`` and
+   cores), at state dim 128 and (the wrapper alone; the bf16 route must
+   refuse them) 64, the bf16 cases at 128 also on the bf16 route (tensor
+   cores), on model-style strided views and contiguous inputs (two
+   launches bitwise equal), then both routes at the Mamba2-370m serve
+   prefill shape under the two-ulp check, with the plain version rounding
+   its decayed scores to bf16 as a control the check must reject, and the
+   wrapper timed beside its plain version; both routes timed on the same
+   bf16 inputs (event and device time, kernels per call, device time by
+   kernel) there and at batch 1 x 4096, with the bf16 route's scratch
+   bytes and ``ptxas``'s registers and spills; the wrapper at Zamba2-2.7B's
+   serve prefill shape (80 heads, N 64) under the two-ulp check and timed
+   beside its plain version; ``quantize`` and
    ``dequantize`` (one source) bitwise against their plain versions over
    n in {1, 255, 256, 257, 64*256+3}, f32 and bf16, and blocks of zeros,
    half-way ties, the clip edge, denormals, an underflowing scale, NaN and
@@ -86,9 +91,11 @@ which exits non-zero:
       cold load of it, a hot-swapped and a cold-loaded server generating
       the same tokens, and a constructed drift of a few 64 KiB blocks that
       takes the scatter path; (serve) Yi-9B at full width and full depth
-      on random bf16 weights, batch 8, 1024-token prompts, 128 new tokens:
-      every prefill and decode attention launches ``flash_attention`` and
-      one decode step matches the prefill of the longer prompt;
+      on random bf16 weights, batch 8, 1024-token prompts, SERVE_NEW (16)
+      new tokens (every serve of the command decodes 16, since the hybrid
+      came: 128 before): every prefill and decode attention launches
+      ``flash_attention`` and one decode step matches the prefill of the
+      longer prompt;
    e. Mamba2-370m at full width, batch 4, seq 1024, training at 4 of its
       48 layers (``SSM_TRAIN_LAYERS``: the cut that keeps the command
       inside its 1200-s limit, from 12 with 3h's to pay for 3l): an 8-step
@@ -99,7 +106,7 @@ which exits non-zero:
       weights-only cold load of step 4, a hot-swap to LATEST bit-identical
       to a cold load and hot vs cold ``tokens_digest``; then serving on
       random weights at full depth (48 layers), batch 8, 1024-token
-      prompts, 128 new tokens, with exactly 48 ``ssd_scan`` launches in
+      prompts, 16 new tokens, with exactly 48 ``ssd_scan`` launches in
       the prefill and one decode step matching the prefill of the longer
       prompt;
    f. the int8 codec, as 3a (Yi-9B, parity, sync inline saves) with
@@ -240,12 +247,27 @@ which exits non-zero:
       step 4 by each of 2 participants read fewer bytes than it and
       ``combine_states`` of them equals it bitwise; an unchanged 4-wide
       re-save moves and writes 0 B;
+   o. the hybrid family (Zamba2-2.7B, ROADMAP A5) at full width, after 3n
+      (budget 60 s): (a) training at 6 layers (one group: six Mamba2
+      layers and the shared attention block), batch 2, seq 1024, policy
+      ``full``: a 6-step reference, a run with synchronous saves every 2
+      steps that fails at step 5, and its resume from step 4, whose losses
+      equal the reference's within MODE_TOL; step 2's manifest holds the
+      ``shared_attn`` unit's weights and optimizer objects, ``block_fp``
+      launches once per saved (unit, kind), ``fused_adamw`` alike on every
+      step; (b) serving at all 54 layers on random bf16 weights, batch 8,
+      1024-token prompts, HYBRID_NEW (8) new tokens: exactly 54
+      ``ssd_scan`` launches in the prefill and 9 ``flash_attention``
+      launches (one a shared invocation) in the prefill and in every
+      decode step; one decode step matches the prefill of the longer
+      prompt within DECODE_HYBRID_TOL in bf16 and DECODE_F32_TOL in
+      float32 (the kernels' float32 routes at N 64 and D 80);
 4. print the main paths' step/save/restore times, the serve line, the
    Mamba line, the int8 line, the merge line, the canonical path's
    ``{"legacy": ...}`` line, the tiers line, the ``{"io": ...}`` line,
    the ``{"cache": ...}`` line, the ``{"scrub": ...}`` line, the
    ``{"supervisor": ...}`` line, the ``{"sharded": ...}`` line, the
-   kernels line, the card line, and
+   ``{"hybrid": ...}`` line, the kernels line, the card line, and
    last
    the ``{"ok": true, "device": ...}`` line; each phase logs its wall
    time; with ``--record PATH``, the full record of every phase also goes
@@ -323,6 +345,17 @@ DECODE_SSM_TOL = 0.1
 # activations, the ssd_scan kernel's float32 path), which takes bf16
 # rounding out of it: far above float32 rounding (~1e-5).
 DECODE_F32_TOL = 1e-3
+# Phase 3o, Zamba2-2.7B at full width and depth (54 Mamba2 layers, 9
+# shared attention invocations), the same comparison in bf16, set before
+# its first card run from the JAX package's own gap: on one set of
+# weights and tokens (batch 8 x 1024, scripts/mamba_decode_gap.py --arch
+# zamba2-2.7b, CPU) the JAX HybridLM reads 0.057, 0.072 and 0.054 at 6,
+# 12 and 24 layers (no trend with depth), the port 0.058, 0.072 and
+# 0.052.  Held to twice the largest, as 3e's bound is ~1.6x its: the
+# float32 comparison is the sharp one (a decode step that attends
+# without its own key reads 0.064 here at 6 layers in bf16, 0.16 in
+# float32 on the reduced model).
+DECODE_HYBRID_TOL = 0.15
 # ... and the bf16 prefill (ssd_scan in every layer) against the training
 # path (the plain chunked scan) on the longer prompt.  The wrapper's f32
 # route sums in the plain version's order, so its y equals the plain
@@ -343,6 +376,7 @@ PROFILE_STEPS = 4    # decode steps traced for the device's busy time
 STORE_BYTES_NEEDED = 40e9
 CHAIN_ARCH = "llama3.2-3b"   # phase 3c, reduced config
 SSM_ARCH = "mamba2-370m"     # phase 3e, full width
+HYBRID_ARCH = "zamba2-2.7b"  # phase 3o, full width
 # 3e's training, its store part and its step profile run 4 of the 48
 # layers, which keeps the command inside its 1200-s limit: cut from 12,
 # with 3h's cuts, to pay for phase 3l (scripts/phase_time.py in turns:
@@ -367,7 +401,14 @@ SSM_STEPS = 8
 # Serving (phase 3d): Yi-9B at full width and depth on random weights
 SERVE_BATCH = 8
 SERVE_PROMPT = 1024
-SERVE_NEW = 128
+# Decode is host-bound (~0.1-0.16 s a full-depth step): 16 tokens keep
+# every launch count exact and the decode rate measured at an eighth of
+# 128 tokens' time (one of the cuts that pay for phase 3o)
+SERVE_NEW = 16
+# phase 2 times a decode step of flash_attention over this many keys: the
+# middle of a 128-token decode after a 1024-token prompt, the shape timed
+# since PR 16
+FLASH_DECODE_KEYS = SERVE_PROMPT + 64
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound_ms column.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -1085,6 +1126,17 @@ def flash_route_cases(t: int) -> tuple:
         (1, 100, 1, 8, 2, 128, True, "bfloat16", "prefill, Sk = 1"),
         (1, 1, 4097, 32, 4, 128, False, "bfloat16", "decode, Sk = 4097"),
         (1, 70, 4097, 8, 2, 64, False, "bfloat16", "prefill, Sk = 4097"),
+        # head dim 80 (Zamba2) on each route
+        (2, 160, 160, 32, 32, 80, True, "bfloat16",
+         "prefill, D 80, causal, G = H"),
+        (1, 77, 130, 8, 2, 80, False, "bfloat16",
+         "prefill, D 80, ragged Sq < Sk, GQA"),
+        (2, t, 300, 32, 32, 80, True, "bfloat16",
+         "prefill, D 80, causal Sq = t < Sk"),
+        (2, t - 1, 300, 32, 32, 80, False, "bfloat16", "decode, D 80"),
+        (1, 1, 333, 8, 2, 80, False, "bfloat16", "decode, D 80, GQA"),
+        (2, 100, 100, 32, 32, 80, True, "float32", "float32, D 80, causal"),
+        (1, 64, 130, 8, 2, 80, False, "float32", "float32, D 80, GQA"),
     )
 
 
@@ -1104,9 +1156,12 @@ def check_flash_attention_cases(torch, dev) -> float:
              for b, sq, sk, h, gg, d, causal, dt, what in
              FLASH_CASES + flash_route_cases(fa.ops.PREFILL_MIN_QUERIES)]
     for dt in (torch.bfloat16, torch.float32):
-        cache = torch.randn(2, 300, 2, 2, 128, generator=g, device=dev).to(dt)
-        cases.append((2, 1, 213, 8, 2, 128, False, dt,
-                      f"decode Sq = 1 on a cache view ({dt})", cache))
+        for d in (128, 80):
+            cache = torch.randn(2, 300, 2, 2, d, generator=g,
+                                device=dev).to(dt)
+            cases.append((2, 1, 213, 8, 2, d, False, dt,
+                          f"decode Sq = 1 on a cache view ({dt}, D {d})",
+                          cache))
     routes = {}
     for b, sq, sk, h, gg, d, causal, dt, what, cache in cases:
         q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dt)
@@ -1161,8 +1216,9 @@ def device_ms(torch, fn, reps: int, name: str, by_kernel=None):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity alone: the sums read no host event, and host events
+    # cost seconds of the trace's processing
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1199,25 +1255,28 @@ def ptxas_report(text: str) -> dict:
 
 def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
     """Time the kernel, its plain version and SDPA at the serve path's two
-    shapes, each on the route the wrapper picks: the Yi-9B prefill (batch 8
-    x 1024 tokens, causal: the bf16 prefill route) and a decode step over a
-    1088-key cache prefix (non-causal, strided view: the split-K decode
-    route); and the float32 route at the prefill shape.  Event times (one
-    call: host work and device) and profiler device times."""
+    shapes, each on the route the wrapper picks: the prefill (batch 8 x
+    1024 tokens, causal: the bf16 prefill route) and a decode step over a
+    FLASH_DECODE_KEYS-key cache prefix (non-causal, strided view: the
+    split-K decode route), at Yi-9B's heads (32 / 4, D 128) and at
+    Zamba2-2.7B's (32 / 32, D 80); and the float32 route at Yi-9B's
+    prefill shape.  Event times (one call: host work and device) and
+    profiler device times."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels._build import BUILDER
 
-    cfg = get_config(ARCH)
-    h, gg, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     g = torch.Generator(device=dev).manual_seed(8)
     bf = torch.bfloat16
     out = {}
-    for name in ("prefill", "decode", "f32"):
+    for name in ("prefill", "decode", "f32", "zamba2_prefill",
+                 "zamba2_decode"):
+        cfg = get_config(HYBRID_ARCH if name.startswith("zamba2") else ARCH)
+        h, gg, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
         dt = torch.float32 if name == "f32" else bf
-        if name != "decode":
+        if not name.endswith("decode"):
             sq = sk = SERVE_PROMPT
             q = torch.randn(SERVE_BATCH, sq, h, d, generator=g, device=dev)
             k = torch.randn(SERVE_BATCH, sk, gg, d, generator=g, device=dev)
@@ -1225,8 +1284,8 @@ def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
             q, k, v = q.to(dt), k.to(dt), v.to(dt)
             causal = True
         else:
-            sq, sk = 1, SERVE_PROMPT + SERVE_NEW // 2
-            cache = torch.randn(SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, 2, gg,
+            sq, sk = 1, FLASH_DECODE_KEYS
+            cache = torch.randn(SERVE_BATCH, FLASH_DECODE_KEYS + 64, 2, gg,
                                 d, generator=g, device=dev).to(bf)
             q = torch.randn(SERVE_BATCH, 1, h, d, generator=g,
                             device=dev).to(bf)
@@ -1303,12 +1362,15 @@ def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
-            "max_abs_err": max(err, pre["max_abs_err"],
-                               out["decode"]["max_abs_err"]),
+            "max_abs_err": max(err, *(o["max_abs_err"]
+                                      for k, o in out.items()
+                                      if k != "f32")),
             "ms": pre["ms"], "plain_ms": pre["plain_ms"],
             "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
             "library_ms": pre["library_ms"], "shape": pre["shape"],
             "prefill": pre, "decode": out["decode"], "f32": out["f32"],
+            "zamba2": {"prefill": out["zamba2_prefill"],
+                       "decode": out["zamba2_decode"]},
             "ptxas": ptxas}
 
 
@@ -1328,17 +1390,27 @@ SSD_CASES = (
     (2, 77, 4, 4, 256, "bfloat16", "S < Q, G = H, bf16"),
     (2, 300, 4, 2, 37, "bfloat16", "odd Q = 37, ragged S, G = 2, bf16"),
 )
+# State dim 64 (Zamba2's), the f32 route alone (the wrapper's; the bf16
+# route takes N 128 only and must refuse these).
+SSD_CASES_N64 = (
+    (2, 512, 8, 1, 256, "bfloat16", "N 64, full chunks, G = 1"),
+    (1, 1025, 4, 1, 256, "float32", "N 64, ragged S = 4 x 256 + 1"),
+    (2, 300, 4, 2, 37, "bfloat16", "N 64, odd Q = 37, ragged S, G = 2"),
+    (2, 77, 4, 4, 256, "float32", "N 64, S < Q, G = H"),
+)
 # Timed besides the serve prefill shape: one long prompt.
 SSD_LONG = (1, 4096)
 
 
-def ssd_inputs(torch, dev, b, s, h, g, dtype, gen, views: bool = True):
+def ssd_inputs(torch, dev, b, s, h, g, dtype, gen, views: bool = True,
+               n=None):
     """SSD inputs as the model makes them: x, B and C views of one conv
     output row (B, S, H*P + 2*G*N) in ``dtype`` (or contiguous tensors),
-    dt = softplus(randn) float32, a_log = log(linspace(1, 16, H))."""
+    dt = softplus(randn) float32, a_log = log(linspace(1, 16, H)); N is
+    ``n`` or the bf16 route's 128."""
     from repro_torch.kernels.ssd_scan import ops
 
-    p, n = ops.HEAD_DIM, ops.STATE_DIM
+    p, n = ops.HEAD_DIM, n or ops.STATE_DIM
     if views:
         conv = (torch.randn(b, s, h * p + 2 * g * n, generator=gen,
                             device=dev) * 0.5).to(dtype)
@@ -1380,14 +1452,25 @@ def check_ssd_scan_cases(torch, dev) -> float:
 
     gen = torch.Generator(device=dev).manual_seed(9)
     worst, n = 0.0, 0
-    for i, (b, s, h, g, q, dt_name, what) in enumerate(SSD_CASES):
+    cases = [c + (128,) for c in SSD_CASES] + [c + (64,)
+                                               for c in SSD_CASES_N64]
+    for i, (b, s, h, g, q, dt_name, what, nd) in enumerate(cases):
         dtype = getattr(torch, dt_name)
         args = ssd_inputs(torch, dev, b, s, h, g, dtype, gen,
-                          views=i % 2 == 0)
+                          views=i % 2 == 0, n=nd)
         want_y, want_fin = ssd.ssd_scan_plain(*args, q)
         calls = {"wrapper, f32 route": lambda: ssd.ssd_scan(*args, q)}
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 and nd == ssd.ops.STATE_DIM:
             calls["bf16 route"] = lambda: ssd.ops.launch(*args, q, "bf16")
+        elif dtype == torch.bfloat16:
+            before = ssd.KERNEL.launches
+            try:
+                ssd.ops.launch(*args, q, "bf16")
+                raise AssertionError(f"ssd_scan's bf16 route took N {nd}")
+            except ValueError:
+                pass
+            if ssd.KERNEL.launches != before:
+                raise AssertionError("a refused bf16 route launched")
         for route, call in calls.items():
             case = f"{what} ({route})"
             before = ssd.KERNEL.launches
@@ -1508,25 +1591,11 @@ def ssd_scan_at_main_shape(torch, dev, err: float) -> dict:
     routes["bf16"]["check"] = chks["bf16"]
     routes["bf16"]["scratch_bytes"] = ssd.ops.scratch_bytes(
         SERVE_BATCH, SERVE_PROMPT, h, q)
-    xs, dt, a_log, bs, cs = args
+    xs, bs = args[0], args[3]
     b, s, _, p = xs.shape
     n = bs.shape[-1]
-    nbytes = (2 * xs.numel() * xs.element_size() + bs.numel()
-              * bs.element_size() + cs.numel() * cs.element_size()
-              + dt.numel() * 4 + a_log.numel() * 4 + b * h * p * n * 4)
-    # The products the function needs, chunk by chunk: the causal scores
-    # C.B^T (Q(Q+1)/2 entries of N terms) once per (b, group), and per
-    # (b, head) the causal intra product with x (Q(Q+1)/2 entries of P
-    # terms), the carried state's part C.state^T (none in the first chunk,
-    # whose incoming state is zero) and the state update (Q N P each).
-    flops = 0
-    for c0 in range(0, s, q):
-        qc = min(q, s - c0)
-        tri = qc * (qc + 1) // 2
-        flops += b * g_ * 2 * tri * n
-        flops += b * h * (2 * tri * p + 2 * qc * n * p * (2 if c0 else 1))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
-    del args, xs, dt, a_log, bs, cs
+    nbytes, flops, t_bytes, t_ops = ssd_work(args, q)
+    del args, xs, bs
     torch.cuda.empty_cache()
     lb, ls = SSD_LONG
     long_args = ssd_inputs(torch, dev, lb, ls, h, g_, torch.bfloat16, gen)
@@ -1559,10 +1628,80 @@ def ssd_scan_at_main_shape(torch, dev, err: float) -> dict:
            "state_rel_err": kchk["state_rel_err"],
            "control_rounded_m": cchk, "ptxas": ptxas,
            "shape": f"x ({b},{s},{h},{p}) bf16 views, B/C ({b},{s},{g_},"
-                    f"{n}), Q {q}"}
+                    f"{n}), Q {q}",
+           "zamba2": ssd_scan_at_hybrid_shape(torch, dev, gen)}
     log(f"ssd_scan at the serve prefill shape: {ms:.4f} ms (bound "
         f"{out['bound_ms']:.4f}, {out['bound_by']}; plain {plain_ms:.3f}); "
         f"routes {routes}; batch {lb} x {ls}: {long_routes}; ptxas {ptxas}")
+    return out
+
+
+def ssd_work(args, q: int):
+    """(bytes, operations, bytes time, operations time) the SSD chunk scan
+    needs on ``args`` at chunk ``q``: x, dt, a_log, B, C read once, y and
+    the final state written once."""
+    xs, dt, a_log, bs, cs = args
+    b, s, h, p = xs.shape
+    g_, n = bs.shape[2], bs.shape[3]
+    nbytes = (2 * xs.numel() * xs.element_size() + bs.numel()
+              * bs.element_size() + cs.numel() * cs.element_size()
+              + dt.numel() * 4 + a_log.numel() * 4 + b * h * p * n * 4)
+    # The products the function needs, chunk by chunk: the causal scores
+    # C.B^T (Q(Q+1)/2 entries of N terms) once per (b, group), and per
+    # (b, head) the causal intra product with x (Q(Q+1)/2 entries of P
+    # terms), the carried state's part C.state^T (none in the first chunk,
+    # whose incoming state is zero) and the state update (Q N P each).
+    flops = 0
+    for c0 in range(0, s, q):
+        qc = min(q, s - c0)
+        tri = qc * (qc + 1) // 2
+        flops += b * g_ * 2 * tri * n
+        flops += b * h * (2 * tri * p + 2 * qc * n * p * (2 if c0 else 1))
+    return (nbytes, flops, nbytes / HBM_BYTES_PER_S,
+            flops / BF16_OPS_PER_S)
+
+
+def ssd_scan_at_hybrid_shape(torch, dev, gen) -> dict:
+    """The wrapper (f32 route) at Zamba2-2.7B's serve prefill shape (batch
+    8 x 1024 tokens, 80 heads, P 64, N 64, Q 256, one group, bf16 views of
+    the conv output): the two-ulp check against the plain version, then
+    event and profiler device time beside the plain version and the
+    bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as ssd
+
+    cfg = get_config(HYBRID_ARCH)
+    sc = cfg.ssm
+    h, g_, n = sc.num_heads(cfg.d_model), sc.ngroups, sc.state_dim
+    q = min(sc.chunk_size, SERVE_PROMPT)
+    args = ssd_inputs(torch, dev, SERVE_BATCH, SERVE_PROMPT, h, g_,
+                      torch.bfloat16, gen, n=n)
+    want_y, want_fin = ssd.ssd_scan_plain(*args, q)
+    y, fin = ssd.ssd_scan(*args, q)
+    chk = _ssd_check(torch, y, want_y, fin, want_fin)
+    del y, fin, want_y, want_fin
+    log(f"ssd_scan at the Zamba2 serve shape vs plain: {chk}")
+    if not chk["within"]:
+        raise AssertionError(f"ssd_scan off the plain version at the "
+                             f"Zamba2 serve shape: {chk}")
+    call = lambda: ssd.ssd_scan(*args, q)  # noqa: E731
+    ms = cuda_ms(call, 20, torch)
+    dev_ms, per_call = device_ms(torch, call, 20, "ssd_")
+    plain_ms = cuda_ms(lambda: ssd.ssd_scan_plain(*args, q), 3, torch)
+    nbytes, flops, t_bytes, t_ops = ssd_work(args, q)
+    del args
+    torch.cuda.empty_cache()
+    out = {"shape": f"x ({SERVE_BATCH},{SERVE_PROMPT},{h},"
+                    f"{ssd.ops.HEAD_DIM}) bf16 views, B/C ({SERVE_BATCH},"
+                    f"{SERVE_PROMPT},{g_},{n}), Q {q}",
+           "route": "f32", "ms": ms, "device_ms": dev_ms,
+           "kernels_per_call": per_call, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "flops": flops, **chk}
+    log(f"ssd_scan at the Zamba2 serve shape: {ms:.4f} ms (device "
+        f"{dev_ms}, bound {out['bound_ms']:.4f}, {out['bound_by']}; plain "
+        f"{plain_ms:.3f})")
     return out
 
 
@@ -4768,13 +4907,13 @@ def _check_serve_launches(launches: dict, want: dict) -> None:
 
 
 def serve_full_depth(torch, dev, out: dict, arch: str, want: dict,
-                     decode_tol: float) -> None:
+                     decode_tol: float, new_tokens: int = SERVE_NEW) -> None:
     """A published model at full width and depth on random bf16 weights
     through ``repro_torch.launch.serve.serve``: batch 8, 1024-token
-    prompts, 128 greedy tokens.  Each kernel must launch as often as
-    ``want`` says; then one decode step against the prefilled cache must
-    give the logits of prefilling the longer prompt within ``decode_tol``,
-    all finite."""
+    prompts, ``new_tokens`` greedy tokens.  Each kernel must launch as
+    often as ``want`` says; then one decode step against the prefilled
+    cache must give the logits of prefilling the longer prompt within
+    ``decode_tol``, all finite."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
@@ -4787,7 +4926,7 @@ def serve_full_depth(torch, dev, out: dict, arch: str, want: dict,
     _zero_counts()
     t0 = time.perf_counter()
     res = serve(arch=arch, reduced=REDUCED, batch=SERVE_BATCH,
-                prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW, seed=SEED,
+                prompt_len=SERVE_PROMPT, new_tokens=new_tokens, seed=SEED,
                 device=str(dev))
     torch.cuda.synchronize()
     launches = _read_counts()
@@ -4798,7 +4937,7 @@ def serve_full_depth(torch, dev, out: dict, arch: str, want: dict,
     out.update({
         "config": f"{arch} full width, {cfg.num_layers} layers "
                   f"({n_params} params, random bf16), batch {SERVE_BATCH}, "
-                  f"prompt {SERVE_PROMPT}, {SERVE_NEW} new tokens",
+                  f"prompt {SERVE_PROMPT}, {new_tokens} new tokens",
         "launches": launches, "peak_device_bytes": peak,
         "allocated_before_bytes": before, "seconds": wall,
         **{k: res[k] for k in ("prefill_seconds", "decode_seconds",
@@ -4813,7 +4952,7 @@ def serve_full_depth(torch, dev, out: dict, arch: str, want: dict,
     if not all(0 <= t < cfg.vocab_size for t in res["sample_tokens"]):
         raise AssertionError(f"tokens out of range: {res['sample_tokens']}")
     out["decode_vs_prefill"], out["decode_profile"] = _decode_checks(
-        torch, dev, cfg, res["decode_seconds"] / SERVE_NEW, decode_tol)
+        torch, dev, cfg, res["decode_seconds"] / new_tokens, decode_tol)
 
 
 def phase_3d_serve(torch, dev, out: dict) -> None:
@@ -4881,7 +5020,8 @@ def _decode_gap_float32(torch, dev, cfg) -> float:
     toks = torch.from_numpy(rng.randint(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 1)).astype(
             np.int32)).to(dev)
-    _, cache = model.prefill(params, {"tokens": toks[:, :-1]})
+    _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
+                             cache_len=SERVE_PROMPT + 1)
     ld, _ = model.decode_step(params, cache, {"tokens": toks[:, -1:],
                                               "pos": SERVE_PROMPT})
     del cache
@@ -4907,8 +5047,10 @@ def _decode_profile(torch, model, params, cache, tok,
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity alone: at full depth the host's events took 7.8 s
+    # of processing for 4 steps, the device's 2.2 s, for the same busy
+    # time (Yi-9B on an H100: scripts/trace_cost.py; PERF.md, section 6)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(PROFILE_STEPS):
             model.decode_step(params, cache, {"tokens": tok,
                                               "pos": SERVE_PROMPT + 1 + i})
@@ -5175,6 +5317,129 @@ def _prefill_vs_plain_scan(torch, dev, cfg) -> float:
     return err
 
 
+# ---------------------------------------------------------------- phase 3o
+HYBRID_BUDGET_S = 60.0
+HYBRID_TRAIN_LAYERS = 6   # one group of shared_period: the least depth
+HYBRID_STEPS = 6
+HYBRID_NEW = 8            # new tokens of the serve (decode is host-bound)
+
+
+def phase_3o(torch, dev, store: Path, out: dict) -> None:
+    """The hybrid family (Zamba2-2.7B) at full width.  Budget: 60 s.
+    Fills ``out`` before its checks.
+
+    (a) Training at HYBRID_TRAIN_LAYERS (6) layers, one group (six Mamba2
+    layers and the shared block), batch BATCH x SEQ, the ``full`` policy:
+    an uninterrupted reference of HYBRID_STEPS steps; a run with
+    synchronous saves every CKPT_INTERVAL steps that fails at FAIL_AT, and
+    its resume from the step-4 manifest (no further saves), whose losses
+    equal the reference's within MODE_TOL.  Step 2's manifest names
+    ``shared_attn`` with its weights and its optimizer object; ``block_fp``
+    launches once per saved (unit, kind) in the failing run; ``fused_adamw``
+    as often on every step of each run.
+    (b) Serving at all 54 layers on random bf16 weights through
+    ``serve_full_depth``, HYBRID_NEW new tokens: ``ssd_scan`` once per
+    Mamba2 layer in the prefill, ``flash_attention`` once per shared
+    invocation (9) in the prefill and in every decode step; decode vs
+    prefill of the longer prompt within DECODE_HYBRID_TOL in bf16 and
+    DECODE_F32_TOL in float32 (the kernels' float32 routes, D 80)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.manifest import ManifestStore
+    from repro_torch.launch.train import SimulatedFailure, train
+
+    t0 = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH, reduced=REDUCED)
+    kw = dict(arch=HYBRID_ARCH, reduced=REDUCED,
+              num_layers=HYBRID_TRAIN_LAYERS, batch=BATCH, seq_len=SEQ,
+              policy_name="full", seed=SEED, device=str(dev),
+              ckpt_async=False, total_steps=HYBRID_STEPS)
+    no_saves = {"ckpt_interval": HYBRID_STEPS + 1}
+    run = store / "run"
+    tr = out["train"]
+    launches = tr["launches"] = {}
+    _release(torch)
+    _zero_counts()
+    ref = train(ckpt_dir=str(store / "ref"), **kw, **no_saves)
+    torch.cuda.synchronize()
+    launches["ref"] = _read_counts()
+    REMOVER.discard(store / "ref")
+    _release(torch)
+    _zero_counts()
+    try:
+        train(ckpt_dir=str(run), ckpt_interval=CKPT_INTERVAL,
+              fail_at=FAIL_AT, **kw)
+        raise AssertionError("3o: the checkpointed run did not fail")
+    except SimulatedFailure as e:
+        failed = e
+    torch.cuda.synchronize()
+    launches["failed"] = _read_counts()
+    events = failed.save_events
+    m2 = ManifestStore(run).load(CKPT_INTERVAL)
+    shared2 = sorted(m2.entries.get("shared_attn", {}))
+    _release(torch)
+    _zero_counts()
+    res = train(ckpt_dir=str(run), resume=True, **kw, **no_saves)
+    torch.cuda.synchronize()
+    launches["resumed"] = _read_counts()
+    REMOVER.discard(store)
+    saved = sum(2 * e["selected_units"] for e in events)
+    tr.update({
+        "config": f"{HYBRID_ARCH} full width, {HYBRID_TRAIN_LAYERS} layers "
+                  f"(one group), batch {BATCH}, seq {SEQ}, full, ckpt "
+                  f"every {CKPT_INTERVAL}, sync saves",
+        "step_seconds_median": statistics.median(ref["step_seconds"][1:]),
+        "step_seconds_ref": ref["step_seconds"],
+        "losses_ref": ref["losses"], "losses_failed_run": failed.losses,
+        "losses_resumed": res["losses"],
+        "save_events": [{k: e.get(k) for k in _EVENT_KEYS} for e in events],
+        "saved_unit_kinds": saved,
+        "step2_shared_attn": shared2,
+        "restore_on_resume": res["restore_stats"],
+        "peak_device_bytes": {"reference_run": ref["peak_device_bytes"],
+                              "resumed_run": res["peak_device_bytes"]},
+        "seconds": time.perf_counter() - t0})
+    log(f"3o (a) in {tr['seconds']:.1f} s: events "
+        f"{[(e['step'], round(e['stall_seconds'], 3)) for e in events]}, "
+        f"restore {res['restore_stats']['seconds']:.2f} s; launches "
+        f"{launches}")
+    del failed
+    tr["loss_diffs"] = _check_losses(ref, res, lambda s: MODE_TOL,
+                                     "phase 3o (a): the full resume")
+    if [e["step"] for e in events] != [2, 4] \
+            or res["restore_stats"]["step"] != 4:
+        raise AssertionError(f"3o (a): events {[e['step'] for e in events]}"
+                             f", resumed from {res['restore_stats']['step']}")
+    if shared2 != ["opt", "weights"]:
+        raise AssertionError(f"3o (a): step 2's manifest holds shared_attn "
+                             f"as {shared2}")
+    if launches["failed"]["block_fp"] != saved:
+        raise AssertionError(f"3o (a): block_fp launched "
+                             f"{launches['failed']['block_fp']} times for "
+                             f"{saved} saved (unit, kind)")
+    per_step = launches["ref"]["fused_adamw"] / HYBRID_STEPS
+    resumed_steps = len(res["losses"])
+    if not (per_step >= 1 and per_step == int(per_step)
+            and launches["resumed"]["fused_adamw"]
+            == per_step * resumed_steps):
+        raise AssertionError(f"3o (a): fused_adamw not launched alike on "
+                             f"every step: {launches}")
+    _release(torch)
+
+    # (b) serving at full depth
+    ts = time.perf_counter()
+    groups = cfg.num_layers // cfg.hybrid.shared_period
+    serve_full_depth(torch, dev, out["serve"], HYBRID_ARCH,
+                     {"ssd_scan": cfg.num_layers,
+                      "flash_attention": groups * (1 + HYBRID_NEW)},
+                     DECODE_HYBRID_TOL, new_tokens=HYBRID_NEW)
+    out["serve"]["decode_vs_prefill_float32"] = _decode_gap_float32(
+        torch, dev, cfg)
+    out["serve"]["seconds_with_checks"] = time.perf_counter() - ts
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 3o in {out['seconds']:.1f} s of its "
+        f"{HYBRID_BUDGET_S:.0f}-s budget")
+
+
 def write_record(record: dict, path) -> None:
     if path is not None:
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -5268,6 +5533,11 @@ def report(record: dict, path) -> None:
                          mp["3m"]["child_launches"].items()}}
         # the sharded saves (3n): its two runs
         k["launches_sharded_path"] = mp["3n"]["launches"][k["name"]]
+        # the hybrid (3o): its three training runs and its serve
+        k["launches_hybrid_path"] = {
+            **{run: c[k["name"]] for run, c in
+               mp["3o"]["train"]["launches"].items()},
+            "serve": mp["3o"]["serve"]["launches"][k["name"]]}
     write_record(record, path)
     a_secs = {e["step"]: e["seconds"] for e in mp_a["save_events"]}
     ctl_secs = {e["step"]: e["seconds"]
@@ -5466,6 +5736,19 @@ def report(record: dict, path) -> None:
         "budget_seconds": SCRUB_BUDGET_S} | card}))
     print(json.dumps({"supervisor": supervisor_summary(mp["3m"]) | card}))
     print(json.dumps({"sharded": sharded_summary(mp["3n"]) | card}))
+    ot, osv = mp["3o"]["train"], mp["3o"]["serve"]
+    print(json.dumps({"hybrid": {
+        "seconds": mp["3o"]["seconds"],
+        "train": {k: ot[k] for k in (
+            "config", "step_seconds_median", "loss_diffs", "launches",
+            "saved_unit_kinds", "step2_shared_attn", "peak_device_bytes")}
+        | {"event_stall_seconds": {e["step"]: e["stall_seconds"]
+                                   for e in ot["save_events"]},
+           "restore_seconds": ot["restore_on_resume"]["seconds"]},
+        "serve": {k: osv[k] for k in (
+            "config", "prefill_seconds", "decode_tokens_per_s",
+            "peak_device_bytes", "launches", "decode_vs_prefill",
+            "decode_vs_prefill_float32", "decode_profile")}} | card}))
     print(json.dumps({"kernels": [k | card for k in kernels]}))
 
 
@@ -5524,7 +5807,7 @@ def main() -> int:
                             "3e": {"train": {}, "store": {}, "serve": {}},
                             "3f": {}, "3g": {}, "3h": {}, "3i": {},
                             "3j": {}, "3k": {}, "3l": {}, "3m": {},
-                            "3n": {}}}
+                            "3n": {}, "3o": {"train": {}, "serve": {}}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
@@ -5574,6 +5857,8 @@ def main() -> int:
         log(f"phase 3e done at {time.perf_counter() - t_start:.1f} s")
         phase_3n(torch, dev, store, mp["3a"], mp["3n"])
         log(f"phase 3n done at {time.perf_counter() - t_start:.1f} s")
+        phase_3o(torch, dev, store / "3o", mp["3o"])
+        log(f"phase 3o done at {time.perf_counter() - t_start:.1f} s")
     finally:
         REMOVER.drain()
         record["removal_seconds"] = REMOVER.seconds

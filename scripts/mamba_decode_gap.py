@@ -1,11 +1,13 @@
 #!/usr/bin/env python
-"""Decode-vs-prefill gap of Mamba2-370m in bf16, by depth, on one set of
+"""Decode-vs-prefill gap of an SSM model in bf16, by depth, on one set of
 weights and tokens: what bf16 rounding alone gives the comparison that
-``chip_smoke.py`` holds phase 3e's serve run to.
+``chip_smoke.py`` holds a serve run to (phase 3e: Mamba2-370m, the
+default ``--arch``; phase 3o: Zamba2-2.7B, whose depths are multiples of
+its shared period, 6).
 
-For each depth the model is Mamba2-370m at full width with its first
+For each depth the model is the architecture at full width with its first
 ``depth`` layers (the weights are drawn per layer and leaf from the seed,
-on the CPU, so every depth's model is a prefix of the 48-layer one, and
+on the CPU, so every depth's model is a prefix of the full one, and
 then moved to the device).  The prompt is ``--prompt`` tokens, and the
 last of ``--prompt + 1`` tokens is decoded against the prompt's cache.
 It prints one JSON line per depth with
@@ -16,7 +18,8 @@ It prints one JSON line per depth with
   wrapper: the kernel on the card) - the training path's last logits
   (the plain chunked scan)| on the longer prompt;
 - with ``--jax`` (CPU only): ``jax_gap``, the same comparison in the JAX
-  package's ``MambaLM`` on the same bf16 weights and tokens, and
+  package's ``MambaLM`` or ``HybridLM`` on the same bf16 weights and
+  tokens, and
   ``port_vs_jax_prefill`` / ``port_vs_jax_decode``, the two packages'
   logits side by side.
 
@@ -24,6 +27,8 @@ Run it from the repo root::
 
     python scripts/mamba_decode_gap.py --device cpu --depths 4,12,24 --jax
     python scripts/mamba_decode_gap.py --device cuda --depths 4,12,24,48
+    python scripts/mamba_decode_gap.py --arch zamba2-2.7b --device cpu \
+        --depths 6,12,24 --jax
 """
 from __future__ import annotations
 
@@ -38,10 +43,8 @@ SRC = Path(__file__).resolve().parent.parent / "src"
 if str(SRC) not in sys.path:
     sys.path.insert(0, str(SRC))
 
-ARCH = "mamba2-370m"
 
-
-def _jax_gap(params, toks, depth: int, prompt: int) -> dict:
+def _jax_gap(arch: str, params, toks, depth: int, prompt: int) -> dict:
     """The JAX package's bf16 decode-vs-prefill comparison on the port's
     bf16 weights (bit for bit) and the same tokens, on the CPU."""
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -51,14 +54,18 @@ def _jax_gap(params, toks, depth: int, prompt: int) -> dict:
     import numpy as np
 
     from repro.configs import get_config as jax_get_config
+    from repro.launch.serve import _pad_cache_to
     from repro.models import build_model as jax_build_model
     from repro_torch.convert import state_to_numpy
 
-    jm = jax_build_model(jax_get_config(ARCH).model_copy(
+    jm = jax_build_model(jax_get_config(arch).model_copy(
         update=dict(num_layers=depth)))
     jp = jax.tree.map(jnp.asarray, state_to_numpy(params, ml_dtypes.bfloat16))
     t = jnp.asarray(toks.numpy())
     _, cache = jm.prefill(jp, {"tokens": t[:, :prompt]})
+    # the JAX server's growth of the attention cache to the decode length
+    # (a hybrid's shared k/v; the Mamba2 caches do not grow)
+    cache = _pad_cache_to(cache, jm, t.shape[0], prompt + 1)
     ld, _ = jm.decode_step(jp, cache, {"tokens": t[:, prompt:], "pos": prompt})
     lf, _ = jm.prefill(jp, {"tokens": t})
     return {"ld": np.asarray(ld), "lf": np.asarray(lf),
@@ -67,6 +74,8 @@ def _jax_gap(params, toks, depth: int, prompt: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="mamba2-370m",
+                    choices=("mamba2-370m", "zamba2-2.7b"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--depths", default="4,12,24,48")
     ap.add_argument("--batch", type=int, default=8)
@@ -86,7 +95,7 @@ def main() -> int:
         ap.error("--jax compares on the CPU only")
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     toks = torch.from_numpy(np.random.RandomState(args.seed).randint(
         0, cfg.vocab_size, (args.batch, args.prompt + 1)).astype(np.int32))
     for depth in (int(d) for d in args.depths.split(",")):
@@ -97,20 +106,22 @@ def main() -> int:
         dp = _to(params, dev)
         td = toks.to(dev)
         with torch.no_grad():
-            _, cache = model.prefill(dp, {"tokens": td[:, :-1]})
+            _, cache = model.prefill(dp, {"tokens": td[:, :-1]},
+                                     cache_len=args.prompt + 1)
             ld, _ = model.decode_step(dp, cache, {"tokens": td[:, -1:],
                                                   "pos": args.prompt})
             del cache
             lf, _ = model.prefill(dp, {"tokens": td})
             lt = model._logits(dp, model.hidden(dp, td)[:, -1:])[:, 0]
-        out = {"depth": depth, "batch": args.batch, "prompt": args.prompt,
+        out = {"arch": args.arch, "depth": depth, "batch": args.batch,
+               "prompt": args.prompt,
                "device": (torch.cuda.get_device_name(dev)
                           if dev.type == "cuda" else "cpu"),
                "port_gap": (ld - lf).abs().max().item(),
                "port_scan_gap": (lf - lt).abs().max().item(),
                "logits_max_abs": lf.abs().max().item()}
         if args.jax:
-            j = _jax_gap(params, toks, depth, args.prompt)
+            j = _jax_gap(args.arch, params, toks, depth, args.prompt)
             out.update(jax_gap=j["jax_gap"],
                        port_vs_jax_prefill=float(np.abs(
                            lf.float().cpu().numpy() - j["lf"]).max()),

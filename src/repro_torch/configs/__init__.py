@@ -14,6 +14,9 @@ _ARCH_MODULES: Dict[str, str] = {
     "yi-9b": "repro_torch.configs.yi_9b",
     "llama3.2-3b": "repro_torch.configs.llama3_2_3b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -49,10 +49,24 @@
 //    one CTA per (batch, kv head, 64 rows of (position, head of group)).
 //    No serve path runs attention in float32.
 //
+// Head dims 64, 128 and 80 (Zamba2).  Routes 2 and 3 are templates on D:
+// at D = 80 the float32 route's threads own 64 + 16 columns (the second
+// group on 4 threads of 16) and the decode route's lanes own column pairs
+// 2 lane and 64 + 2 lane (the second on 8 lanes of 32).  Route 1 at D = 80
+// runs the D = 128 machinery on a logical D of 80 (design "b"): the Q, K
+// and V tensor maps have an extent of 80 columns, so the second 64-column
+// TMA box of each row (columns 64-127) is filled with zeros past column
+// 80 by the copy engine, with no extra device-memory traffic; zero columns
+// change neither q . k nor the first 80 columns of p . v; the output store
+// is masked to 80 columns and the scale is 80^-1/2.  It pays 128/80 of
+// the tensor-core work of a D = 80 layout (a 64-column panel plus a
+// 16-column one) in exchange for no new layout.
+//
 // ptxas (CUDA 12.9, sm_90a, -O3), registers per thread, no spills in any:
 // prefill (flash_attention_kernel_wgmma) 126 at D 64, 154 at D 128;
 // decode partial (_split) 70 / 68, merge (_combine) 32 / 32; float32
-// (flash_attention_kernel) 111 / 121.
+// (flash_attention_kernel) 111 / 121; at D 80: prefill 154, decode 69 /
+// 32, float32 123.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,7 +119,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(FA_THREADS, 2)
 flash_attention_kernel(const FaArgs a) {
   constexpr int DC = D / 8;   // 8-element chunks per row
-  constexpr int NC = D / 64;  // float4 column groups per thread
+  constexpr int NC = (D + 63) / 64;  // float4 column groups per thread
+  // D = 80: the last group's 16 columns on threads kg < 4
   extern __shared__ float4 fa_smem4[];
   float* qT = reinterpret_cast<float*>(fa_smem4);  // [D][FA_ROWS]
   float* kT = qT + D * FA_ROWS;                     // [D][FA_KEYS]
@@ -255,6 +270,7 @@ flash_attention_kernel(const FaArgs a) {
       const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
       for (int cg = 0; cg < NC; ++cg) {
+        if (D % 64 != 0 && cg * 64 + kg * 4 >= D) continue;
         const float4 v4 = *reinterpret_cast<const float4*>(
             vt + j * D + cg * 64 + kg * 4);
 #pragma unroll
@@ -278,6 +294,7 @@ flash_attention_kernel(const FaArgs a) {
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int cg = 0; cg < NC; ++cg) {
+      if (D % 64 != 0 && cg * 64 + kg * 4 >= D) continue;
       store4(dst + cg * 64 + kg * 4, acc[i][cg * 4 + 0] / den,
              acc[i][cg * 4 + 1] / den, acc[i][cg * 4 + 2] / den,
              acc[i][cg * 4 + 3] / den);
@@ -457,7 +474,9 @@ __device__ __forceinline__ int pf_tiles(const PfArgs& a, int s0, int wg) {
   return (kend + PF_KEYS - 1) / PF_KEYS;
 }
 
-template <int D>
+// D is the layout's head dim (64 or 128), DV <= D the columns stored (80
+// on the D = 128 layout; see the note at the top).
+template <int D, int DV>
 __global__ void __launch_bounds__(PF_THREADS, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
@@ -594,7 +613,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const float den = half ? d1 : d0;
     uint32_t* dst = reinterpret_cast<uint32_t*>(out + (long long)row * a.os);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       dst[(8 * j + cq) / 2] = pack_bf16(o[4 * j + 2 * half] / den,
                                         o[4 * j + 2 * half + 1] / den);
     }
@@ -629,8 +648,9 @@ static EncodeTiledFn encode_tiled() {
 
 // A 4-D tensor map (D, S, heads, B) over a bf16 view with element strides
 // (s, head, batch) and a contiguous last dimension; boxes of 64 x 64 rows
-// under the 128B swizzle; rows past S read as zeros.  A dimension of size
-// 1 gets a stride the encoder accepts (it is never stepped).
+// under the 128B swizzle; rows past S and columns past D read as zeros.
+// A dimension of size 1 gets a stride the encoder accepts (it is never
+// stepped).
 static int make_map(CUtensorMap* map, const void* base, int d, int s,
                     int heads, int batch, long long ss, long long hs,
                     long long bs, int rows) {
@@ -657,19 +677,23 @@ static int make_map(CUtensorMap* map, const void* base, int d, int s,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D>
+// DV is the tensors' head dim, D the layout's (DV = 80 runs on D = 128:
+// the maps' extent of DV columns zero-fills the rest of each box).
+template <int D, int DV>
 static int launch_prefill(const FaArgs& a, int batch, cudaStream_t stream) {
   static unsigned long long attr_set = 0;
   const int smem = (int)sizeof(PfSmem<D>) + 1024;
-  cudaError_t e = smem_opt_in(flash_attention_kernel_wgmma<D>, smem,
+  cudaError_t e = smem_opt_in(flash_attention_kernel_wgmma<D, DV>, smem,
                               &attr_set);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, a.q, D, a.sq, a.h, batch, a.qs, a.qh, a.qb, 64);
+  int err = make_map(&tq, a.q, DV, a.sq, a.h, batch, a.qs, a.qh, a.qb, 64);
   if (!err)
-    err = make_map(&tk, a.k, D, a.sk, a.g, batch, a.ks, a.kh, a.kb, PF_KEYS);
+    err = make_map(&tk, a.k, DV, a.sk, a.g, batch, a.ks, a.kh, a.kb,
+                   PF_KEYS);
   if (!err)
-    err = make_map(&tv, a.v, D, a.sk, a.g, batch, a.vs, a.vh, a.vb, PF_KEYS);
+    err = make_map(&tv, a.v, DV, a.sk, a.g, batch, a.vs, a.vh, a.vb,
+                   PF_KEYS);
   if (err) return err;
   if (a.h > 65535 || batch > 65535) return (int)cudaErrorInvalidConfiguration;
   PfArgs p;
@@ -679,7 +703,7 @@ static int launch_prefill(const FaArgs& a, int batch, cudaStream_t stream) {
   p.scale_log2 = a.scale * 1.4426950408889634f;
   const dim3 grid((unsigned)a.h, (unsigned)((a.sq + PF_ROWS - 1) / PF_ROWS),
                   (unsigned)batch);
-  flash_attention_kernel_wgmma<D><<<grid, PF_THREADS, smem, stream>>>(
+  flash_attention_kernel_wgmma<D, DV><<<grid, PF_THREADS, smem, stream>>>(
       tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
@@ -690,6 +714,18 @@ static int launch_prefill(const FaArgs& a, int batch, cudaStream_t stream) {
 #define DC_STAGES 3
 #define DC_THREADS 128  // 4 warps x 2 rows
 #define DC_RPW (DC_ROWS / 4)  // rows per warp
+
+// Output columns of a decode lane: VC contiguous ones at D = 64 or 128
+// (lane VC ..), at D = 80 two pairs, 2 lane and 64 + 2 lane (the second
+// on lanes 0-7 only: a col() past D is no column).
+template <int D>
+struct DcCols {
+  static constexpr bool kPairs = D % 32 != 0;
+  static constexpr int VC = kPairs ? 2 * ((D + 63) / 64) : D / 32;
+  __device__ static __forceinline__ int col(int lane, int c) {
+    return kPairs ? 2 * (lane + 32 * (c / 2)) + c % 2 : lane * VC + c;
+  }
+};
 
 struct DcArgs {
   const bf16* q;
@@ -709,7 +745,7 @@ __global__ void __launch_bounds__(DC_THREADS)
 flash_attention_kernel_split(const DcArgs a) {
   constexpr int KP = D + 8;       // padded K row: 16-byte reads conflict-free
   constexpr int CPR = D / 8;      // 16-byte chunks per row
-  constexpr int VC = D / 32;      // output columns per lane
+  constexpr int VC = DcCols<D>::VC;  // output columns per lane
   extern __shared__ float4 dc_smem4[];
   float* qsm = reinterpret_cast<float*>(dc_smem4);          // [ROWS][D]
   float* psm = qsm + DC_ROWS * D;                       // [4][KEYS][RPW]
@@ -846,11 +882,22 @@ flash_attention_kernel_split(const DcArgs a) {
 #pragma unroll
     for (int i = 0; i < DC_RPW; ++i) pw[lane * DC_RPW + i] = p[i];
     __syncwarp();
-    const bf16* vs = vsm + st * DC_KEYS * D + lane * VC;
+    const bf16* vs = vsm + st * DC_KEYS * D +
+                     (DcCols<D>::kPairs ? 0 : lane * VC);
 #pragma unroll 8
     for (int j = 0; j < DC_KEYS; ++j) {
       float vx[VC];
-      if constexpr (VC == 4) {
+      if constexpr (DcCols<D>::kPairs) {
+#pragma unroll
+        for (int c = 0; c < VC; c += 2) {
+          const int col = DcCols<D>::col(lane, c);
+          const uint32_t u =
+              col < D ? *reinterpret_cast<const uint32_t*>(vs + j * D + col)
+                      : 0u;
+          vx[c] = __uint_as_float(u << 16);
+          vx[c + 1] = __uint_as_float(u & 0xFFFF0000u);
+        }
+      } else if constexpr (VC == 4) {
         const uint2 u = *reinterpret_cast<const uint2*>(vs + j * D);
         vx[0] = __uint_as_float(u.x << 16);
         vx[1] = __uint_as_float(u.x & 0xFFFF0000u);
@@ -876,8 +923,10 @@ flash_attention_kernel_split(const DcArgs a) {
   for (int i = 0; i < DC_RPW; ++i) {
     const long long row = pbase + w * DC_RPW + i;
 #pragma unroll
-    for (int cc = 0; cc < VC; ++cc)
-      a.part_acc[row * D + lane * VC + cc] = acc[i][cc];
+    for (int cc = 0; cc < VC; ++cc) {
+      const int col = DcCols<D>::col(lane, cc);
+      if (col < D) a.part_acc[row * D + col] = acc[i][cc];
+    }
     if (lane == 0) {
       a.part_ml[row * 2] = m[i];
       a.part_ml[row * 2 + 1] = l[i];
@@ -889,7 +938,7 @@ flash_attention_kernel_split(const DcArgs a) {
 template <int D>
 __global__ void __launch_bounds__(DC_ROWS * 32)
 flash_attention_kernel_combine(const DcArgs a) {
-  constexpr int VC = D / 32;
+  constexpr int VC = DcCols<D>::VC;
   const int y = blockIdx.x, b = blockIdx.y;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gi = y / a.row_tiles, f = (y % a.row_tiles) * DC_ROWS + w;
@@ -917,16 +966,21 @@ flash_attention_kernel_combine(const DcArgs a) {
     const long long row = (p0 + s) * DC_ROWS + w;
     const float wt = expf(a.part_ml[row * 2] - mmax);
 #pragma unroll
-    for (int c = 0; c < VC; ++c)
-      acc[c] = fmaf(wt, a.part_acc[row * D + lane * VC + c], acc[c]);
+    for (int c = 0; c < VC; ++c) {
+      const int col = DcCols<D>::col(lane, c);
+      if (col < D) acc[c] = fmaf(wt, a.part_acc[row * D + col], acc[c]);
+    }
   }
   den = fmaxf(den, 1e-30f);
   bf16* dst = a.o + b * a.ob + (long long)(f / r) * a.os +
-              (long long)(gi * r + f % r) * a.oh + lane * VC;
+              (long long)(gi * r + f % r) * a.oh;
 #pragma unroll
-  for (int c = 0; c < VC; c += 2)
-    *reinterpret_cast<uint32_t*>(dst + c) =
-        pack_bf16(acc[c] / den, acc[c + 1] / den);
+  for (int c = 0; c < VC; c += 2) {
+    const int col = DcCols<D>::col(lane, c);
+    if (col < D)
+      *reinterpret_cast<uint32_t*>(dst + col) =
+          pack_bf16(acc[c] / den, acc[c + 1] / den);
+  }
 }
 
 template <int D>
@@ -985,7 +1039,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int splits, void* scratch,
                                       void* stream) {
   if (batch <= 0 || sq <= 0 || sk <= 0 || kv_heads <= 0 ||
-      heads % kv_heads != 0 || (head_dim != 64 && head_dim != 128) ||
+      heads % kv_heads != 0 ||
+      (head_dim != 64 && head_dim != 80 && head_dim != 128) ||
       route < 0 || route > 2) {
     return (int)cudaErrorInvalidValue;
   }
@@ -998,12 +1053,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   a.sq = sq; a.sk = sk; a.h = heads; a.g = kv_heads; a.causal = causal;
   a.scale = scale;
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool d128 = head_dim == 128;
-  if (route == 1)
-    return d128 ? launch_prefill<128>(a, batch, s)
-                : launch_prefill<64>(a, batch, s);
-  if (route == 2)
-    return d128 ? launch_decode<128>(a, batch, split_len, splits, scratch, s)
-                : launch_decode<64>(a, batch, split_len, splits, scratch, s);
-  return d128 ? launch_f32<128>(a, batch, s) : launch_f32<64>(a, batch, s);
+  if (route == 1) {
+    if (head_dim == 128) return launch_prefill<128, 128>(a, batch, s);
+    if (head_dim == 80) return launch_prefill<128, 80>(a, batch, s);
+    return launch_prefill<64, 64>(a, batch, s);
+  }
+  if (route == 2) {
+    if (head_dim == 128)
+      return launch_decode<128>(a, batch, split_len, splits, scratch, s);
+    if (head_dim == 80)
+      return launch_decode<80>(a, batch, split_len, splits, scratch, s);
+    return launch_decode<64>(a, batch, split_len, splits, scratch, s);
+  }
+  if (head_dim == 128) return launch_f32<128>(a, batch, s);
+  if (head_dim == 80) return launch_f32<80>(a, batch, s);
+  return launch_f32<64>(a, batch, s);
 }

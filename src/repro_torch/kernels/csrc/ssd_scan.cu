@@ -79,20 +79,27 @@
 //    the elements, which the bf16 Mamba2 prefill carries to ~0.1 on the
 //    last logits at 48 layers, past the 1e-3 to which chip_smoke.py holds
 //    it against the plain scan's forward.  Hence route 2 by default.
-// 2. float32 or bf16 x, B, C: the CUDA-core kernel (ssd_scan_kernel<T>),
-//    one CTA of 256 threads per (batch, head) looping over the chunks with
-//    the state in shared memory ([N][P], 32 KiB); y in tiles of 64 query
+// 2. float32 or bf16 x, B, C: the CUDA-core kernel (ssd_scan_kernel<T,
+//    N>, N = 128, Mamba2's state dim, or 64, Zamba2's), one CTA of 256
+//    threads per (batch, head) looping over the chunks with the state in
+//    shared memory ([N][P], 32 KiB at N = 128); y in tiles of 64 query
 //    rows against the causal 64-key tiles at or before them, float32 FMAs
 //    throughout, each sum in the plain version's order, so its y equals
 //    the plain version's bit for bit; the state update after every row
-//    tile has read the old state.  130 KiB of shared memory, one CTA per
-//    SM.
+//    tile has read the old state, each thread owning a 4 x N/16 block of
+//    the (P, N) state.  130 KiB of shared memory at N = 128 (82 KiB at
+//    64), one CTA per SM.  Route 1 takes N = 128 only.  At N = 64 the
+//    sums run in the same order, yet on the card 3 of the 42 M bf16 y at
+//    Zamba2's serve shape are one ulp off the plain version's (none at
+//    N = 128), within the two-ulp check; why is not measured (the plain
+//    version's products run in cuBLAS, whose order at K = 64 is not
+//    known here).
 //
 // ptxas (sm_90a, -O3), registers per thread, no spills in any;
 // dynamic shared memory per CTA: ssd_chunk_state_kernel 161 (54 KiB, 3
 // CTAs an SM), ssd_state_pass_kernel 40 (none), ssd_chunk_out_kernel 151
 // (67 KiB, 3 CTAs an SM), ssd_scan_kernel 128 for float and for bf16
-// inputs (130 KiB).
+// inputs (130 KiB), 127 at N = 64 (82 KiB).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -153,10 +160,12 @@ __device__ __forceinline__ void put8(float* dst, const float* x) {
   d[1] = make_float4(x[4], x[5], x[6], x[7]);
 }
 
-template <typename T>
+template <typename T, int N>
 __global__ void __launch_bounds__(SSD_THREADS, 1)
 ssd_scan_kernel(const SsdArgs a) {
-  constexpr int P = SSD_P, N = SSD_N, TT = SSD_T;
+  static_assert(N == 64 || N == 128, "state dim 64 or 128");
+  constexpr int P = SSD_P, TT = SSD_T;
+  constexpr int NT = N / 16;  // state columns per thread in the update
   extern __shared__ float4 ssd_smem4[];
   float* sT = reinterpret_cast<float*>(ssd_smem4);  // [N][P] state
   float* cT = sT + N * P;        // [N][TT] C rows; [TT][N] B in the update
@@ -173,7 +182,7 @@ ssd_scan_kernel(const SsdArgs a) {
 
   const int tid = threadIdx.x;
   const int rg = tid >> 4;  // rows rg*4 .. +3 (state update: p rg*4 .. +3)
-  const int cg = tid & 15;  // cols cg*4 .. +3 (state update: n cg*8 .. +7)
+  const int cg = tid & 15;  // cols cg*4 .. +3 (state update: n cg*NT ..)
   const int h = blockIdx.x;
   const long long b = blockIdx.y;
   const int gi = h / (a.h / a.g);
@@ -342,11 +351,11 @@ ssd_scan_kernel(const SsdArgs a) {
     }
 
     // ---- state update; every row tile has read the old state
-    float upd[4][8];
+    float upd[4][NT];
 #pragma unroll
     for (int p = 0; p < 4; ++p)
 #pragma unroll
-      for (int n = 0; n < 8; ++n) upd[p][n] = 0.f;
+      for (int n = 0; n < NT; ++n) upd[p][n] = 0.f;
     float* bR = cT;  // [TT][N]
     for (int kt = 0; kt < ntiles; ++kt) {
       const int k0 = kt * TT;
@@ -383,48 +392,54 @@ ssd_scan_kernel(const SsdArgs a) {
       for (int j = 0; j < TT; ++j) {
         const float4 wv = *reinterpret_cast<const float4*>(xt + j * P +
                                                            rg * 4);
-        const float4 b0 = *reinterpret_cast<const float4*>(bR + j * N +
-                                                           cg * 8);
-        const float4 b1 = *reinterpret_cast<const float4*>(bR + j * N +
-                                                           cg * 8 + 4);
         const float wa[4] = {wv.x, wv.y, wv.z, wv.w};
-        const float ba[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        float ba[NT];
+#pragma unroll
+        for (int v = 0; v < NT / 4; ++v) {
+          const float4 b4 = *reinterpret_cast<const float4*>(
+              bR + j * N + cg * NT + v * 4);
+          ba[v * 4] = b4.x; ba[v * 4 + 1] = b4.y;
+          ba[v * 4 + 2] = b4.z; ba[v * 4 + 3] = b4.w;
+        }
 #pragma unroll
         for (int p = 0; p < 4; ++p)
 #pragma unroll
-          for (int n = 0; n < 8; ++n) upd[p][n] = fmaf(wa[p], ba[n],
-                                                       upd[p][n]);
+          for (int n = 0; n < NT; ++n) upd[p][n] = fmaf(wa[p], ba[n],
+                                                        upd[p][n]);
       }
     }
     const float decay = expf(total);
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float* row = sT + (cg * 8 + n) * P + rg * 4;
+    for (int n = 0; n < NT; ++n) {
+      float* row = sT + (cg * NT + n) * P + rg * 4;
 #pragma unroll
       for (int p = 0; p < 4; ++p) row[p] = row[p] * decay + upd[p][n];
     }
     __syncthreads();  // the next chunk reads the new state
   }
 
-  // final state (P, N): this thread's 4 x 8 block, as two float4 per p
+  // final state (P, N): this thread's 4 x NT block, a float4 per 4 n
   float* fin = a.fin + (b * a.h + h) * (long long)(P * N);
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
-    float v[8];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) v[n] = sT[(cg * 8 + n) * P + rg * 4 + p];
-    put8(fin + (rg * 4 + p) * N + cg * 8, v);
+    for (int v = 0; v < NT / 4; ++v) {
+      const int n0 = cg * NT + v * 4;
+      store4(fin + (rg * 4 + p) * N + n0, sT[n0 * P + rg * 4 + p],
+             sT[(n0 + 1) * P + rg * 4 + p], sT[(n0 + 2) * P + rg * 4 + p],
+             sT[(n0 + 3) * P + rg * 4 + p]);
+    }
   }
 }
 
-static int smem_bytes() {
-  return (SSD_N * SSD_P + 2 * SSD_N * SSD_T + SSD_T * SSD_P +
-          SSD_T * SSD_T + 2 * SSD_MAX_CHUNK) * (int)sizeof(float);
+static int smem_bytes(int n) {
+  return (n * SSD_P + 2 * n * SSD_T + SSD_T * SSD_P + SSD_T * SSD_T +
+          2 * SSD_MAX_CHUNK) * (int)sizeof(float);
 }
 
-template <typename T>
+template <typename T, int N>
 static int launch_typed(const SsdArgs& a, int batch, cudaStream_t stream) {
-  const int smem = smem_bytes();
+  const int smem = smem_bytes(N);
   // The shared-memory opt-in is a per-device attribute: set it once for
   // each device this instantiation runs on.
   static unsigned long long attr_set = 0;
@@ -432,7 +447,7 @@ static int launch_typed(const SsdArgs& a, int batch, cudaStream_t stream) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   if (dev < 64 && !(attr_set & (1ULL << dev))) {
-    e = cudaFuncSetAttribute(ssd_scan_kernel<T>,
+    e = cudaFuncSetAttribute(ssd_scan_kernel<T, N>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return (int)e;
@@ -440,7 +455,7 @@ static int launch_typed(const SsdArgs& a, int batch, cudaStream_t stream) {
   }
   if (batch > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)a.h, (unsigned)batch);
-  ssd_scan_kernel<T><<<grid, SSD_THREADS, smem, stream>>>(a);
+  ssd_scan_kernel<T, N><<<grid, SSD_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -906,14 +921,15 @@ static int launch_bf16(const CbArgs& a, int batch, cudaStream_t stream) {
 
 // ------------------------------------------------------------ entry point
 // Launches one chunk scan by route: 0 float32 on the CUDA cores (one
-// kernel; x, B, C and y float32, or bf16 where `is_bf16`), 1 bf16 on the
+// kernel; x, B, C and y float32, or bf16 where `is_bf16`; state dim 64 or
+// 128), 1 bf16 on the
 // tensor cores (three kernels; x, B, C and y bf16; `states` holds batch *
 // heads * NC * 64 * 128 floats, `pieces` batch * heads * NC * 48 KiB and
 // `lbuf` batch * heads * NC * chunk floats, NC = ceil(seq / chunk)).
 // `strides` holds 15 element strides: (batch, seq, head) of x, dt, B, C
 // (head = group for B and C) and y, in that order; x, B, C and y have a
 // contiguous last dimension.  dt and a_log are float32 and `fin` a
-// contiguous (batch, heads, 64, 128) float32 tensor.  Returns the
+// contiguous (batch, heads, 64, state_dim) float32 tensor.  Returns the
 // cudaError_t of the launch(es).
 extern "C" int ssd_scan_launch(const void* x, const void* dt,
                                const void* a_log, const void* bm,
@@ -924,7 +940,8 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt,
                                int is_bf16, void* states, void* pieces,
                                void* lbuf, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || groups <= 0 ||
-      heads % groups != 0 || head_dim != SSD_P || state_dim != SSD_N ||
+      heads % groups != 0 || head_dim != SSD_P ||
+      (state_dim != SSD_N && (route != 0 || state_dim != 64)) ||
       chunk <= 0 || chunk > SSD_MAX_CHUNK || route < 0 || route > 1 ||
       (route == 1 && (!is_bf16 ||
        states == nullptr || pieces == nullptr || lbuf == nullptr))) {
@@ -942,8 +959,11 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt,
     a.cb = strides[9]; a.cs = strides[10]; a.cg = strides[11];
     a.yb = strides[12]; a.ys = strides[13]; a.yh = strides[14];
     a.s = seq; a.h = heads; a.g = groups; a.chunk = chunk;
-    return is_bf16 ? launch_typed<__nv_bfloat16>(a, batch, s)
-                   : launch_typed<float>(a, batch, s);
+    if (state_dim == 64)
+      return is_bf16 ? launch_typed<__nv_bfloat16, 64>(a, batch, s)
+                     : launch_typed<float, 64>(a, batch, s);
+    return is_bf16 ? launch_typed<__nv_bfloat16, SSD_N>(a, batch, s)
+                   : launch_typed<float, SSD_N>(a, batch, s);
   }
   CbArgs a;
   a.x = static_cast<const bf16*>(x);

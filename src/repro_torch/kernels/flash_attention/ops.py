@@ -15,6 +15,8 @@ dtype and ``Sq`` alone (``pick_route``):
   (``decode_split``) on the CUDA cores in float32, then a merge kernel;
 - ``f32``: float32; the CUDA cores throughout.
 
+Each route takes head dims 64, 80 and 128.
+
 Every route reads q, k and v through their strides (the last dimension
 contiguous), so a decode step passes the cache prefix ``cache[:, :end]``
 as it is.  A route launches its kernels or raises: there is no fallback
@@ -32,7 +34,9 @@ from repro_torch.kernels._build import CudaKernel, check_strided_operand
 from repro_torch.kernels.flash_attention.ref import (attention_plain,
                                                      softmax_scale)
 
-HEAD_DIMS = (64, 128)
+# 80 is Zamba2's (the prefill route runs its 128-wide layout on 80
+# columns: the .cu's note)
+HEAD_DIMS = (64, 80, 128)
 ROUTES = {"f32": 0, "prefill": 1, "decode": 2}
 # bf16 calls with at least this many queries take the prefill route: its
 # CTA holds 128 positions of one query head in two 64-row wgmma tiles, so

@@ -15,8 +15,10 @@ routes:
 - ``f32``: float32 arithmetic on the CUDA cores, one CTA per (batch, head)
   looping over the chunks, summing in the plain version's order (its y
   equals the plain version's bit for bit); takes float32 or bf16 xs, bs,
-  cs.  ``ssd_scan`` takes this route for every dtype;
-- ``bf16``: bf16 xs, bs, cs; chunk-parallel on the tensor cores (wgmma),
+  cs, and state dim N 64 or 128.  ``ssd_scan`` takes this route for every
+  dtype;
+- ``bf16``: bf16 xs, bs, cs, N 128 only; chunk-parallel on the tensor
+  cores (wgmma),
   three kernels: each chunk's L and own state, the states passed across
   the chunks in order, then y per 64-row tile; the float32 operands (w x,
   the entering state, the decayed scores) enter as three bf16 pieces that
@@ -43,7 +45,9 @@ from repro_torch.kernels._build import CudaKernel, check_strided_operand
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain
 
 HEAD_DIM = 64      # P the kernel takes (Mamba2's published head dim)
-STATE_DIM = 128    # N the kernel takes (Mamba2's published state dim)
+STATE_DIM = 128    # N the bf16 route takes (Mamba2's published state dim)
+# N the f32 route takes: Mamba2's and Zamba2's (64) published state dims
+F32_STATE_DIMS = (64, 128)
 MAX_CHUNK = 256
 ROUTES = {"f32": 0, "bf16": 1}
 ROUTE_DTYPES = {"f32": (torch.float32, torch.bfloat16),
@@ -132,9 +136,10 @@ def _launch(xs, dt, a_log, bs, cs, chunk, route):
                         f"{a_log.dtype}")
     b, s, h, p = xs.shape
     g, n = bs.shape[2], bs.shape[3]
-    if p != HEAD_DIM or n != STATE_DIM:
-        raise ValueError(f"ssd_scan kernel takes P {HEAD_DIM} and N "
-                         f"{STATE_DIM}, not {p} and {n}")
+    dims = F32_STATE_DIMS if route == "f32" else (STATE_DIM,)
+    if p != HEAD_DIM or n not in dims:
+        raise ValueError(f"ssd_scan route {route!r} takes P {HEAD_DIM} and "
+                         f"N in {dims}, not {p} and {n}")
     if chunk > MAX_CHUNK:
         raise ValueError(f"ssd_scan kernel takes chunks of at most "
                          f"{MAX_CHUNK} steps, not {chunk}")

@@ -82,6 +82,9 @@ def gqa_forward(p: Dict[str, torch.Tensor], x: torch.Tensor,
     k = apply_rope(k, positions, cfg.rope_theta)
     if cache is not None:
         end = cache_pos + x.shape[1]
+        if end > cache["k"].shape[1]:   # a slice past the end takes nothing
+            raise ValueError(f"decode at positions {cache_pos}..{end - 1} "
+                             f"past a cache of {cache['k'].shape[1]}")
         cache["k"][:, cache_pos:end] = k.to(cache["k"].dtype)
         cache["v"][:, cache_pos:end] = v.to(cache["v"].dtype)
         out = flash_attention(q, cache["k"][:, :end], cache["v"][:, :end],

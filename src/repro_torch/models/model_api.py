@@ -237,8 +237,8 @@ def build_model(cfg: ModelConfig,
         from repro_torch.models.mamba_lm import MambaLM
         return MambaLM(cfg, compute_dtype)
     if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"model family 'hybrid' ({cfg.name}) is not ported to "
-            "repro_torch yet (ROADMAP A5)")
-    raise NotImplementedError(f"model family {cfg.family!r} is not ported "
-                              "to repro_torch yet (dense GQA and ssm only)")
+        from repro_torch.models.mamba_lm import HybridLM
+        return HybridLM(cfg, compute_dtype)
+    raise NotImplementedError(
+        f"model family {cfg.family!r} ({cfg.name}) is not ported to "
+        "repro_torch yet (ROADMAP A5: dense GQA, ssm and hybrid only)")

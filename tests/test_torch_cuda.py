@@ -253,6 +253,13 @@ _T = fa.ops.PREFILL_MIN_QUERIES
     (1, 70, 4097, 8, 2, 64, False, torch.bfloat16, "prefill"),    # Sk 4097
     (2, 70, 70, 32, 4, 128, True, torch.float32, "f32"),
     (2, 1, 213, 8, 2, 64, False, torch.float32, "f32"),
+    # head dim 80 (Zamba2) on each route
+    (2, 150, 150, 32, 32, 80, True, torch.bfloat16, "prefill"),
+    (1, 77, 201, 8, 2, 80, False, torch.bfloat16, "prefill"),
+    (2, _T - 1, 300, 32, 32, 80, False, torch.bfloat16, "decode"),
+    (1, 1, 333, 8, 2, 80, False, torch.bfloat16, "decode"),
+    (2, 70, 70, 32, 32, 80, True, torch.float32, "f32"),
+    (1, 1, 213, 8, 2, 80, False, torch.float32, "f32"),
 ])
 def test_flash_attention_every_route_on_a_cache_view(dev, b, sq, sk, h, g, d,
                                                      causal, dtype, route):
@@ -312,18 +319,19 @@ def test_flash_attention_launch_counts_one_per_call_on_each_route(dev,
 
 def test_flash_attention_kernel_rejects_what_it_does_not_take(dev):
     q = torch.zeros(1, 4, 2, 96, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="head dim"):   # 64, 80, 128 only
         fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
     q = torch.zeros(1, 4, 2, 64, device=dev, dtype=torch.float16)
     with pytest.raises(TypeError):
         fa.flash_attention(q, q[:, :, :1], q[:, :, :1])
 
 
-def _ssd_inputs(dev, b, s, h, g, dtype, seed, views):
+def _ssd_inputs(dev, b, s, h, g, dtype, seed, views, n=None):
     """x, B, C as the model passes them (views of one conv output row) or
-    contiguous; dt = softplus(randn); A_log = log(linspace(1, 16, H))."""
+    contiguous; dt = softplus(randn); A_log = log(linspace(1, 16, H)); N
+    ``n`` or 128."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    p, n = ssd.ops.HEAD_DIM, ssd.ops.STATE_DIM
+    p, n = ssd.ops.HEAD_DIM, n or ssd.ops.STATE_DIM
     if views:
         conv = (torch.randn(b, s, h * p + 2 * g * n, generator=gen,
                             device=dev) * 0.5).to(dtype)
@@ -386,10 +394,17 @@ SSD_ROUTE_KERNELS = {
     (2, 77, 4, 4, 256, torch.bfloat16, False, "bf16"),  # S < Q
     (1, 300, 4, 2, 37, torch.bfloat16, True, "bf16"),   # S % Q != 0, odd Q
     (2, 333, 4, 1, 256, torch.float32, True, None),     # ragged S
+    (2, 512, 8, 1, 256, torch.bfloat16, True, 64),      # N 64 (Zamba2)
+    (1, 1025, 4, 2, 256, torch.float32, False, 64),     # N 64, ragged S
+    (8, 1024, 80, 1, 256, torch.bfloat16, True, 64),    # Zamba2's prefill
 ])
 def test_ssd_scan_kernel_matches_plain(dev, b, s, h, g, q, dtype, views,
                                        route):
-    args = _ssd_inputs(dev, b, s, h, g, dtype, s + q, views)
+    """``route`` None: the wrapper; "bf16": the bf16 route; 64: the
+    wrapper at state dim 64."""
+    n = 64 if route == 64 else None
+    route = None if route == 64 else route
+    args = _ssd_inputs(dev, b, s, h, g, dtype, s + q, views, n=n)
     if route is None:
         call, route = (lambda: ssd.ssd_scan(*args, q)), "f32"
     else:
@@ -439,8 +454,14 @@ def test_ssd_scan_kernel_rejects_what_it_does_not_take(dev):
         ssd.ssd_scan(xs, dt, a_log, bs, cs, 300)
     with pytest.raises(TypeError):
         ssd.ssd_scan(xs.half(), dt, a_log, bs.half(), cs.half(), 8)
-    with pytest.raises(ValueError, match="P 64 and N 128"):
+    with pytest.raises(ValueError, match="takes P 64 and N in"):
         ssd.ssd_scan(xs[..., :32], dt, a_log, bs, cs, 8)
+    # state dim 64: the f32 route's alone
+    xs, dt, a_log, bs, cs = _ssd_inputs(dev, 1, 16, 2, 1, torch.bfloat16, 0,
+                                        False, n=64)
+    with pytest.raises(ValueError, match=r"route 'bf16' takes P 64 and N"):
+        ssd.ops.launch(xs, dt, a_log, bs, cs, 8, "bf16")
+    ssd.ops.launch(xs, dt, a_log, bs, cs, 8, "f32")
 
 
 def _scales_equal(a, b) -> bool:

@@ -72,6 +72,25 @@ def test_plain_matches_pallas_kernel_causal(b, s, h, g, d, blk, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("h,g", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_matches_pallas_kernel_at_head_dim_80(causal, h, g, dtype):
+    """Zamba2's head dim (80, which every CUDA route takes), MHA and GQA,
+    causal and not: the Pallas kernel in interpret mode and the oracle."""
+    q, k, v = _inputs(80 + h, 2, 128, 128, h, g, 80, dtype)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    got = _port(q, k, v, causal)
+    _close(got, jax_flash(jq, jk, jv, causal=causal, block_q=64,
+                          block_k=64, interpret=True), dtype)
+    _close(got, attention_ref(jq, jk, jv, causal=causal), dtype)
+
+
+def test_wrapper_takes_the_ported_head_dims():
+    assert fa.ops.HEAD_DIMS == (64, 80, 128)
+    assert fa.ops._SCALES[80] == np.float32(80 ** -0.5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_plain_matches_pallas_kernel_non_causal_cross_len(dtype):
     q, k, v = _inputs(0, 2, 64, 192, 4, 2, 64, dtype)
     want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),

@@ -496,11 +496,19 @@ def test_serve_random_weights_end_to_end():
     assert all(0 <= t < 512 for t in r1["sample_tokens"])
 
 
-def test_hybrid_family_is_not_ported():
-    from repro_torch.configs.base import ModelConfig, SSMConfig
+@pytest.mark.parametrize("family", ["moe", "encdec", "vlm"])
+def test_other_families_are_not_ported(family):
+    """The hybrid family is ported (tests/test_torch_hybrid.py); MoE,
+    enc-dec and the VLM still raise, naming ROADMAP A5."""
+    from repro_torch.configs.base import (EncDecConfig, ModelConfig,
+                                          MoEConfig, VLMConfig)
 
-    cfg = ModelConfig(name="zamba-like", family="hybrid", num_layers=2,
+    extra = {"moe": {"moe": MoEConfig(num_experts=4, top_k=2,
+                                      d_ff_expert=64)},
+             "encdec": {"encdec": EncDecConfig()},
+             "vlm": {"vlm": VLMConfig()}}[family]
+    cfg = ModelConfig(name=f"{family}-like", family=family, num_layers=2,
                       d_model=64, num_heads=2, num_kv_heads=2, d_ff=128,
-                      vocab_size=64, ssm=SSMConfig())
+                      vocab_size=64, **extra)
     with pytest.raises(NotImplementedError, match="A5"):
         build_model(cfg)

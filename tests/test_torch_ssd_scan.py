@@ -88,6 +88,33 @@ def test_plain_matches_pallas_kernel_and_recurrence(b, s, h, p, n, q):
     _close(fin, rfin)
 
 
+@pytest.mark.parametrize("b,s,h,q", [
+    (1, 128, 4, 64),               # whole chunks
+    (2, 100, 2, 32),               # a ragged tail
+])
+def test_plain_matches_pallas_kernel_at_zamba2_dims(b, s, h, q):
+    """P 64, N 64 (Zamba2's head and state dims, which the CUDA kernel's
+    f32 route takes besides N 128): the Pallas kernel in interpret mode
+    and the recurrence oracle (per-head B and C, as the kernel takes)."""
+    xs, dt, a_log, bs, cs = _inputs(s + h, b, s, h, h, 64, 64)
+    y, fin = _port(xs, dt, a_log, bs, cs, q)
+    jargs = tuple(map(jnp.asarray, (xs, dt, a_log, bs, cs)))
+    if s % q == 0:
+        jy, jfin = jax_ssd_scan(*jargs, chunk=q, interpret=True)
+    else:
+        jy, jfin = ssd_chunked(*jargs, q)
+    _close(y, jy)
+    _close(fin, jfin, 2e-4)
+    ry, rfin = ssd_ref(*jargs)
+    _close(y, ry)
+    _close(fin, rfin, 2e-4)
+
+
+def test_wrapper_takes_state_dim_64_on_the_f32_route_only():
+    assert ssd.ops.F32_STATE_DIMS == (64, 128)
+    assert ssd.ops.STATE_DIM == 128     # the bf16 route's
+
+
 @pytest.mark.parametrize("b,s,h,g,p,n,q", [
     (2, 80, 2, 2, 16, 24, 32),     # tests/test_kernels.py: S % Q != 0
     (1, 37, 4, 4, 8, 8, 5),        # odd Q, ragged tail of 2
