@@ -26,14 +26,20 @@ which exits non-zero:
    edges of its three routes (bf16 prefill on tensor cores, bf16 split-K
    decode, float32): Sq on either side of ``ops.PREFILL_MIN_QUERIES``,
    causal and not, D 64, G = 1, G = H, Sk = 1 and 4097, and head dim 80
-   (Zamba2) on each route (every route must be reached); then timed
-   beside its plain version and SDPA (event time of one call, profiler
-   device time, kernels per call) at the serve path's prefill and decode
-   shapes at Yi-9B's heads and at Zamba2-2.7B's (32 / 32, D 80), each on
+   (Zamba2) on each route (every route must be reached), and MLA's split
+   head dims (``MLA_FLASH_CASES``: Dqk 192 / Dv 128 on the prefill and
+   float32 routes, the absorbed decode's 576 / 512 over views of one
+   cache's rows at scale 192^-1/2 on the decode and float32 routes; every
+   route reached); then timed beside its plain version and SDPA (event
+   time of one call, profiler device time, kernels per call) at the serve
+   path's prefill and decode shapes at Yi-9B's heads, at Zamba2-2.7B's
+   (32 / 32, D 80) and at DeepSeek-V2-Lite's MLA (16 heads; the prefill
+   192 / 128, the absorbed decode 576 / 512 over 1032 cache rows), each on
    the route the wrapper picks, and the float32 route at Yi-9B's prefill
-   shape; every bf16 shape under the two-ulp check below, SDPA recorded
-   under it as a control; ``ptxas``'s registers and spills of every flash
-   kernel recorded;
+   shape and both MLA shapes; every bf16 shape under the two-ulp check
+   below, SDPA recorded under it as a control (null, with its error,
+   where it refuses the shapes); ``ptxas``'s registers and spills of
+   every flash kernel recorded;
    ``ssd_scan`` over full, ragged-S, odd-Q, S < Q, G = 1, G = 2 and G = H
    cases in bf16 and float32 through the wrapper (the f32 route, CUDA
    cores), at state dim 128 and (the wrapper alone; the bf16 route must
@@ -105,10 +111,10 @@ which exits non-zero:
       under the checks of 3a/3b, and one profiled step; from that store a
       weights-only cold load of step 4, a hot-swap to LATEST bit-identical
       to a cold load and hot vs cold ``tokens_digest``; then serving on
-      random weights at full depth (48 layers), batch 8, 1024-token
-      prompts, 16 new tokens, with exactly 48 ``ssd_scan`` launches in
-      the prefill and one decode step matching the prefill of the longer
-      prompt;
+      random weights at SSM_SERVE_LAYERS (24) of its 48 layers (the cut
+      that pays, with 3o's, for 3p), batch 8, 1024-token prompts, 16 new
+      tokens, with exactly 24 ``ssd_scan`` launches in the prefill and one
+      decode step matching the prefill of the longer prompt;
    f. the int8 codec, as 3a (Yi-9B, parity, sync inline saves) with
       ``codec="int8"``: a run that fails at step 5 and its resume to step
       8, its losses held against 3a's uninterrupted run (the first resumed
@@ -251,24 +257,43 @@ which exits non-zero:
       (budget 60 s): (a) training at 6 layers (one group: six Mamba2
       layers and the shared attention block), batch 2, seq 1024, policy
       ``full``: a 6-step reference, a run with synchronous saves every 2
-      steps that fails at step 5, and its resume from step 4, whose losses
+      steps (its objects on CANON_WRITER_THREADS writer threads) that
+      fails at step 5, and its resume from step 4, whose losses
       equal the reference's within MODE_TOL; step 2's manifest holds the
       ``shared_attn`` unit's weights and optimizer objects, ``block_fp``
       launches once per saved (unit, kind), ``fused_adamw`` alike on every
-      step; (b) serving at all 54 layers on random bf16 weights, batch 8,
-      1024-token prompts, HYBRID_NEW (8) new tokens: exactly 54
-      ``ssd_scan`` launches in the prefill and 9 ``flash_attention``
-      launches (one a shared invocation) in the prefill and in every
-      decode step; one decode step matches the prefill of the longer
-      prompt within DECODE_HYBRID_TOL in bf16 and DECODE_F32_TOL in
-      float32 (the kernels' float32 routes at N 64 and D 80);
+      step; (b) serving at HYBRID_SERVE_LAYERS (18, three groups) of its
+      54 layers on random bf16 weights, batch 8, 1024-token prompts,
+      HYBRID_NEW (8) new tokens: exactly 18 ``ssd_scan`` launches in the
+      prefill and 3 ``flash_attention`` launches (one a shared invocation)
+      in the prefill and in every decode step; one decode step matches
+      the prefill of the longer prompt within DECODE_HYBRID_TOL in bf16
+      and DECODE_F32_TOL in float32 (the kernels' float32 routes at N 64
+      and D 80);
+   p. the MoE family with MLA (DeepSeek-V2-Lite, ROADMAP A5) at full
+      width, last (budget 75 s): (a) training at 2 layers (block_000, the
+      unstacked dense first layer, and block_001, MoE), batch 2, seq 1024,
+      policy ``full``: a 6-step reference, a run whose synchronous saves
+      every 2 steps go through 4 virtual participants (a MoE block's
+      optimizer object is 7.02 GB, past msgpack's bin) that fails at step
+      5, and its resume from step 4 within MODE_TOL of the reference;
+      step 2 holds both block units as shard sets, every object under
+      2^32 - 1 bytes, ``block_fp`` once per shard object, ``fused_adamw``
+      alike on every step, the aux loss finite; (b) serving at all 27
+      layers on random bf16 weights, batch 8, 1024-token prompts, 8 new
+      tokens: exactly 27 ``flash_attention`` launches in the prefill and
+      in every decode step; (c) decode vs the prefill of the longer
+      prompt at 27 layers in bf16 on a no-drop copy of the config within
+      DECODE_MOE_TOL, each row's first differing expert choice a near tie
+      (the published factor's gap recorded), and in float32 at 4 layers
+      within DECODE_F32_TOL;
 4. print the main paths' step/save/restore times, the serve line, the
    Mamba line, the int8 line, the merge line, the canonical path's
    ``{"legacy": ...}`` line, the tiers line, the ``{"io": ...}`` line,
    the ``{"cache": ...}`` line, the ``{"scrub": ...}`` line, the
    ``{"supervisor": ...}`` line, the ``{"sharded": ...}`` line, the
-   ``{"hybrid": ...}`` line, the kernels line, the card line, and
-   last
+   ``{"hybrid": ...}`` line, the ``{"moe": ...}`` line, the kernels line,
+   the card line, and last
    the ``{"ok": true, "device": ...}`` line; each phase logs its wall
    time; with ``--record PATH``, the full record of every phase also goes
    to PATH (written even when a check fails).
@@ -356,6 +381,23 @@ DECODE_F32_TOL = 1e-3
 # without its own key reads 0.064 here at 6 layers in bf16, 0.16 in
 # float32 on the reduced model).
 DECODE_HYBRID_TOL = 0.15
+# Phase 3p, DeepSeek-V2-Lite at full width and depth (27 layers), the same
+# comparison in bf16 on a copy of the config whose capacity factor is
+# num_experts / top_k (no token dropped; at the published 1.25 the
+# longer prefill drops the last token's choices, which a decode step never
+# does), set before its first card run from the JAX package's own gap
+# under that copy: on one set of weights and tokens (batch 8 x 1024,
+# scripts/mamba_decode_gap.py --arch deepseek-v2-lite-16b, CPU) the JAX
+# model reads 0.944 and 2.683 at 2 and 4 layers, the port 0.044 and
+# 0.089.  Held to twice the largest, as 3o's bound.  The JAX package's gap
+# is a routing flip: the decode step's router logits (bf16, rounded from
+# float32 sums of another shape) pick another expert than the prefill's
+# where the 6th and 7th probabilities nearly tie (a few % of tokens), and
+# the token's output moves by that expert's share.  The no-drop copy does
+# not remove that, so this bound catches only garbage; the float32
+# comparison (DECODE_F32_TOL at MOE_F32_LAYERS) is the sharp one, and each
+# row's first differing choice is recorded (``_route_flips``).
+DECODE_MOE_TOL = 5.4
 # ... and the bf16 prefill (ssd_scan in every layer) against the training
 # path (the plain chunked scan) on the longer prompt.  The wrapper's f32
 # route sums in the plain version's order, so its y equals the plain
@@ -377,12 +419,19 @@ STORE_BYTES_NEEDED = 40e9
 CHAIN_ARCH = "llama3.2-3b"   # phase 3c, reduced config
 SSM_ARCH = "mamba2-370m"     # phase 3e, full width
 HYBRID_ARCH = "zamba2-2.7b"  # phase 3o, full width
+MOE_ARCH = "deepseek-v2-lite-16b"  # phase 3p, full width
 # 3e's training, its store part and its step profile run 4 of the 48
 # layers, which keeps the command inside its 1200-s limit: cut from 12,
 # with 3h's cuts, to pay for phase 3l (scripts/phase_time.py in turns:
 # 84.1 s -> 68.3 s a turn, H100 80GB HBM3, 700 W); every check stays.
 # 3e's serve on random weights stays at full depth.
 SSM_TRAIN_LAYERS = 4
+# 3e's serve and its checks at 24 of Mamba2-370m's 48 layers, and 3o's at
+# 18 of Zamba2-2.7B's 54 (three groups): the cuts that pay, with 3o's
+# objects on writer threads and 3e's device-only step trace, for phase 3p
+# (the checks' bounds were set at these depths and deeper)
+SSM_SERVE_LAYERS = 24
+HYBRID_SERVE_LAYERS = 18
 # 3h (e)'s canonical int8 event and its restore run 1 of 3a's 2 layers
 # (with 3h (a)'s resume saving no event 6 and 3e's depth, the cut that
 # pays for phase 3l); every check of (e) stays
@@ -1140,6 +1189,43 @@ def flash_route_cases(t: int) -> tuple:
     )
 
 
+# MLA's split head dims (v narrower than q and k), each on the routes the
+# model sends it to: the latent-expanded prefill (q and k 192 columns, v
+# 128, 16 heads, causal) on the prefill and float32 routes, and the
+# absorbed decode (q 576 columns over one kv head's latent-cache rows, v
+# their first 512 columns, scaled by (128 + 64) ** -0.5) on the decode and
+# float32 routes.  (B, Sq, Sk, H, G, Dqk, Dv, causal, dtype name, what)
+MLA_DECODE_SCALE = 192 ** -0.5
+MLA_FLASH_CASES = (
+    (2, 160, 160, 16, 16, 192, 128, True, "bfloat16", "MLA prefill, causal"),
+    (1, 77, 201, 16, 16, 192, 128, True, "bfloat16",
+     "MLA prefill, ragged Sq < Sk"),
+    (1, 3, 300, 8, 2, 192, 128, False, "bfloat16",
+     "MLA prefill, Sq = 3, GQA"),
+    (2, 70, 70, 16, 16, 192, 128, True, "float32", "MLA float32 prefill"),
+    (8, 1, 1032, 16, 1, 576, 512, False, "bfloat16", "MLA absorbed decode"),
+    (2, 1, 1, 16, 1, 576, 512, False, "bfloat16", "MLA decode, Sk = 1"),
+    (1, 2, 333, 16, 1, 576, 512, True, "bfloat16",
+     "MLA decode, causal Sq = 2"),
+    (2, 1, 213, 16, 1, 576, 512, False, "float32", "MLA float32 decode"),
+)
+
+
+def mla_flash_inputs(torch, dev, gen, b, sq, sk, h, g, dqk, dv, dt):
+    """(q, k, v, scale) of an MLA attention call: separate tensors at
+    the prefill's head dims; at the absorbed decode's, k the whole rows
+    and v the first ``dv`` columns of one (B, Sk + 8, Dqk) cache (views,
+    as the model passes them)."""
+    q = torch.randn(b, sq, h, dqk, generator=gen, device=dev).to(dt)
+    if dqk == 192:
+        k = torch.randn(b, sk, g, dqk, generator=gen, device=dev).to(dt)
+        v = torch.randn(b, sk, g, dv, generator=gen, device=dev).to(dt)
+        return q, k, v, None
+    rows = torch.randn(b, sk + 8, dqk, generator=gen, device=dev).to(dt)
+    k = rows[:, :sk, None, :]
+    return q, k, k[..., :dv], MLA_DECODE_SCALE
+
+
 def _flash_tol(dtype, torch) -> float:
     return FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL
 
@@ -1186,8 +1272,30 @@ def check_flash_attention_cases(torch, dev) -> float:
         worst = max(worst, (got.float() - want.float()).abs().max().item())
     if set(routes) != set(fa.ops.ROUTES):
         raise AssertionError(f"phase 2's cases miss a route: {routes}")
-    log(f"flash_attention: {len(cases)} cases within tolerance "
-        f"(max abs {worst:.3g}; cases per route {routes})")
+    mla_routes = {}
+    for b, sq, sk, h, gg, dqk, dv, causal, dt, what in MLA_FLASH_CASES:
+        dt = getattr(torch, dt)
+        q, k, v, scale = mla_flash_inputs(torch, dev, g, b, sq, sk, h, gg,
+                                          dqk, dv, dt)
+        route = fa.ops.pick_route(dt, sq)
+        got = fa.flash_attention(q, k, v, causal=causal, scale=scale)
+        want = fa.attention_plain(q, k, v, causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        tol = _flash_tol(dt, torch)
+        ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+        err = (got.float() - want.float()).abs().max().item()
+        if got.shape != (b, sq, h, dv) or not ok:
+            raise AssertionError(f"flash_attention differs from the plain "
+                                 f"version ({what}, {route} route): max abs "
+                                 f"{err}")
+        mla_routes[route] = mla_routes.get(route, 0) + 1
+        worst = max(worst, err)
+    if set(mla_routes) != set(fa.ops.ROUTES):
+        raise AssertionError(f"phase 2's MLA cases miss a route: "
+                             f"{mla_routes}")
+    log(f"flash_attention: {len(cases)} cases and "
+        f"{len(MLA_FLASH_CASES)} MLA cases within tolerance (max abs "
+        f"{worst:.3g}; cases per route {routes}, MLA {mla_routes})")
     return worst
 
 
@@ -1253,19 +1361,114 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
+def _sdpa(F, qt, kt, vt, causal, scale):
+    return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                          enable_gqa=True, scale=scale)
+
+
+def _flash_at_shape(torch, name, q, k, v, causal, scale) -> dict:
+    """Check and time one attention call on the route the wrapper picks:
+    against its plain version (the two-ulp check in bf16, FLASH_F32_TOL in
+    float32), beside SDPA on the same inputs (recorded under the same
+    check; null with the reason where SDPA refuses them).  Event times
+    (one call: host work and device) and profiler device times; the bound
+    from the bytes each input is read (once, a view of another input's
+    memory not again) and the output written, and the operations."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    f32 = q.dtype == torch.float32
+    b, sq, h, dqk = q.shape
+    sk, gg, dv = k.shape[1], k.shape[2], v.shape[-1]
+    route = fa.ops.pick_route(q.dtype, sq)
+    got = fa.flash_attention(q, k, v, causal=causal, scale=scale)
+    want = fa.attention_plain(q, k, v, causal=causal, scale=scale)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        lib = _sdpa(F, qt, kt, vt, causal, scale).transpose(1, 2)
+        lib_refused = None
+    except RuntimeError as e:   # e.g. no backend for Dv != Dqk
+        lib, lib_refused = None, str(e).splitlines()[0][:200]
+    torch.cuda.synchronize()
+    if f32:
+        kchk = {"max_abs_err": (got - want).abs().max().item(),
+                "within": torch.allclose(got, want, atol=FLASH_F32_TOL,
+                                         rtol=FLASH_F32_TOL)}
+        lchk = {"max_abs_err": None if lib is None else
+                (lib - want).abs().max().item(), "within": None}
+    else:
+        kchk = _main_shape_check(got, want)
+        lchk = ({"max_abs_err": None, "within": None} if lib is None
+                else _main_shape_check(lib, want))
+    log(f"flash_attention {name} ({route} route) vs plain: {kchk}; SDPA "
+        f"vs plain: {lchk if lib is not None else lib_refused}")
+    if not kchk["within"]:
+        raise AssertionError(f"flash_attention off the plain version at "
+                             f"the {name} shape: {kchk}")
+    if lib is not None and not lchk["max_abs_err"] <= SDPA_SANITY_TOL:
+        raise AssertionError(f"SDPA off the plain version at the {name} "
+                             f"shape: {lchk} (sanity check)")
+    del got, want, lib
+    torch.cuda.empty_cache()
+    call = lambda: fa.flash_attention(q, k, v, causal=causal,  # noqa
+                                      scale=scale)
+    sdpa = lambda: _sdpa(F, qt, kt, vt, causal, scale)  # noqa: E731
+    ms = cuda_ms(call, 20, torch)
+    plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v, causal=causal,
+                                                  scale=scale), 3, torch)
+    library_ms = lib_dev_ms = None
+    if lib_refused is None:
+        library_ms = cuda_ms(sdpa, 20, torch)
+        lib_dev_ms, _ = device_ms(torch, sdpa, 20, "")
+    dev_ms, per_call = device_ms(torch, call, 20, "flash_attention_kernel")
+    size = q.element_size()
+    shares_k = v.data_ptr() == k.data_ptr()
+    nbytes = size * (q.numel() + k.numel() + (0 if shares_k else v.numel())
+                     + b * sq * h * dv)
+    flops = 2 * b * h * sq * sk * (dqk + dv)
+    if causal and sq == sk:
+        flops //= 2
+    peak = F32_OPS_PER_S if f32 else BF16_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    out = {"route": route, "kernels_per_call": per_call,
+           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library_device_ms": lib_dev_ms,
+           "library_refused": lib_refused,
+           "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": kchk["max_abs_err"],
+           "worst_of_limit": kchk.get("worst_of_limit"),
+           "mismatch_share": kchk.get("mismatch_share"),
+           "sdpa_max_abs_err": lchk["max_abs_err"],
+           "sdpa_worst_of_limit": lchk.get("worst_of_limit"),
+           "sdpa_mismatch_share": lchk.get("mismatch_share"),
+           "sdpa_within_limit": lchk["within"],
+           "bytes": nbytes, "flops": flops,
+           "shape": f"q ({b},{sq},{h},{dqk}) k ({b},{sk},{gg},{dqk}) v "
+                    f"({b},{sk},{gg},{dv}) {str(q.dtype).split('.')[-1]}"
+                    f", causal={causal}"
+                    + ("" if scale is None else f", scale {scale:.6g}")
+                    + (", v a view of k" if shares_k else "")}
+    log(f"flash_attention {name} ({route}): {ms:.4f} ms, device "
+        f"{dev_ms} ms, {per_call} kernels a call (bound "
+        f"{out['bound_ms']:.4f}, plain {plain_ms:.3f}, SDPA "
+        f"{library_ms}, device {lib_dev_ms})")
+    return out
+
+
 def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
     """Time the kernel, its plain version and SDPA at the serve path's two
     shapes, each on the route the wrapper picks: the prefill (batch 8 x
     1024 tokens, causal: the bf16 prefill route) and a decode step over a
     FLASH_DECODE_KEYS-key cache prefix (non-causal, strided view: the
-    split-K decode route), at Yi-9B's heads (32 / 4, D 128) and at
-    Zamba2-2.7B's (32 / 32, D 80); and the float32 route at Yi-9B's
-    prefill shape.  Event times (one call: host work and device) and
-    profiler device times."""
-    import torch.nn.functional as F
-
+    split-K decode route), at Yi-9B's heads (32 / 4, D 128), at
+    Zamba2-2.7B's (32 / 32, D 80) and at DeepSeek-V2-Lite's MLA (16 heads:
+    the prefill at Dqk 192 / Dv 128, the absorbed decode at 576 / 512
+    over one kv head's cache rows of a 1024-token prompt and 8 decoded
+    tokens); and the float32 route at Yi-9B's prefill shape and at both
+    MLA shapes (``_flash_at_shape``)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels._build import BUILDER
 
     g = torch.Generator(device=dev).manual_seed(8)
@@ -1284,77 +1487,34 @@ def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
             q, k, v = q.to(dt), k.to(dt), v.to(dt)
             causal = True
         else:
-            sq, sk = 1, FLASH_DECODE_KEYS
+            sk = FLASH_DECODE_KEYS
             cache = torch.randn(SERVE_BATCH, FLASH_DECODE_KEYS + 64, 2, gg,
                                 d, generator=g, device=dev).to(bf)
             q = torch.randn(SERVE_BATCH, 1, h, d, generator=g,
                             device=dev).to(bf)
             k, v = cache[:, :sk, 0], cache[:, :sk, 1]
             causal = False
-        route = fa.ops.pick_route(dt, sq)
-        got = fa.flash_attention(q, k, v, causal=causal)
-        want = fa.attention_plain(q, k, v, causal=causal)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                             enable_gqa=True).transpose(1, 2)
-        torch.cuda.synchronize()
-        if name == "f32":
-            kchk = {"max_abs_err": (got - want).abs().max().item(),
-                    "within": torch.allclose(got, want, atol=FLASH_F32_TOL,
-                                             rtol=FLASH_F32_TOL)}
-            lchk = {"max_abs_err": (lib - want).abs().max().item(),
-                    "within": None}
-        else:
-            kchk = _main_shape_check(got, want)
-            lchk = _main_shape_check(lib, want)
-        log(f"flash_attention {name} ({route} route) vs plain: {kchk}; SDPA "
-            f"vs plain: {lchk}")
-        if not kchk["within"]:
-            raise AssertionError(f"flash_attention off the plain version at "
-                                 f"the {name} shape: {kchk}")
-        if not lchk["max_abs_err"] <= SDPA_SANITY_TOL:
-            raise AssertionError(f"SDPA off the plain version at the {name} "
-                                 f"shape: {lchk} (sanity check)")
-        del got, want, lib
+        out[name] = _flash_at_shape(torch, name, q, k, v, causal, None)
+        del q, k, v
         torch.cuda.empty_cache()
-        call = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa
-            qt, kt, vt, is_causal=causal, enable_gqa=True)
-        ms = cuda_ms(call, 20, torch)
-        plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v, causal=causal),
-                           3, torch)
-        library_ms = cuda_ms(sdpa, 20, torch)
-        dev_ms, per_call = device_ms(torch, call, 20, "flash_attention_kernel")
-        lib_dev_ms, _ = device_ms(torch, sdpa, 20, "")
-        size = q.element_size()
-        nbytes = size * (q.numel() + k.numel() + v.numel() + q.numel())
-        flops = 4 * SERVE_BATCH * h * sq * sk * d
-        if causal and sq == sk:
-            flops //= 2
-        peak = F32_OPS_PER_S if name == "f32" else BF16_OPS_PER_S
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-        out[name] = {"route": route, "kernels_per_call": per_call,
-                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                     "library_ms": library_ms,
-                     "library_device_ms": lib_dev_ms,
-                     "bound_ms": max(t_bytes, t_ops) * 1e3,
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "max_abs_err": kchk["max_abs_err"],
-                     "worst_of_limit": kchk.get("worst_of_limit"),
-                     "mismatch_share": kchk.get("mismatch_share"),
-                     "sdpa_max_abs_err": lchk["max_abs_err"],
-                     "sdpa_worst_of_limit": lchk.get("worst_of_limit"),
-                     "sdpa_mismatch_share": lchk.get("mismatch_share"),
-                     "sdpa_within_limit": lchk["within"],
-                     "bytes": nbytes, "flops": flops,
-                     "shape": f"q ({SERVE_BATCH},{sq},{h},{d}) k/v "
-                              f"({SERVE_BATCH},{sk},{gg},{d}) "
-                              f"{str(dt).split('.')[-1]}, causal={causal}"}
-        log(f"flash_attention {name} ({route}): {ms:.4f} ms, device "
-            f"{dev_ms} ms, {per_call} kernels a call (bound "
-            f"{out[name]['bound_ms']:.4f}, plain {plain_ms:.3f}, SDPA "
-            f"{library_ms:.4f}, device {lib_dev_ms})")
-        del q, k, v, qt, kt, vt
+    mla = get_config(MOE_ARCH).mla
+    h = get_config(MOE_ARCH).num_heads
+    dqk = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    for name in ("mla_prefill", "mla_decode", "mla_f32_prefill",
+                 "mla_f32_decode"):
+        dt = torch.float32 if "f32" in name else bf
+        if name.endswith("prefill"):
+            q, k, v, scale = mla_flash_inputs(
+                torch, dev, g, SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, h, h,
+                dqk, mla.v_head_dim, dt)
+        else:
+            q, k, v, scale = mla_flash_inputs(
+                torch, dev, g, SERVE_BATCH, 1, SERVE_PROMPT + MOE_NEW, h, 1,
+                mla.kv_lora_rank + mla.qk_rope_head_dim, mla.kv_lora_rank,
+                dt)
+        out[name] = _flash_at_shape(torch, name, q, k, v,
+                                    name.endswith("prefill"), scale)
+        del q, k, v
         torch.cuda.empty_cache()
     pre = out["prefill"]
     ptxas = ptxas_report(BUILDER.logs.get("flash_attention", ""))
@@ -1364,13 +1524,17 @@ def flash_attention_at_main_shapes(torch, dev, err: float) -> dict:
             "replaces": "src/repro/kernels/flash_attention/kernel.py:71",
             "max_abs_err": max(err, *(o["max_abs_err"]
                                       for k, o in out.items()
-                                      if k != "f32")),
+                                      if "f32" not in k)),
             "ms": pre["ms"], "plain_ms": pre["plain_ms"],
             "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
             "library_ms": pre["library_ms"], "shape": pre["shape"],
             "prefill": pre, "decode": out["decode"], "f32": out["f32"],
             "zamba2": {"prefill": out["zamba2_prefill"],
                        "decode": out["zamba2_decode"]},
+            "mla": {"prefill": out["mla_prefill"],
+                    "decode": out["mla_decode"],
+                    "f32_prefill": out["mla_f32_prefill"],
+                    "f32_decode": out["mla_f32_decode"]},
             "ptxas": ptxas}
 
 
@@ -4907,19 +5071,23 @@ def _check_serve_launches(launches: dict, want: dict) -> None:
 
 
 def serve_full_depth(torch, dev, out: dict, arch: str, want: dict,
-                     decode_tol: float, new_tokens: int = SERVE_NEW) -> None:
-    """A published model at full width and depth on random bf16 weights
-    through ``repro_torch.launch.serve.serve``: batch 8, 1024-token
-    prompts, ``new_tokens`` greedy tokens.  Each kernel must launch as
-    often as ``want`` says; then one decode step against the prefilled
-    cache must give the logits of prefilling the longer prompt within
-    ``decode_tol``, all finite."""
+                     decode_tol, new_tokens: int = SERVE_NEW,
+                     num_layers=None) -> None:
+    """A published model at full width and depth (``num_layers`` cuts
+    it) on random bf16 weights through ``repro_torch.launch.serve.serve``:
+    batch 8, 1024-token prompts, ``new_tokens`` greedy tokens.  Each
+    kernel must launch as often as ``want`` says; then (unless
+    ``decode_tol`` is None: the caller checks) one decode step against the
+    prefilled cache must give the logits of prefilling the longer prompt
+    within ``decode_tol``, all finite."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import build_model
     from repro_torch.optim import tree_leaves
 
     cfg = get_config(arch, reduced=REDUCED)
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
     _release(torch)
     torch.cuda.reset_peak_memory_stats(dev)
     before = torch.cuda.memory_allocated(dev)
@@ -4927,7 +5095,7 @@ def serve_full_depth(torch, dev, out: dict, arch: str, want: dict,
     t0 = time.perf_counter()
     res = serve(arch=arch, reduced=REDUCED, batch=SERVE_BATCH,
                 prompt_len=SERVE_PROMPT, new_tokens=new_tokens, seed=SEED,
-                device=str(dev))
+                device=str(dev), num_layers=num_layers)
     torch.cuda.synchronize()
     launches = _read_counts()
     wall = time.perf_counter() - t0
@@ -4951,8 +5119,9 @@ def serve_full_depth(torch, dev, out: dict, arch: str, want: dict,
     _check_serve_launches(launches, want)
     if not all(0 <= t < cfg.vocab_size for t in res["sample_tokens"]):
         raise AssertionError(f"tokens out of range: {res['sample_tokens']}")
-    out["decode_vs_prefill"], out["decode_profile"] = _decode_checks(
-        torch, dev, cfg, res["decode_seconds"] / new_tokens, decode_tol)
+    if decode_tol is not None:
+        out["decode_vs_prefill"], out["decode_profile"] = _decode_checks(
+            torch, dev, cfg, res["decode_seconds"] / new_tokens, decode_tol)
 
 
 def phase_3d_serve(torch, dev, out: dict) -> None:
@@ -5003,17 +5172,20 @@ def _decode_checks(torch, dev, cfg, step_seconds: float, tol: float):
     return err, profile
 
 
-def _decode_gap_float32(torch, dev, cfg) -> float:
+def _decode_gap_float32(torch, dev, cfg, num_layers=None) -> float:
     """The decode-vs-prefill comparison of ``_decode_checks`` with the
     model computing in float32 (float32 weights and activations, the
-    ssd_scan kernel's float32 path, a float32 conv window), which takes
-    bf16 rounding out of it: a decode step that does not continue the
+    kernels' float32 routes, a float32 conv window), which takes bf16
+    rounding out of it: a decode step that does not continue the
     prefill's state and conv window shows here, rounding does not.  Held
-    to DECODE_F32_TOL."""
+    to DECODE_F32_TOL.  ``num_layers`` cuts the depth (a full-depth
+    float32 model that does not fit the card)."""
     import numpy as np
 
     from repro_torch.models import build_model
 
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
     model = build_model(cfg, compute_dtype=torch.float32)
     params = model.init(SEED, dev)
     rng = np.random.RandomState(SEED)
@@ -5231,8 +5403,10 @@ def _train_step_profile(torch, dev, step_seconds: float) -> dict:
     state, m = step(state, {"tokens": tokens[0]})
     float(m["loss"])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the device's activity alone (its runtime API records hold the launch
+    # calls): the host's events cost seconds of the trace's processing
+    # (scripts/trace_cost.py)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         state, m = step(state, {"tokens": tokens[1]})
         float(m["loss"])
         torch.cuda.synchronize()
@@ -5263,8 +5437,9 @@ def phase_3e(torch, dev, store: Path, out: dict) -> None:
     """Mamba2-370m at full width: train, save, fail and resume
     (``phase_3e_train``) and serve from that store (weights-only cold load,
     hot-swap to LATEST, hot vs cold tokens) before it is removed, at
-    SSM_TRAIN_LAYERS layers; then serve on random weights at full depth
-    (48 layers): ``ssd_scan`` once per layer in the prefill
+    SSM_TRAIN_LAYERS layers; then serve on random weights at
+    SSM_SERVE_LAYERS (24) of its 48 layers: ``ssd_scan`` once per layer in
+    the prefill
     (the decode is a recurrent step), decode vs prefill in bf16 within
     DECODE_SSM_TOL and in float32 within DECODE_F32_TOL, the bf16 prefill
     within SSD_PREFILL_TOL of the plain scan's forward."""
@@ -5281,9 +5456,10 @@ def phase_3e(torch, dev, store: Path, out: dict) -> None:
                    serve_kw=dict(arch=SSM_ARCH, reduced=REDUCED,
                                  num_layers=SSM_TRAIN_LAYERS), drift=False)
     REMOVER.discard(store)
+    cfg = cfg.replace(num_layers=SSM_SERVE_LAYERS)
     serve_full_depth(torch, dev, out["serve"], SSM_ARCH,
                      {"flash_attention": 0, "ssd_scan": cfg.num_layers},
-                     DECODE_SSM_TOL)
+                     DECODE_SSM_TOL, num_layers=cfg.num_layers)
     out["serve"]["decode_vs_prefill_float32"] = _decode_gap_float32(
         torch, dev, cfg)
     out["serve"]["prefill_vs_plain_scan"] = _prefill_vs_plain_scan(
@@ -5337,10 +5513,11 @@ def phase_3o(torch, dev, store: Path, out: dict) -> None:
     ``shared_attn`` with its weights and its optimizer object; ``block_fp``
     launches once per saved (unit, kind) in the failing run; ``fused_adamw``
     as often on every step of each run.
-    (b) Serving at all 54 layers on random bf16 weights through
-    ``serve_full_depth``, HYBRID_NEW new tokens: ``ssd_scan`` once per
-    Mamba2 layer in the prefill, ``flash_attention`` once per shared
-    invocation (9) in the prefill and in every decode step; decode vs
+    (b) Serving at HYBRID_SERVE_LAYERS (18) of its 54 layers on random
+    bf16 weights through ``serve_full_depth``, HYBRID_NEW new tokens:
+    ``ssd_scan`` once per Mamba2 layer in the prefill,
+    ``flash_attention`` once per shared invocation (3) in the prefill and
+    in every decode step; decode vs
     prefill of the longer prompt within DECODE_HYBRID_TOL in bf16 and
     DECODE_F32_TOL in float32 (the kernels' float32 routes, D 80)."""
     from repro_torch.configs import get_config
@@ -5366,8 +5543,11 @@ def phase_3o(torch, dev, store: Path, out: dict) -> None:
     _release(torch)
     _zero_counts()
     try:
+        # the objects on CANON_WRITER_THREADS writer threads (the events
+        # stay synchronous: the commit drains them)
         train(ckpt_dir=str(run), ckpt_interval=CKPT_INTERVAL,
-              fail_at=FAIL_AT, **kw)
+              fail_at=FAIL_AT, **{**kw, "ckpt_async": True,
+                                  "writer_threads": CANON_WRITER_THREADS})
         raise AssertionError("3o: the checkpointed run did not fail")
     except SimulatedFailure as e:
         failed = e
@@ -5425,19 +5605,291 @@ def phase_3o(torch, dev, store: Path, out: dict) -> None:
                              f"every step: {launches}")
     _release(torch)
 
-    # (b) serving at full depth
+    # (b) serving at HYBRID_SERVE_LAYERS
     ts = time.perf_counter()
+    cfg = cfg.replace(num_layers=HYBRID_SERVE_LAYERS)
     groups = cfg.num_layers // cfg.hybrid.shared_period
     serve_full_depth(torch, dev, out["serve"], HYBRID_ARCH,
                      {"ssd_scan": cfg.num_layers,
                       "flash_attention": groups * (1 + HYBRID_NEW)},
-                     DECODE_HYBRID_TOL, new_tokens=HYBRID_NEW)
+                     DECODE_HYBRID_TOL, new_tokens=HYBRID_NEW,
+                     num_layers=cfg.num_layers)
     out["serve"]["decode_vs_prefill_float32"] = _decode_gap_float32(
         torch, dev, cfg)
     out["serve"]["seconds_with_checks"] = time.perf_counter() - ts
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 3o in {out['seconds']:.1f} s of its "
         f"{HYBRID_BUDGET_S:.0f}-s budget")
+
+
+MOE_BUDGET_S = 75.0
+MOE_TRAIN_LAYERS = 2      # block_000 (the first, dense layer) and block_001
+                          # (MoE): the least depth holding both block kinds
+MOE_STEPS = 6
+MOE_NEW = 8               # new tokens of the serve (decode is host-bound)
+MOE_PARTICIPANTS = 4      # a MoE block's optimizer object is 7.02 GB,
+                          # past msgpack's bin (ROADMAP C1): 4 x 1.75 GB
+MOE_F32_LAYERS = 4        # the float32 decode check (63 GB at full depth)
+MSGPACK_BIN_MAX = 2 ** 32 - 1
+# A decode step's first expert choice that differs from the longer
+# prefill's must be a near tie: its k-th and (k + 1)-th probabilities
+# within this (H100: 0 to 0.0019 over the 8 rows, PERF.md section 6;
+# bf16 rounding moves a probability by ~1e-4 here)
+MOE_FLIP_GAP = 0.01
+
+
+def _route_flips(torch, dec, pre, k: int) -> list:
+    """Per row of a batch: the first MoE layer where the decode step's
+    experts for its token differ from the longer prefill's for its last
+    position, and the decode's probability gap between its k-th and
+    (k+1)-th expert there (None: the same experts in every layer)."""
+    rows = []
+    for r in range(dec[0][1].shape[0]):
+        first = None
+        for layer, ((dp, di), (_, pi)) in enumerate(zip(dec, pre)):
+            if not torch.equal(di[r].sort().values, pi[r].sort().values):
+                top = dp[r].sort(descending=True).values
+                first = {"layer": layer,
+                         "gap": (top[k - 1] - top[k]).item()}
+                break
+        rows.append(first)
+    return rows
+
+
+def _moe_decode_gaps(torch, dev, cfg, step_seconds: float) -> dict:
+    """One decode step against the prefilled cache vs the prefill of the
+    longer prompt at full depth in bf16, on one set of weights and tokens,
+    under two capacity factors: a copy of the config with num_experts /
+    top_k, where no token can be dropped, held to DECODE_MOE_TOL; and the
+    published one, recorded unchecked (the prompt's last token takes the
+    last capacity slots of the longer prefill, so it is the first dropped
+    there, while a decode step runs every expert).  The device's busy
+    time over PROFILE_STEPS more decode steps of the no-drop model."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import build_model
+
+    from repro_torch.models import moe as moe_mod
+
+    m = cfg.moe
+    nodrop = cfg.replace(moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    plain_route = moe_mod.route
+    choices = []
+
+    def route(logits, k):
+        got = plain_route(logits, k)
+        choices.append((got[0][..., -1, :] if got[0].dim() == 3
+                        else got[0], got[2][..., -1, :]
+                        if got[2].dim() == 3 else got[2]))
+        return got
+    params = build_model(cfg).init(SEED, dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(SEED)
+    toks = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT + 1)).astype(
+            np.int32)).to(dev)
+    out = {}
+    for label, c in (("nodrop", nodrop), ("published", cfg)):
+        model = build_model(c)
+        _, cache = model.prefill(params, {"tokens": toks[:, :-1]},
+                                 cache_len=SERVE_PROMPT + 1 + PROFILE_STEPS)
+        choices.clear()
+        moe_mod.route = route
+        try:
+            ld, _ = model.decode_step(params, cache, {
+                "tokens": toks[:, -1:], "pos": SERVE_PROMPT})
+            n_dec = len(choices)
+            if label == "nodrop":
+                moe_mod.route = plain_route
+                out["decode_profile"] = _decode_profile(
+                    torch, model, params, cache, toks[:, -1:], step_seconds)
+            del cache
+            moe_mod.route = route
+            lf, _ = model.prefill(params, {"tokens": toks})
+        finally:
+            moe_mod.route = plain_route
+        if not (torch.isfinite(ld).all() and torch.isfinite(lf).all()):
+            raise AssertionError(f"3p: non-finite logits ({label})")
+        out[label] = {"capacity_factor": c.moe.capacity_factor,
+                      "gap": (ld - lf).abs().max().item(),
+                      "gap_by_row": (ld - lf).abs().amax(-1).tolist(),
+                      "route_flips": _route_flips(
+                          torch, choices[:n_dec], choices[n_dec:], m.top_k)}
+    del params
+    torch.cuda.empty_cache()
+    log(f"3p decode vs prefill of the longer prompt in bf16: {out}")
+    if not out["nodrop"]["gap"] < DECODE_MOE_TOL:
+        raise AssertionError(f"3p (c): decode step off the prefill of T + 1 "
+                             f"tokens at the no-drop factor: {out}")
+    flips = [f for f in out["nodrop"]["route_flips"] if f is not None]
+    if not all(f["gap"] < MOE_FLIP_GAP for f in flips):
+        raise AssertionError(f"3p (c): a decode step chose other experts "
+                             f"than the prefill where no near tie explains "
+                             f"it: {flips}")
+    out["float32_nodrop"] = _decode_gap_float32(torch, dev, nodrop,
+                                                MOE_F32_LAYERS)
+    return out
+
+
+def phase_3p(torch, dev, store: Path, out: dict) -> None:
+    """DeepSeek-V2-Lite at full width: MoE (64 routed experts, top 6, 2
+    shared) with MLA, its first layer dense (ROADMAP A5).  Budget:
+    MOE_BUDGET_S.  Fills ``out`` before its checks.
+
+    (a) Training at MOE_TRAIN_LAYERS (2) layers, ``block_000`` (the dense
+    first layer, an unstacked unit) and ``block_001`` (MoE), batch BATCH x
+    SEQ, the ``full`` policy: an uninterrupted reference of MOE_STEPS
+    steps; a run with synchronous saves every CKPT_INTERVAL steps through
+    MOE_PARTICIPANTS virtual participants that fails at FAIL_AT; its
+    resume from the step-4 manifest (no further saves), whose losses
+    equal the reference's within MODE_TOL.  Step 2's manifest holds both
+    block units' weights and optimizer objects as shard sets; every object
+    of the store is under msgpack's 2**32 - 1-byte bin (the largest
+    recorded); ``block_fp`` launches once per shard object of each event;
+    ``fused_adamw`` as often on every step of each run; the aux loss of
+    every reference step finite and positive.
+    (b) Serving at all 27 layers on random bf16 weights through
+    ``serve_full_depth``, batch 8 x 1024 + MOE_NEW tokens at the
+    published capacity factor: ``flash_attention`` exactly once per layer
+    in the prefill (the latent-expanded MLA, Dqk 192 / Dv 128) and in
+    every decode step (the absorbed MLA, 576 / 512).
+    (c) ``_moe_decode_gaps``: decode vs the prefill of the longer prompt
+    at 27 layers in bf16 within DECODE_MOE_TOL at the no-drop factor (the
+    published one recorded), and in float32 at MOE_F32_LAYERS within
+    DECODE_F32_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.manifest import ManifestStore, is_sharded
+    from repro_torch.launch.train import SimulatedFailure, train
+
+    t0 = time.perf_counter()
+    log(f"phase 3p: budget {MOE_BUDGET_S:.0f} s")
+    cfg = get_config(MOE_ARCH, reduced=REDUCED)
+    kw = dict(arch=MOE_ARCH, reduced=REDUCED, num_layers=MOE_TRAIN_LAYERS,
+              batch=BATCH, seq_len=SEQ, policy_name="full", seed=SEED,
+              device=str(dev), ckpt_async=False, total_steps=MOE_STEPS)
+    no_saves = {"ckpt_interval": MOE_STEPS + 1}
+    run = store / "run"
+    tr = out["train"]
+    launches = tr["launches"] = {}
+    _release(torch)
+    _zero_counts()
+    ref = train(ckpt_dir=str(store / "ref"), **kw, **no_saves)
+    torch.cuda.synchronize()
+    launches["ref"] = _read_counts()
+    REMOVER.discard(store / "ref")
+    _release(torch)
+    _zero_counts()
+    events = []
+    with _sharded_events(events):
+        try:
+            train(ckpt_dir=str(run), ckpt_interval=CKPT_INTERVAL,
+                  fail_at=FAIL_AT, shard_participants=MOE_PARTICIPANTS, **kw)
+            raise AssertionError("3p: the checkpointed run did not fail")
+        except SimulatedFailure as e:
+            losses_failed = list(e.losses)
+    torch.cuda.synchronize()
+    launches["failed"] = _read_counts()
+    m2 = ManifestStore(run).load(CKPT_INTERVAL)
+    step2 = {u: {k: (is_sharded(e), len(e) if is_sharded(e) else 1)
+                 for k, e in sorted(m2.entries.get(u, {}).items())}
+             for u in ("block_000", "block_001")}
+    objects = [f.stat().st_size for f in run.rglob("*.chunk")]
+    _release(torch)
+    _zero_counts()
+    res = train(ckpt_dir=str(run), resume=True, **kw, **no_saves)
+    torch.cuda.synchronize()
+    launches["resumed"] = _read_counts()
+    REMOVER.discard(store)
+    tr.update({
+        "config": f"{MOE_ARCH} full width, {MOE_TRAIN_LAYERS} layers "
+                  f"(block_000 dense, block_001 MoE), batch {BATCH}, seq "
+                  f"{SEQ}, full, ckpt every {CKPT_INTERVAL}, sync saves by "
+                  f"{MOE_PARTICIPANTS} participants",
+        "step_seconds_median": statistics.median(ref["step_seconds"][1:]),
+        "step_seconds_ref": ref["step_seconds"],
+        "losses_ref": ref["losses"], "aux_losses_ref": ref["aux_losses"],
+        "losses_failed_run": losses_failed,
+        "losses_resumed": res["losses"], "events": events,
+        "step2_blocks": step2, "objects": len(objects),
+        "largest_object_bytes": max(objects, default=0),
+        "restore_on_resume": res["restore_stats"],
+        "peak_device_bytes": {"reference_run": ref["peak_device_bytes"],
+                              "resumed_run": res["peak_device_bytes"]},
+        "seconds": time.perf_counter() - t0})
+    log(f"3p (a) in {tr['seconds']:.1f} s: events "
+        f"{[(e['step'], e['shard_objects'], round(e['stall_seconds'], 3)) for e in events]}, "  # noqa: E501
+        f"largest object {tr['largest_object_bytes']} B, restore "
+        f"{res['restore_stats']['seconds']:.2f} s; aux "
+        f"{ref['aux_losses']}; launches {launches}")
+    tr["loss_diffs"] = _check_losses(ref, res, lambda s: MODE_TOL,
+                                     "phase 3p (a): the full resume")
+    if [e["step"] for e in events] != [2, 4] \
+            or res["restore_stats"]["step"] != 4:
+        raise AssertionError(f"3p (a): events {[e['step'] for e in events]}"
+                             f", resumed from {res['restore_stats']['step']}")
+    if step2 != {u: {"opt": (True, MOE_PARTICIPANTS),
+                     "weights": (True, MOE_PARTICIPANTS)}
+                 for u in ("block_000", "block_001")}:
+        raise AssertionError(f"3p (a): step 2 holds the blocks as {step2}")
+    if not objects or max(objects) >= MSGPACK_BIN_MAX:
+        raise AssertionError(f"3p (a): an object of {max(objects)} B")
+    if not all(e["shard_objects"] == e["block_fp_launches"] > 0
+               for e in events) or launches["failed"]["block_fp"] != sum(
+                   e["block_fp_launches"] for e in events):
+        raise AssertionError(f"3p (a): block_fp launches {events}, "
+                             f"{launches['failed']}")
+    per_step = launches["ref"]["fused_adamw"] / MOE_STEPS
+    if not (per_step >= 1 and per_step == int(per_step)
+            and launches["resumed"]["fused_adamw"]
+            == per_step * len(res["losses"])
+            and launches["failed"]["fused_adamw"]
+            == per_step * len(losses_failed)):
+        raise AssertionError(f"3p (a): fused_adamw not launched alike on "
+                             f"every step: {launches}")
+    if not all(math.isfinite(a) and a > 0 for _, a in ref["aux_losses"]):
+        raise AssertionError(f"3p (a): aux losses {ref['aux_losses']}")
+    _release(torch)
+
+    # (b) serving at full depth
+    ts = time.perf_counter()
+    serve_full_depth(torch, dev, out["serve"], MOE_ARCH,
+                     {"flash_attention": cfg.num_layers * (1 + MOE_NEW),
+                      "ssd_scan": 0}, None, new_tokens=MOE_NEW)
+    out["serve"]["seconds_with_checks"] = time.perf_counter() - ts
+
+    # (c) decode vs prefill
+    tc = time.perf_counter()
+    out["decode"] = _moe_decode_gaps(
+        torch, dev, cfg, out["serve"]["decode_seconds"] / MOE_NEW)
+    out["decode"]["seconds"] = time.perf_counter() - tc
+    out["seconds"] = time.perf_counter() - t0
+    out["within_budget"] = out["seconds"] <= MOE_BUDGET_S
+    log(f"phase 3p in {out['seconds']:.1f} s of its "
+        f"{MOE_BUDGET_S:.0f}-s budget")
+
+
+def moe_summary(mp_p: dict, card: dict) -> dict:
+    """3p's line."""
+    pt, ps, pd = mp_p["train"], mp_p["serve"], mp_p["decode"]
+    return {
+        "seconds": mp_p["seconds"], "budget_seconds": MOE_BUDGET_S,
+        "train": {k: pt[k] for k in (
+            "config", "step_seconds_median", "loss_diffs", "aux_losses_ref",
+            "launches", "step2_blocks", "objects", "largest_object_bytes",
+            "peak_device_bytes")}
+        | {"events": [{k: e[k] for k in (
+            "step", "participants", "shard_objects", "block_fp_launches",
+            "stall_seconds", "d2h_bytes", "written_bytes")}
+            for e in pt["events"]],
+           "restore_seconds": pt["restore_on_resume"]["seconds"]},
+        "serve": {k: ps[k] for k in (
+            "config", "prefill_seconds", "decode_tokens_per_s",
+            "peak_device_bytes", "launches")},
+        "decode_vs_prefill": {k: pd[k] for k in (
+            "nodrop", "published", "float32_nodrop")}
+        | {"tol": DECODE_MOE_TOL, "profile": pd["decode_profile"]}} | card
 
 
 def write_record(record: dict, path) -> None:
@@ -5538,6 +5990,11 @@ def report(record: dict, path) -> None:
             **{run: c[k["name"]] for run, c in
                mp["3o"]["train"]["launches"].items()},
             "serve": mp["3o"]["serve"]["launches"][k["name"]]}
+        # the MoE with MLA (3p): its three training runs and its serve
+        k["launches_moe_path"] = {
+            **{run: c[k["name"]] for run, c in
+               mp["3p"]["train"]["launches"].items()},
+            "serve": mp["3p"]["serve"]["launches"][k["name"]]}
     write_record(record, path)
     a_secs = {e["step"]: e["seconds"] for e in mp_a["save_events"]}
     ctl_secs = {e["step"]: e["seconds"]
@@ -5749,6 +6206,7 @@ def report(record: dict, path) -> None:
             "config", "prefill_seconds", "decode_tokens_per_s",
             "peak_device_bytes", "launches", "decode_vs_prefill",
             "decode_vs_prefill_float32", "decode_profile")}} | card}))
+    print(json.dumps({"moe": moe_summary(mp["3p"], card)}))
     print(json.dumps({"kernels": [k | card for k in kernels]}))
 
 
@@ -5807,7 +6265,8 @@ def main() -> int:
                             "3e": {"train": {}, "store": {}, "serve": {}},
                             "3f": {}, "3g": {}, "3h": {}, "3i": {},
                             "3j": {}, "3k": {}, "3l": {}, "3m": {},
-                            "3n": {}, "3o": {"train": {}, "serve": {}}}}
+                            "3n": {}, "3o": {"train": {}, "serve": {}},
+                            "3p": {"train": {}, "serve": {}}}}
     mp = record["main_path"]
     try:
         ref = phase_3a(torch, dev, store / "3a", mp["3a"])
@@ -5859,6 +6318,8 @@ def main() -> int:
         log(f"phase 3n done at {time.perf_counter() - t_start:.1f} s")
         phase_3o(torch, dev, store / "3o", mp["3o"])
         log(f"phase 3o done at {time.perf_counter() - t_start:.1f} s")
+        phase_3p(torch, dev, store / "3p", mp["3p"])
+        log(f"phase 3p done at {time.perf_counter() - t_start:.1f} s")
     finally:
         REMOVER.drain()
         record["removal_seconds"] = REMOVER.seconds

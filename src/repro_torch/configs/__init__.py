@@ -17,6 +17,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
     "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

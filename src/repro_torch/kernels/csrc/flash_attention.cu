@@ -62,15 +62,30 @@
 // the tensor-core work of a D = 80 layout (a 64-column panel plus a
 // 16-column one) in exchange for no new layout.
 //
+// Split head dims (DeepSeek-V2's multi-head latent attention): q and k
+// have DK columns, v and the output DV, and the caller's scale (MLA's
+// absorbed decode scales by (128 + 64)^-1/2 over 576 columns).  Route 1
+// takes DK 192 / DV 128 (the latent-expanded prefill): three 64-column
+// panels of q and k, two of v, S over 12 k-steps, O on 128 columns (a
+// 128-row Q tile 48 KB, a K stage 24 KB, a V stage 16 KB: 168 KB at 3
+// stages).  Route 2 takes DK 576 / DV 512 (the absorbed decode over the
+// latent cache: one kv head for 16 query heads, K the cache rows, V
+// their first 512 columns, read through the strides): two stages of 32
+// keys (68 KB each), 16 output columns a lane.  Route 3 takes both,
+// loading K and V past 256 columns in 64-column pieces.
+//
 // ptxas (CUDA 12.9, sm_90a, -O3), registers per thread, no spills in any:
-// prefill (flash_attention_kernel_wgmma) 126 at D 64, 154 at D 128;
-// decode partial (_split) 70 / 68, merge (_combine) 32 / 32; float32
-// (flash_attention_kernel) 111 / 121; at D 80: prefill 154, decode 69 /
-// 32, float32 123.
+// prefill (flash_attention_kernel_wgmma) 126 at D 64, 154 at D 128, 80
+// and 192 / 128; decode partial (_split) 72 / 70 / 68 at D 64 / 128 / 80,
+// 84 at 576 / 512, merge (_combine) 31-39; float32
+// (flash_attention_kernel) 111 / 121 / 123, 121 at 192 / 128, 237 at
+// 576 / 512 (one CTA an SM).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -115,17 +130,33 @@ __device__ __forceinline__ void store4(float* p, float a, float b, float c,
 }
 
 // ------------------------------------------------------- route 3: float32
-template <typename T, int D>
-__global__ void __launch_bounds__(FA_THREADS, 2)
+// DK is the head dim of q and k, DV that of v and the output.  Up to 256
+// columns a K (V) tile holds whole rows; past that (MLA's absorbed decode,
+// 576 / 512) it is loaded and consumed in 64-column pieces, one at a time,
+// so that Q, a K piece, a V piece and P fit in shared memory.
+template <int DK, int DV>
+struct F32Dims {
+  static constexpr int KC = DK > 256 ? 64 : DK;  // K columns a piece
+  static constexpr int VCW = DV > 256 ? 64 : DV; // V columns a piece
+  static constexpr int NKC = DK / KC;
+  static constexpr int NVC = DV / VCW;
+  static constexpr int NC = (DV + 63) / 64;      // float4 column groups
+  static constexpr int SMEM =
+      (DK * FA_ROWS + KC * FA_KEYS + FA_KEYS * VCW + FA_KEYS * FA_ROWS) *
+      (int)sizeof(float);
+};
+
+template <typename T, int DK, int DV>
+__global__ void __launch_bounds__(FA_THREADS, (DV > 256 ? 1 : 2))
 flash_attention_kernel(const FaArgs a) {
-  constexpr int DC = D / 8;   // 8-element chunks per row
-  constexpr int NC = (D + 63) / 64;  // float4 column groups per thread
+  typedef F32Dims<DK, DV> Dm;
+  constexpr int KC = Dm::KC, VCW = Dm::VCW, NC = Dm::NC;
   // D = 80: the last group's 16 columns on threads kg < 4
   extern __shared__ float4 fa_smem4[];
-  float* qT = reinterpret_cast<float*>(fa_smem4);  // [D][FA_ROWS]
-  float* kT = qT + D * FA_ROWS;                     // [D][FA_KEYS]
-  float* vt = kT + D * FA_KEYS;                     // [FA_KEYS][D]
-  float* pT = vt + FA_KEYS * D;                     // [FA_KEYS][FA_ROWS]
+  float* qT = reinterpret_cast<float*>(fa_smem4);  // [DK][FA_ROWS]
+  float* kT = qT + DK * FA_ROWS;                    // [KC][FA_KEYS]
+  float* vt = kT + KC * FA_KEYS;                    // [FA_KEYS][VCW]
+  float* pT = vt + FA_KEYS * VCW;                   // [FA_KEYS][FA_ROWS]
 
   const T* __restrict__ q = static_cast<const T*>(a.q);
   const T* __restrict__ k = static_cast<const T*>(a.k);
@@ -141,7 +172,7 @@ flash_attention_kernel(const FaArgs a) {
   const int gi = blockIdx.y;
   const long long b = blockIdx.z;
 
-  for (int c = tid; c < FA_ROWS * DC; c += FA_THREADS) {
+  for (int c = tid; c < FA_ROWS * (DK / 8); c += FA_THREADS) {
     const int row = c % FA_ROWS, dc = c / FA_ROWS;
     const long long f = f0 + row;
     float x[8];
@@ -178,15 +209,14 @@ flash_attention_kernel(const FaArgs a) {
     for (int c = 0; c < NC * 4; ++c) acc[i][c] = 0.f;
   }
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * FA_KEYS;
-    __syncthreads();  // the previous tile's readers are done
-    for (int c = tid; c < FA_KEYS * DC; c += FA_THREADS) {
+  // K columns kc*KC .. +KC-1 of keys k0.. into kT (zeros past kend)
+  auto load_k = [&](int k0, int kc) {
+    for (int c = tid; c < FA_KEYS * (KC / 8); c += FA_THREADS) {
       const int key = c % FA_KEYS, dc = c / FA_KEYS;
       float x[8];
       if (k0 + key < kend) {
         load8(k + b * a.kb + (long long)(k0 + key) * a.ks +
-                  (long long)gi * a.kh + dc * 8, x);
+                  (long long)gi * a.kh + kc * KC + dc * 8, x);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) x[e] = 0.f;
@@ -194,39 +224,75 @@ flash_attention_kernel(const FaArgs a) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) kT[(dc * 8 + e) * FA_KEYS + key] = x[e];
     }
-    for (int c = tid; c < FA_KEYS * DC; c += FA_THREADS) {
-      const int key = c / DC, dc = c % DC;
+  };
+  // V columns vc*VCW .. +VCW-1 of keys k0.. into vt
+  auto load_v = [&](int k0, int vc) {
+    for (int c = tid; c < FA_KEYS * (VCW / 8); c += FA_THREADS) {
+      const int key = c / (VCW / 8), dc = c % (VCW / 8);
       float x[8];
       if (k0 + key < kend) {
         load8(v + b * a.vb + (long long)(k0 + key) * a.vs +
-                  (long long)gi * a.vh + dc * 8, x);
+                  (long long)gi * a.vh + vc * VCW + dc * 8, x);
       } else {
 #pragma unroll
         for (int e = 0; e < 8; ++e) x[e] = 0.f;
       }
-      float4* dst = reinterpret_cast<float4*>(vt + key * D + dc * 8);
+      float4* dst = reinterpret_cast<float4*>(vt + key * VCW + dc * 8);
       dst[0] = make_float4(x[0], x[1], x[2], x[3]);
       dst[1] = make_float4(x[4], x[5], x[6], x[7]);
     }
-    __syncthreads();
+  };
+  // acc's column groups cg0 .. cg0 + NG - 1 += p . (the V piece in vt)
+  auto accumulate = [&](int cg0, auto ng) {
+    constexpr int NG = decltype(ng)::value;
+#pragma unroll 4
+    for (int j = 0; j < FA_KEYS; ++j) {
+      const float4 p4 = *reinterpret_cast<const float4*>(pT + j * FA_ROWS +
+                                                         rg * 4);
+      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+      for (int cg = 0; cg < NG; ++cg) {
+        if (DV % 64 != 0 && cg * 64 + kg * 4 >= DV) continue;
+        const float4 v4 = *reinterpret_cast<const float4*>(
+            vt + j * VCW + cg * 64 + kg * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float* ac = &acc[i][(cg0 + cg) * 4];
+          ac[0] = fmaf(pv[i], v4.x, ac[0]);
+          ac[1] = fmaf(pv[i], v4.y, ac[1]);
+          ac[2] = fmaf(pv[i], v4.z, ac[2]);
+          ac[3] = fmaf(pv[i], v4.w, ac[3]);
+        }
+      }
+    }
+  };
 
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * FA_KEYS;
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < Dm::NKC; ++kc) {
+      __syncthreads();  // the previous piece's (tile's) readers are done
+      load_k(k0, kc);
+      if (Dm::NKC == 1 && Dm::NVC == 1) load_v(k0, 0);
+      __syncthreads();
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(qT + d * FA_ROWS +
-                                                         rg * 4);
-      const float4 kb = *reinterpret_cast<const float4*>(kT + d * FA_KEYS +
-                                                         kg * 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {kb.x, kb.y, kb.z, kb.w};
+      for (int d = 0; d < KC; ++d) {
+        const float4 qa = *reinterpret_cast<const float4*>(
+            qT + (kc * KC + d) * FA_ROWS + rg * 4);
+        const float4 kb = *reinterpret_cast<const float4*>(kT + d * FA_KEYS +
+                                                           kg * 4);
+        const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
+        const float kv[4] = {kb.x, kb.y, kb.z, kb.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
     }
 
 #pragma unroll
@@ -256,30 +322,28 @@ flash_attention_kernel(const FaArgs a) {
 #pragma unroll
       for (int c = 0; c < NC * 4; ++c) acc[i][c] *= alpha;
     }
+    if (Dm::NKC == 1 && Dm::NVC == 1) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(pT + (kg * 4 + j) * FA_ROWS + rg * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < FA_KEYS; ++j) {
-      const float4 p4 = *reinterpret_cast<const float4*>(pT + j * FA_ROWS +
-                                                         rg * 4);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
+      for (int j = 0; j < 4; ++j) {
+        *reinterpret_cast<float4*>(pT + (kg * 4 + j) * FA_ROWS + rg * 4) =
+            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      }
+      __syncthreads();
+      accumulate(0, std::integral_constant<int, NC>());
+    } else {
+      __syncthreads();  // the last K piece's readers are done with pT's
+                        // previous tile too
 #pragma unroll
-      for (int cg = 0; cg < NC; ++cg) {
-        if (D % 64 != 0 && cg * 64 + kg * 4 >= D) continue;
-        const float4 v4 = *reinterpret_cast<const float4*>(
-            vt + j * D + cg * 64 + kg * 4);
+      for (int j = 0; j < 4; ++j) {
+        *reinterpret_cast<float4*>(pT + (kg * 4 + j) * FA_ROWS + rg * 4) =
+            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][cg * 4 + 0] = fmaf(pv[i], v4.x, acc[i][cg * 4 + 0]);
-          acc[i][cg * 4 + 1] = fmaf(pv[i], v4.y, acc[i][cg * 4 + 1]);
-          acc[i][cg * 4 + 2] = fmaf(pv[i], v4.z, acc[i][cg * 4 + 2]);
-          acc[i][cg * 4 + 3] = fmaf(pv[i], v4.w, acc[i][cg * 4 + 3]);
-        }
+      for (int vc = 0; vc < Dm::NVC; ++vc) {
+        __syncthreads();  // pT written; the previous V piece's readers done
+        load_v(k0, vc);
+        __syncthreads();
+        accumulate(vc * (VCW / 64), std::integral_constant<int, VCW / 64>());
       }
     }
   }
@@ -294,7 +358,7 @@ flash_attention_kernel(const FaArgs a) {
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int cg = 0; cg < NC; ++cg) {
-      if (D % 64 != 0 && cg * 64 + kg * 4 >= D) continue;
+      if (DV % 64 != 0 && cg * 64 + kg * 4 >= DV) continue;
       store4(dst + cg * 64 + kg * 4, acc[i][cg * 4 + 0] / den,
              acc[i][cg * 4 + 1] / den, acc[i][cg * 4 + 2] / den,
              acc[i][cg * 4 + 3] / den);
@@ -302,11 +366,11 @@ flash_attention_kernel(const FaArgs a) {
   }
 }
 
-template <int D>
+template <int DK, int DV>
 static int launch_f32(const FaArgs& a, int batch, cudaStream_t stream) {
   static unsigned long long attr_set = 0;
-  const int smem = (3 * D * FA_ROWS + FA_KEYS * FA_ROWS) * (int)sizeof(float);
-  cudaError_t e = smem_opt_in(flash_attention_kernel<float, D>, smem,
+  const int smem = F32Dims<DK, DV>::SMEM;
+  cudaError_t e = smem_opt_in(flash_attention_kernel<float, DK, DV>, smem,
                               &attr_set);
   if (e != cudaSuccess) return (int)e;
   const long long nrows = (long long)a.sq * (a.h / a.g);
@@ -315,7 +379,8 @@ static int launch_f32(const FaArgs& a, int batch, cudaStream_t stream) {
     return (int)cudaErrorInvalidConfiguration;
   }
   const dim3 grid((unsigned)tiles, (unsigned)a.g, (unsigned)batch);
-  flash_attention_kernel<float, D><<<grid, FA_THREADS, smem, stream>>>(a);
+  flash_attention_kernel<float, DK, DV><<<grid, FA_THREADS, smem, stream>>>(
+      a);
   return (int)cudaGetLastError();
 }
 
@@ -329,12 +394,13 @@ static int launch_f32(const FaArgs& a, int batch, cudaStream_t stream) {
 
 // One CTA's shared memory.  Every panel is a TMA box of 64 rows x 64
 // columns under the 128B swizzle, on 1024 bytes (the swizzle atom: 8 rows
-// of 128 B); a D = 128 row spans two panels.
-template <int D>
+// of 128 B); a D = 128 row spans two panels, MLA's q and k rows (192)
+// three.  LK is the layout's head dim of q and k, LV that of v.
+template <int LK, int LV>
 struct PfSmem {
-  uint8_t q[2][D / 64][PF_PANEL];
-  uint8_t k[PF_STAGES][D / 64][PF_KV_PANEL];
-  uint8_t v[PF_STAGES][D / 64][PF_KV_PANEL];
+  uint8_t q[2][LK / 64][PF_PANEL];
+  uint8_t k[PF_STAGES][LK / 64][PF_KV_PANEL];
+  uint8_t v[PF_STAGES][LV / 64][PF_KV_PANEL];
   uint64_t q_full;
   uint64_t k_full[PF_STAGES];
   uint64_t v_full[PF_STAGES];
@@ -365,14 +431,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Issues S = Q . K^T for one warpgroup's 64 rows and one K tile: D / 16
+// Issues S = Q . K^T for one warpgroup's 64 rows and one K tile: LK / 16
 // k-steps of 32 bytes along the swizzled rows; commits the group.
-template <int D>
+template <int LK>
 __device__ __forceinline__ void pf_qk(float (&s)[PF_KEYS / 2],
                                       const uint8_t (*q)[PF_PANEL],
                                       const uint8_t (*k)[PF_KV_PANEL]) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < LK / 16; ++kk) {
     const int p = kk / 4, off = (kk % 4) * 32;
     wgmma_ss(s, gmma_desc(q[p] + off, 16, 1024),
              gmma_desc(k[p] + off, 16, 1024), kk > 0);
@@ -474,19 +540,21 @@ __device__ __forceinline__ int pf_tiles(const PfArgs& a, int s0, int wg) {
   return (kend + PF_KEYS - 1) / PF_KEYS;
 }
 
-// D is the layout's head dim (64 or 128), DV <= D the columns stored (80
-// on the D = 128 layout; see the note at the top).
-template <int D, int DV>
+// LK is the layout's head dim of q and k (64, 128 or 192), LV that of v
+// (64 or 128), DV <= LV the columns stored (80 on the 128 layout; see the
+// note at the top).
+template <int LK, int LV, int DV>
 __global__ void __launch_bounds__(PF_THREADS, 1)
 flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v,
                              const PfArgs a) {
-  constexpr int NP = D / 64;  // panels per row
+  constexpr int NP = LK / 64;   // q and k panels per row
+  constexpr int NPV = LV / 64;  // v panels per row
   extern __shared__ uint8_t pf_raw[];
   // align to the 1024-byte swizzle atom
   const uint32_t base = smem_u32(pf_raw);
-  PfSmem<D>& sm = *reinterpret_cast<PfSmem<D>*>(
+  PfSmem<LK, LV>& sm = *reinterpret_cast<PfSmem<LK, LV>*>(
       pf_raw + ((1024 - (base & 1023)) & 1023));
 
   const int s0 = (gridDim.y - 1 - blockIdx.y) * PF_ROWS;  // heavy first
@@ -523,8 +591,8 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (int p = 0; p < NP; ++p)
         tma_load_4d(sm.k[st][p], &tm_k, &sm.k_full[st], p * 64, t * PF_KEYS,
                     gi, b);
-      mbar_expect_tx(&sm.v_full[st], NP * PF_KV_PANEL);
-      for (int p = 0; p < NP; ++p)
+      mbar_expect_tx(&sm.v_full[st], NPV * PF_KV_PANEL);
+      for (int p = 0; p < NPV; ++p)
         tma_load_4d(sm.v[st][p], &tm_v, &sm.v_full[st], p * 64, t * PF_KEYS,
                     gi, b);
     }
@@ -545,9 +613,9 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int kmax0 = (a.causal ? min(a.sk - 1, r0) : a.sk - 1) - cq;
   const int kmax1 = (a.causal ? min(a.sk - 1, r0 + 8) : a.sk - 1) - cq;
   const float sl = a.scale_log2;
-  float o[D / 2];
+  float o[LV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < LV / 2; ++i) o[i] = 0.f;
   float m0 = FA_NEG_INF, m1 = FA_NEG_INF, l0 = 0.f, l1 = 0.f, al0, al1;
   float s[PF_KEYS / 2];
   uint32_t ph[PF_KEYS / 16][4], pl[PF_KEYS / 16][4];
@@ -556,19 +624,19 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   if (nt > 0) {
     mbar_wait(&sm.k_full[0], 0);
     wgmma_fence();
-    pf_qk<D>(s, sm.q[wg], sm.k[0]);
+    pf_qk<LK>(s, sm.q[wg], sm.k[0]);
     wgmma_wait<0>();
     fence_regs(s);
     pf_softmax(s, m0, m1, l0, l1, al0, al1, kmax0, kmax1, sl);
-    pf_rescale_pack<D>(o, s, al0, al1, ph, pl);
+    pf_rescale_pack<LV>(o, s, al0, al1, ph, pl);
   }
   for (int t = 1; t < nt; ++t) {
     const int st = t % PF_STAGES, sp = (t - 1) % PF_STAGES;
     mbar_wait(&sm.k_full[st], (t / PF_STAGES) & 1);
     mbar_wait(&sm.v_full[sp], ((t - 1) / PF_STAGES) & 1);
     wgmma_fence();
-    pf_qk<D>(s, sm.q[wg], sm.k[st]);
-    pf_pv<D>(o, ph, pl, sm.v[sp]);
+    pf_qk<LK>(s, sm.q[wg], sm.k[st]);
+    pf_pv<LV>(o, ph, pl, sm.v[sp]);
     wgmma_wait<1>();
     fence_regs(s);
     pf_softmax(s, m0, m1, l0, l1, al0, al1, kmax0 - t * PF_KEYS,
@@ -579,13 +647,13 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(pl);
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[sp]);
-    pf_rescale_pack<D>(o, s, al0, al1, ph, pl);
+    pf_rescale_pack<LV>(o, s, al0, al1, ph, pl);
   }
   if (nt > 0) {
     const int sp = (nt - 1) % PF_STAGES;
     mbar_wait(&sm.v_full[sp], ((nt - 1) / PF_STAGES) & 1);
     wgmma_fence();
-    pf_pv<D>(o, ph, pl, sm.v[sp]);
+    pf_pv<LV>(o, ph, pl, sm.v[sp]);
     wgmma_wait<0>();
     fence_regs(o);
     __syncwarp();
@@ -677,19 +745,20 @@ static int make_map(CUtensorMap* map, const void* base, int d, int s,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// DV is the tensors' head dim, D the layout's (DV = 80 runs on D = 128:
-// the maps' extent of DV columns zero-fills the rest of each box).
-template <int D, int DV>
+// DK and DV are the tensors' head dims, LK and LV the layout's (DK = DV =
+// 80 runs on LK = LV = 128: the maps' extent of 80 columns zero-fills the
+// rest of each box; MLA's prefill is DK 192 on LK 192 and DV 128 on 128).
+template <int LK, int LV, int DK, int DV>
 static int launch_prefill(const FaArgs& a, int batch, cudaStream_t stream) {
   static unsigned long long attr_set = 0;
-  const int smem = (int)sizeof(PfSmem<D>) + 1024;
-  cudaError_t e = smem_opt_in(flash_attention_kernel_wgmma<D, DV>, smem,
+  const int smem = (int)sizeof(PfSmem<LK, LV>) + 1024;
+  cudaError_t e = smem_opt_in(flash_attention_kernel_wgmma<LK, LV, DV>, smem,
                               &attr_set);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, a.q, DV, a.sq, a.h, batch, a.qs, a.qh, a.qb, 64);
+  int err = make_map(&tq, a.q, DK, a.sq, a.h, batch, a.qs, a.qh, a.qb, 64);
   if (!err)
-    err = make_map(&tk, a.k, DV, a.sk, a.g, batch, a.ks, a.kh, a.kb,
+    err = make_map(&tk, a.k, DK, a.sk, a.g, batch, a.ks, a.kh, a.kb,
                    PF_KEYS);
   if (!err)
     err = make_map(&tv, a.v, DV, a.sk, a.g, batch, a.vs, a.vh, a.vb,
@@ -703,8 +772,8 @@ static int launch_prefill(const FaArgs& a, int batch, cudaStream_t stream) {
   p.scale_log2 = a.scale * 1.4426950408889634f;
   const dim3 grid((unsigned)a.h, (unsigned)((a.sq + PF_ROWS - 1) / PF_ROWS),
                   (unsigned)batch);
-  flash_attention_kernel_wgmma<D, DV><<<grid, PF_THREADS, smem, stream>>>(
-      tq, tk, tv, p);
+  flash_attention_kernel_wgmma<LK, LV, DV>
+      <<<grid, PF_THREADS, smem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
@@ -715,9 +784,9 @@ static int launch_prefill(const FaArgs& a, int batch, cudaStream_t stream) {
 #define DC_THREADS 128  // 4 warps x 2 rows
 #define DC_RPW (DC_ROWS / 4)  // rows per warp
 
-// Output columns of a decode lane: VC contiguous ones at D = 64 or 128
-// (lane VC ..), at D = 80 two pairs, 2 lane and 64 + 2 lane (the second
-// on lanes 0-7 only: a col() past D is no column).
+// Output columns of a decode lane: VC contiguous ones at D = 64, 128 or
+// 512 (lane VC ..), at D = 80 two pairs, 2 lane and 64 + 2 lane (the
+// second on lanes 0-7 only: a col() past D is no column).
 template <int D>
 struct DcCols {
   static constexpr bool kPairs = D % 32 != 0;
@@ -727,31 +796,47 @@ struct DcCols {
   }
 };
 
+// Stages of the decode ring: two past 128 key columns (MLA's 576-column
+// rows: a 32-key stage of K and V is 68 KB).
+template <int DK>
+struct DcStages {
+  static constexpr int N = DK > 128 ? 2 : DC_STAGES;
+};
+
 struct DcArgs {
   const bf16* q;
   const bf16* k;
   const bf16* v;
   bf16* o;
-  float* part_acc;  // [B][G * row_tiles][splits][DC_ROWS][D]
+  float* part_acc;  // [B][G * row_tiles][splits][DC_ROWS][DV]
   float* part_ml;   // [B][G * row_tiles][splits][DC_ROWS][2]
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;  // elements
   int sq, sk, h, g, causal, split_len, splits, row_tiles;
   float scale;
 };
 
+template <int DK, int DV>
+static constexpr int dc_smem_bytes() {
+  return (DC_ROWS * DK + 4 * DC_KEYS * DC_RPW) * (int)sizeof(float) +
+         DcStages<DK>::N * DC_KEYS * (DK + 8 + DV) * (int)sizeof(bf16);
+}
+
 // The partial pass: one CTA per (key slice, kv head x row tile, batch).
-template <int D>
+// DK is the head dim of q and k, DV that of v.
+template <int DK, int DV>
 __global__ void __launch_bounds__(DC_THREADS)
 flash_attention_kernel_split(const DcArgs a) {
-  constexpr int KP = D + 8;       // padded K row: 16-byte reads conflict-free
-  constexpr int CPR = D / 8;      // 16-byte chunks per row
-  constexpr int VC = DcCols<D>::VC;  // output columns per lane
+  constexpr int ST = DcStages<DK>::N;
+  constexpr int KP = DK + 8;      // padded K row: 16-byte reads conflict-free
+  constexpr int CPRK = DK / 8;    // 16-byte chunks per K row
+  constexpr int CPRV = DV / 8;    // 16-byte chunks per V row
+  constexpr int VC = DcCols<DV>::VC;  // output columns per lane
   extern __shared__ float4 dc_smem4[];
-  float* qsm = reinterpret_cast<float*>(dc_smem4);          // [ROWS][D]
-  float* psm = qsm + DC_ROWS * D;                       // [4][KEYS][RPW]
+  float* qsm = reinterpret_cast<float*>(dc_smem4);          // [ROWS][DK]
+  float* psm = qsm + DC_ROWS * DK;                      // [4][KEYS][RPW]
   // [ST][KEYS][KP]
   bf16* ksm = reinterpret_cast<bf16*>(psm + 4 * DC_KEYS * DC_RPW);
-  bf16* vsm = ksm + DC_STAGES * DC_KEYS * KP;                // [ST][KEYS][D]
+  bf16* vsm = ksm + ST * DC_KEYS * KP;                     // [ST][KEYS][DV]
 
   const int split = blockIdx.x, y = blockIdx.y, b = blockIdx.z;
   const int gi = y / a.row_tiles, f0 = (y % a.row_tiles) * DC_ROWS;
@@ -765,8 +850,8 @@ flash_attention_kernel_split(const DcArgs a) {
   int k_hi = min(a.sk, k_lo + a.split_len);
   if (a.causal) k_hi = min(k_hi, (min(f0 + DC_ROWS, nrows) - 1) / r + 1);
   if (k_hi <= k_lo) {  // every key of the slice is masked for these rows
-    for (int i = tid; i < DC_ROWS * D; i += DC_THREADS)
-      a.part_acc[pbase * D + i] = 0.f;
+    for (int i = tid; i < DC_ROWS * DV; i += DC_THREADS)
+      a.part_acc[pbase * DV + i] = 0.f;
     if (tid < DC_ROWS) {
       a.part_ml[(pbase + tid) * 2] = FA_NEG_INF;
       a.part_ml[(pbase + tid) * 2 + 1] = 0.f;
@@ -779,26 +864,28 @@ flash_attention_kernel_split(const DcArgs a) {
 
   auto issue = [&](int c) {
     if (c < nch) {
-      const int st = c % DC_STAGES, key0 = k_lo + c * DC_KEYS;
-      for (int e = tid; e < 2 * DC_KEYS * CPR; e += DC_THREADS) {
-        const int which = e / (DC_KEYS * CPR), rem = e % (DC_KEYS * CPR);
-        const int key = rem / CPR, dc = rem % CPR;
+      const int st = c % ST, key0 = k_lo + c * DC_KEYS;
+      for (int e = tid; e < DC_KEYS * (CPRK + CPRV); e += DC_THREADS) {
+        const bool is_k = e < DC_KEYS * CPRK;
+        const int rem = is_k ? e : e - DC_KEYS * CPRK;
+        const int cpr = is_k ? CPRK : CPRV;
+        const int key = rem / cpr, dc = rem % cpr;
         const bool ok = key0 + key < k_hi;
         const long long kk = ok ? key0 + key : 0;
-        if (which == 0)
+        if (is_k)
           cp_async16(ksm + (st * DC_KEYS + key) * KP + dc * 8,
                      kg + kk * a.ks + dc * 8, ok);
         else
-          cp_async16(vsm + (st * DC_KEYS + key) * D + dc * 8,
+          cp_async16(vsm + (st * DC_KEYS + key) * DV + dc * 8,
                      vg + kk * a.vs + dc * 8, ok);
       }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  for (int c = 0; c < DC_STAGES - 1; ++c) issue(c);
+  for (int c = 0; c < ST - 1; ++c) issue(c);
 
-  for (int i = tid; i < DC_ROWS * CPR; i += DC_THREADS) {
-    const int row = i / CPR, dc = i % CPR, f = f0 + row;
+  for (int i = tid; i < DC_ROWS * CPRK; i += DC_THREADS) {
+    const int row = i / CPRK, dc = i % CPRK, f = f0 + row;
     float x[8];
     if (f < nrows) {
       load8(a.q + b * a.qb + (long long)(f / r) * a.qs +
@@ -809,8 +896,8 @@ flash_attention_kernel_split(const DcArgs a) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) x[e] = 0.f;
     }
-    store4(qsm + row * D + dc * 8, x[0], x[1], x[2], x[3]);
-    store4(qsm + row * D + dc * 8 + 4, x[4], x[5], x[6], x[7]);
+    store4(qsm + row * DK + dc * 8, x[0], x[1], x[2], x[3]);
+    store4(qsm + row * DK + dc * 8 + 4, x[4], x[5], x[6], x[7]);
   }
 
   int pos[DC_RPW];
@@ -831,10 +918,10 @@ flash_attention_kernel_split(const DcArgs a) {
   }
 
   for (int c = 0; c < nch; ++c) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(DC_STAGES - 2) : "memory");
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(ST - 2) : "memory");
     __syncthreads();  // chunk c landed; chunk c - 1's stage is free
-    issue(c + DC_STAGES - 1);
-    const int st = c % DC_STAGES;
+    issue(c + ST - 1);
+    const int st = c % ST;
     const int key = k_lo + c * DC_KEYS + lane;
 
     // scores of this lane's key for the warp's rows
@@ -843,15 +930,15 @@ flash_attention_kernel_split(const DcArgs a) {
     for (int i = 0; i < DC_RPW; ++i) s[i] = 0.f;
     const bf16* krow = ksm + (st * DC_KEYS + lane) * KP;
 #pragma unroll 4
-    for (int dc = 0; dc < CPR; ++dc) {
+    for (int dc = 0; dc < CPRK; ++dc) {
       float kx[8];
       unpack8(*reinterpret_cast<const uint4*>(krow + dc * 8), kx);
 #pragma unroll
       for (int i = 0; i < DC_RPW; ++i) {
         const float4 qa = *reinterpret_cast<const float4*>(
-            qsm + (w * DC_RPW + i) * D + dc * 8);
+            qsm + (w * DC_RPW + i) * DK + dc * 8);
         const float4 qb = *reinterpret_cast<const float4*>(
-            qsm + (w * DC_RPW + i) * D + dc * 8 + 4);
+            qsm + (w * DC_RPW + i) * DK + dc * 8 + 4);
         s[i] = fmaf(qa.x, kx[0], s[i]); s[i] = fmaf(qa.y, kx[1], s[i]);
         s[i] = fmaf(qa.z, kx[2], s[i]); s[i] = fmaf(qa.w, kx[3], s[i]);
         s[i] = fmaf(qb.x, kx[4], s[i]); s[i] = fmaf(qb.y, kx[5], s[i]);
@@ -882,29 +969,33 @@ flash_attention_kernel_split(const DcArgs a) {
 #pragma unroll
     for (int i = 0; i < DC_RPW; ++i) pw[lane * DC_RPW + i] = p[i];
     __syncwarp();
-    const bf16* vs = vsm + st * DC_KEYS * D +
-                     (DcCols<D>::kPairs ? 0 : lane * VC);
+    const bf16* vs = vsm + st * DC_KEYS * DV +
+                     (DcCols<DV>::kPairs ? 0 : lane * VC);
 #pragma unroll 8
     for (int j = 0; j < DC_KEYS; ++j) {
       float vx[VC];
-      if constexpr (DcCols<D>::kPairs) {
+      if constexpr (DcCols<DV>::kPairs) {
 #pragma unroll
         for (int c = 0; c < VC; c += 2) {
-          const int col = DcCols<D>::col(lane, c);
+          const int col = DcCols<DV>::col(lane, c);
           const uint32_t u =
-              col < D ? *reinterpret_cast<const uint32_t*>(vs + j * D + col)
-                      : 0u;
+              col < DV ? *reinterpret_cast<const uint32_t*>(vs + j * DV + col)
+                       : 0u;
           vx[c] = __uint_as_float(u << 16);
           vx[c + 1] = __uint_as_float(u & 0xFFFF0000u);
         }
+      } else if constexpr (VC % 8 == 0) {
+#pragma unroll
+        for (int c = 0; c < VC; c += 8)
+          unpack8(*reinterpret_cast<const uint4*>(vs + j * DV + c), vx + c);
       } else if constexpr (VC == 4) {
-        const uint2 u = *reinterpret_cast<const uint2*>(vs + j * D);
+        const uint2 u = *reinterpret_cast<const uint2*>(vs + j * DV);
         vx[0] = __uint_as_float(u.x << 16);
         vx[1] = __uint_as_float(u.x & 0xFFFF0000u);
         vx[2] = __uint_as_float(u.y << 16);
         vx[3] = __uint_as_float(u.y & 0xFFFF0000u);
       } else {
-        const uint32_t u = *reinterpret_cast<const uint32_t*>(vs + j * D);
+        const uint32_t u = *reinterpret_cast<const uint32_t*>(vs + j * DV);
         vx[0] = __uint_as_float(u << 16);
         vx[1] = __uint_as_float(u & 0xFFFF0000u);
       }
@@ -924,8 +1015,8 @@ flash_attention_kernel_split(const DcArgs a) {
     const long long row = pbase + w * DC_RPW + i;
 #pragma unroll
     for (int cc = 0; cc < VC; ++cc) {
-      const int col = DcCols<D>::col(lane, cc);
-      if (col < D) a.part_acc[row * D + col] = acc[i][cc];
+      const int col = DcCols<DV>::col(lane, cc);
+      if (col < DV) a.part_acc[row * DV + col] = acc[i][cc];
     }
     if (lane == 0) {
       a.part_ml[row * 2] = m[i];
@@ -934,11 +1025,11 @@ flash_attention_kernel_split(const DcArgs a) {
   }
 }
 
-// The merge: one warp per row, lanes over the slices and then over D.
-template <int D>
+// The merge: one warp per row, lanes over the slices and then over DV.
+template <int DV>
 __global__ void __launch_bounds__(DC_ROWS * 32)
 flash_attention_kernel_combine(const DcArgs a) {
-  constexpr int VC = DcCols<D>::VC;
+  constexpr int VC = DcCols<DV>::VC;
   const int y = blockIdx.x, b = blockIdx.y;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gi = y / a.row_tiles, f = (y % a.row_tiles) * DC_ROWS + w;
@@ -967,8 +1058,8 @@ flash_attention_kernel_combine(const DcArgs a) {
     const float wt = expf(a.part_ml[row * 2] - mmax);
 #pragma unroll
     for (int c = 0; c < VC; ++c) {
-      const int col = DcCols<D>::col(lane, c);
-      if (col < D) acc[c] = fmaf(wt, a.part_acc[row * D + col], acc[c]);
+      const int col = DcCols<DV>::col(lane, c);
+      if (col < DV) acc[c] = fmaf(wt, a.part_acc[row * DV + col], acc[c]);
     }
   }
   den = fmaxf(den, 1e-30f);
@@ -976,21 +1067,19 @@ flash_attention_kernel_combine(const DcArgs a) {
               (long long)(gi * r + f % r) * a.oh;
 #pragma unroll
   for (int c = 0; c < VC; c += 2) {
-    const int col = DcCols<D>::col(lane, c);
-    if (col < D)
+    const int col = DcCols<DV>::col(lane, c);
+    if (col < DV)
       *reinterpret_cast<uint32_t*>(dst + col) =
           pack_bf16(acc[c] / den, acc[c + 1] / den);
   }
 }
 
-template <int D>
+template <int DK, int DV>
 static int launch_decode(const FaArgs& fa, int batch, int split_len,
                          int splits, void* scratch, cudaStream_t stream) {
   static unsigned long long attr_set = 0;
-  const int smem =
-      (DC_ROWS * D + 4 * DC_KEYS * DC_RPW) * (int)sizeof(float) +
-      DC_STAGES * DC_KEYS * (2 * D + 8) * (int)sizeof(bf16);
-  cudaError_t e = smem_opt_in(flash_attention_kernel_split<D>, smem,
+  const int smem = dc_smem_bytes<DK, DV>();
+  cudaError_t e = smem_opt_in(flash_attention_kernel_split<DK, DV>, smem,
                               &attr_set);
   if (e != cudaSuccess) return (int)e;
   const long long rows = (long long)fa.sq * (fa.h / fa.g);
@@ -1005,7 +1094,7 @@ static int launch_decode(const FaArgs& fa, int batch, int split_len,
   a.o = static_cast<bf16*>(fa.o);
   const long long nparts = batch * tiles * fa.g * splits * DC_ROWS;
   a.part_acc = static_cast<float*>(scratch);
-  a.part_ml = a.part_acc + nparts * D;
+  a.part_ml = a.part_acc + nparts * DV;
   a.qb = fa.qb; a.qs = fa.qs; a.qh = fa.qh;
   a.kb = fa.kb; a.ks = fa.ks; a.kh = fa.kh;
   a.vb = fa.vb; a.vs = fa.vs; a.vh = fa.vh;
@@ -1015,33 +1104,36 @@ static int launch_decode(const FaArgs& fa, int batch, int split_len,
   a.scale = fa.scale;
   const dim3 grid((unsigned)splits, (unsigned)(tiles * fa.g),
                   (unsigned)batch);
-  flash_attention_kernel_split<D><<<grid, DC_THREADS, smem, stream>>>(a);
+  flash_attention_kernel_split<DK, DV><<<grid, DC_THREADS, smem, stream>>>(
+      a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 grid2((unsigned)(tiles * fa.g), (unsigned)batch);
-  flash_attention_kernel_combine<D><<<grid2, DC_ROWS * 32, 0, stream>>>(a);
+  flash_attention_kernel_combine<DV><<<grid2, DC_ROWS * 32, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------ entry point
 // Launches one attention forward by route: 0 float32, 1 bf16 prefill, 2
-// bf16 decode (two kernels; `scratch` holds B * G * ceil(Sq * H / G / 16)
-// * splits * 16 * (D + 2) floats, `split_len` keys per slice, `splits` =
-// ceil(Sk / split_len)).  `strides` holds 12 element strides: (batch, seq,
-// head) of q, k, v and out, in that order; the last dimension of each is
-// contiguous.  Returns the cudaError_t of the launch(es).
+// bf16 decode (two kernels; `scratch` holds B * G * ceil(Sq * H / G / 8)
+// * splits * 8 * (DV + 2) floats, `split_len` keys per slice, `splits` =
+// ceil(Sk / split_len)).  q and k have `head_dim` (DK) columns, v and the
+// output `v_head_dim` (DV): DK = DV in {64, 80, 128} on every route, and
+// MLA's (DK, DV) = (192, 128) on the prefill and float32 routes and (576,
+// 512) on the decode and float32 routes.  `strides` holds 12 element
+// strides: (batch, seq, head) of q, k, v and out, in that order; the last
+// dimension of each is contiguous.  Returns the cudaError_t of the
+// launch(es).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out,
                                       const long long* strides, int batch,
                                       int sq, int sk, int heads,
-                                      int kv_heads, int head_dim, int causal,
-                                      int route, float scale, int split_len,
-                                      int splits, void* scratch,
-                                      void* stream) {
+                                      int kv_heads, int head_dim,
+                                      int v_head_dim, int causal, int route,
+                                      float scale, int split_len, int splits,
+                                      void* scratch, void* stream) {
   if (batch <= 0 || sq <= 0 || sk <= 0 || kv_heads <= 0 ||
-      heads % kv_heads != 0 ||
-      (head_dim != 64 && head_dim != 80 && head_dim != 128) ||
-      route < 0 || route > 2) {
+      heads % kv_heads != 0 || route < 0 || route > 2) {
     return (int)cudaErrorInvalidValue;
   }
   FaArgs a;
@@ -1053,19 +1145,33 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   a.sq = sq; a.sk = sk; a.h = heads; a.g = kv_heads; a.causal = causal;
   a.scale = scale;
   const cudaStream_t s = (cudaStream_t)stream;
+  const int dk = head_dim, dv = v_head_dim;
   if (route == 1) {
-    if (head_dim == 128) return launch_prefill<128, 128>(a, batch, s);
-    if (head_dim == 80) return launch_prefill<128, 80>(a, batch, s);
-    return launch_prefill<64, 64>(a, batch, s);
+    if (dk == 128 && dv == 128) return launch_prefill<128, 128, 128, 128>(
+        a, batch, s);
+    if (dk == 80 && dv == 80) return launch_prefill<128, 128, 80, 80>(
+        a, batch, s);
+    if (dk == 64 && dv == 64) return launch_prefill<64, 64, 64, 64>(
+        a, batch, s);
+    if (dk == 192 && dv == 128) return launch_prefill<192, 128, 192, 128>(
+        a, batch, s);
+    return (int)cudaErrorInvalidValue;
   }
   if (route == 2) {
-    if (head_dim == 128)
-      return launch_decode<128>(a, batch, split_len, splits, scratch, s);
-    if (head_dim == 80)
-      return launch_decode<80>(a, batch, split_len, splits, scratch, s);
-    return launch_decode<64>(a, batch, split_len, splits, scratch, s);
+    if (dk == 128 && dv == 128)
+      return launch_decode<128, 128>(a, batch, split_len, splits, scratch, s);
+    if (dk == 80 && dv == 80)
+      return launch_decode<80, 80>(a, batch, split_len, splits, scratch, s);
+    if (dk == 64 && dv == 64)
+      return launch_decode<64, 64>(a, batch, split_len, splits, scratch, s);
+    if (dk == 576 && dv == 512)
+      return launch_decode<576, 512>(a, batch, split_len, splits, scratch, s);
+    return (int)cudaErrorInvalidValue;
   }
-  if (head_dim == 128) return launch_f32<128>(a, batch, s);
-  if (head_dim == 80) return launch_f32<80>(a, batch, s);
-  return launch_f32<64>(a, batch, s);
+  if (dk == 128 && dv == 128) return launch_f32<128, 128>(a, batch, s);
+  if (dk == 80 && dv == 80) return launch_f32<80, 80>(a, batch, s);
+  if (dk == 64 && dv == 64) return launch_f32<64, 64>(a, batch, s);
+  if (dk == 192 && dv == 128) return launch_f32<192, 128>(a, batch, s);
+  if (dk == 576 && dv == 512) return launch_f32<576, 512>(a, batch, s);
+  return (int)cudaErrorInvalidValue;
 }

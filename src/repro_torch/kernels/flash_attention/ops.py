@@ -1,13 +1,15 @@
 """Grouped-query flash attention, forward only: the CUDA kernels and their
 plain PyTorch version behind one wrapper.
 
-``flash_attention(q, k, v, causal=...)`` takes the public layout of the
-JAX package's wrapper (``repro/kernels/flash_attention/ops.py``): q
-``(B, Sq, H, D)``, k and v ``(B, Sk, G, D)``, out ``(B, Sq, H, D)`` in q's
-dtype.  CPU tensors take the plain version (``ref.py``).  CUDA tensors go
-to ``csrc/flash_attention.cu`` (one C entry call per wrapper call, so
-``KERNEL.launches`` counts calls) by one of three routes, picked from the
-dtype and ``Sq`` alone (``pick_route``):
+``flash_attention(q, k, v, causal=..., scale=...)`` takes the public
+layout of the JAX package's wrapper (``repro/kernels/flash_attention/
+ops.py``): q ``(B, Sq, H, Dqk)``, k ``(B, Sk, G, Dqk)``, v ``(B, Sk, G,
+Dv)``, out ``(B, Sq, H, Dv)`` in q's dtype; ``scale`` (the factor of the
+scores) defaults to ``Dqk ** -0.5``.  CPU tensors take the plain version
+(``ref.py``).  CUDA tensors go to ``csrc/flash_attention.cu`` (one C
+entry call per wrapper call, so ``KERNEL.launches`` counts calls) by one
+of three routes, picked from the dtype and ``Sq`` alone
+(``pick_route``):
 
 - ``prefill``: bf16 with ``Sq >= PREFILL_MIN_QUERIES``; bf16 tensor cores
   (wgmma), K/V tiles fed by TMA, p entering P.V as bf16 hi + lo;
@@ -15,7 +17,11 @@ dtype and ``Sq`` alone (``pick_route``):
   (``decode_split``) on the CUDA cores in float32, then a merge kernel;
 - ``f32``: float32; the CUDA cores throughout.
 
-Each route takes head dims 64, 80 and 128.
+Each route takes head dims 64, 80 and 128 with q, k and v alike
+(``HEAD_DIMS``), and MLA's split pairs (``SPLIT_HEAD_DIMS``): (Dqk, Dv) =
+(192, 128) on the prefill and float32 routes (the latent-expanded
+prefill) and (576, 512) on the decode and float32 routes (the absorbed
+decode over the latent cache, whose scale is 192 ** -0.5).
 
 Every route reads q, k and v through their strides (the last dimension
 contiguous), so a decode step passes the cache prefix ``cache[:, :end]``
@@ -26,8 +32,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import CudaKernel, check_strided_operand
@@ -37,6 +44,9 @@ from repro_torch.kernels.flash_attention.ref import (attention_plain,
 # 80 is Zamba2's (the prefill route runs its 128-wide layout on 80
 # columns: the .cu's note)
 HEAD_DIMS = (64, 80, 128)
+# (Dqk, Dv) pairs with v narrower than q and k, by route (MLA)
+SPLIT_HEAD_DIMS = {"prefill": ((192, 128),), "decode": ((576, 512),),
+                   "f32": ((192, 128), (576, 512))}
 ROUTES = {"f32": 0, "prefill": 1, "decode": 2}
 # bf16 calls with at least this many queries take the prefill route: its
 # CTA holds 128 positions of one query head in two 64-row wgmma tiles, so
@@ -57,7 +67,7 @@ KERNEL = CudaKernel("flash_attention", "flash_attention_launch", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p])
 
 
@@ -97,10 +107,12 @@ def _sm_count(index: int) -> int:
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention takes q (B,Sq,H,D) and k, v "
-                         f"(B,Sk,G,D); got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention takes q (B,Sq,H,Dqk), k "
+                         f"(B,Sk,G,Dqk) and v (B,Sk,G,Dv); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     b, sq, h, d = q.shape
     _, sk, g, dk = k.shape
     if k.shape[0] != b or dk != d or g == 0 or h % g:
@@ -111,7 +123,8 @@ def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """Attention forward over (B, S, heads, D) tensors (see module doc).
     The causal mask is top-left: query i sees keys 0..i."""
     _check_shapes(q, k, v)
@@ -119,14 +132,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.device != dev or v.device != dev:
         raise ValueError("flash_attention: q, k and v must share a device")
     if dev.type == "cpu":
-        return attention_plain(q, k, v, causal=causal)
+        return attention_plain(q, k, v, causal=causal, scale=scale)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention does not run on {dev}")
-    return _launch(q, k, v, causal, pick_route(q.dtype, q.shape[1]))
+    return _launch(q, k, v, causal, pick_route(q.dtype, q.shape[1]), scale)
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-           route: str) -> torch.Tensor:
+           route: str, scale: Optional[float] = None) -> torch.Tensor:
     """One C entry call by ``route`` on CUDA tensors (``flash_attention``
     picks the route; a caller may name one to time it)."""
     _check_shapes(q, k, v)
@@ -134,13 +147,19 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             or v.device != q.device:
         raise ValueError("flash_attention kernels take q, k, v on one CUDA "
                          "device")
-    return _launch(q, k, v, causal, route)
+    return _launch(q, k, v, causal, route, scale)
 
 
-_SCALES = {d: softmax_scale(d) for d in HEAD_DIMS}
+_SCALES = {d: softmax_scale(d) for d in HEAD_DIMS + (192, 576)}
 
 
-def _launch(q, k, v, causal, route):
+def takes_head_dims(route: str, dqk: int, dv: int) -> bool:
+    """Whether ``route`` takes q and k of ``dqk`` and v of ``dv`` columns."""
+    return ((dqk == dv and dqk in HEAD_DIMS)
+            or (dqk, dv) in SPLIT_HEAD_DIMS.get(route, ()))
+
+
+def _launch(q, k, v, causal, route, scale=None):
     # The decode step calls this 48 times on a host-bound step: keep the
     # host work to checks, two allocations and one ctypes call.
     want = torch.float32 if route == "f32" else torch.bfloat16
@@ -150,24 +169,28 @@ def _launch(q, k, v, causal, route):
                         f"k, v, not {q.dtype}/{k.dtype}/{v.dtype}")
     b, sq, h, d = q.shape
     sk, g = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dim "
-                         f"{HEAD_DIMS}, not {d}")
+    dv = v.shape[-1]
+    if not takes_head_dims(route, d, dv):
+        raise ValueError(f"flash_attention's {route} route takes head dims "
+                         f"{HEAD_DIMS} (q, k, v alike) and (Dqk, Dv) "
+                         f"{SPLIT_HEAD_DIMS.get(route, ())}, not ({d}, "
+                         f"{dv})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_strided_operand("flash_attention", name, t)
     dev = q.device
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     split, splits, scratch = 0, 0, None
     if route == "decode":    # freed after the call: stream order keeps it
         split, splits = decode_split(b, sq, h, g, sk, _sm_count(dev.index))
         scratch = torch.empty(decode_rows(b, sq, h, g) * splits
-                              * DECODE_ROWS * (d + 2), dtype=torch.float32,
+                              * DECODE_ROWS * (dv + 2), dtype=torch.float32,
                               device=dev)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            strides, b, sq, sk, h, g, d, int(causal), ROUTES[route],
-            _SCALES[d], split, splits,
+            strides, b, sq, sk, h, g, d, dv, int(causal), ROUTES[route],
+            _SCALES[d] if scale is None else float(np.float32(scale)),
+            split, splits,
             None if scratch is None else scratch.data_ptr())
     if dev.index == torch.cuda.current_device():
         KERNEL.launch(*args, torch._C._cuda_getCurrentRawStream(dev.index))

@@ -1,5 +1,6 @@
-"""Trainer of the port: dense training with LLMTailor selective
-checkpointing and Frankenstein resume, on the card by default.
+"""Trainer of the port: training of every ported family (dense, MoE,
+SSM, hybrid) with LLMTailor selective checkpointing and Frankenstein
+resume, on the card by default.
 
     python -m repro_torch.launch.train --arch yi-9b --full --num-layers 2 \\
         --batch 2 --seq-len 1024 --steps 8 --policy topk_delta \\
@@ -81,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
 import logging
 import signal
@@ -208,6 +210,17 @@ def _preemption_flag(handle_sigterm: bool):
                           signal.SIG_DFL if prev is None else prev)
 
 
+def _import_in_background(name: str) -> Optional[threading.Thread]:
+    """Start importing module ``name`` on a daemon thread, unless it is
+    imported already; returns the thread to join."""
+    if name in sys.modules:
+        return None
+    t = threading.Thread(target=importlib.import_module, args=(name,),
+                         name=f"import-{name}", daemon=True)
+    t.start()
+    return t
+
+
 def train(
     *,
     arch: str,
@@ -319,7 +332,13 @@ def train(
         t = time.perf_counter()
         restore_stats = None
         if resume:
+            # a restarted trainer's first step imports torch._dynamo
+            # (torch.utils.checkpoint's disabled frames: seconds): import
+            # it while the restore reads and decodes
+            warm = _import_in_background("torch._dynamo")
             state = mgr.restore(steps_lib.state_specs(model), device=dev)
+            if warm is not None:
+                warm.join()
             restore_stats = mgr.last_restore_stats
             meta = mgr.restore_meta()
             if "data_state" in meta:
@@ -339,7 +358,7 @@ def train(
             return {"data_state": data.state_dict(), "arch": arch,
                     "reduced": reduced, "tcfg": tcfg.to_json()}
 
-        losses, step_seconds, save_events = [], [], []
+        losses, aux_losses, step_seconds, save_events = [], [], [], []
         # event step -> seconds of the steps whose tick served that event
         tick_seconds: Dict[int, List[float]] = {}
 
@@ -382,6 +401,8 @@ def train(
                     tick_seconds.setdefault(ticked, []).append(
                         step_seconds[-1])
                 losses.append((step, loss))
+                # the MoE layers' load-balancing term (0 without MoE)
+                aux_losses.append((step, float(metrics["aux_loss"].detach())))
                 loss_log.write(f"{step},{loss}")
                 progress.emit("step", step + 1)
                 if fail_step is not None and step + 1 == fail_step:
@@ -478,6 +499,7 @@ def train(
                        else "cpu"),
             "final_loss": losses[-1][1] if losses else float("nan"),
             "losses": losses,
+            "aux_losses": aux_losses,
             "step_seconds": step_seconds,
             "train_seconds": total,
             "save_seconds": save_seconds,

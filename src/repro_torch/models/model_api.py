@@ -114,9 +114,15 @@ class StackedLM(BaseLM):
                                 ("dense", 0.02))
         return out
 
+    @property
+    def n_stacked(self) -> int:
+        """Layers stacked under ``blocks`` (a decoder's first-k dense
+        layers are not)."""
+        return self.cfg.num_layers
+
     def param_specs(self) -> PyTree:
         tree: Dict[str, Any] = {}
-        n = self.cfg.num_layers
+        n = self.n_stacked
         for path, (shape, _) in self._aux_leaves().items():
             set_path(tree, path, TensorSpec(shape, torch.float32))
         for path, (shape, _) in self._block_leaves().items():
@@ -148,7 +154,7 @@ class StackedLM(BaseLM):
 
         for path, (shape, rule) in self._aux_leaves().items():
             set_path(tree, path, make(path, shape, rule).to(dtype))
-        n = self.cfg.num_layers
+        n = self.n_stacked
         for path, (shape, rule) in self._block_leaves().items():
             stacked = torch.empty((n,) + shape, dtype=dtype, device=device)
             for i in range(n):
@@ -167,7 +173,7 @@ class StackedLM(BaseLM):
 
     def cache_spec(self, batch: int, seq: int) -> PyTree:
         """The layers' caches stacked with the layer dim leading."""
-        return {"blocks": {k: TensorSpec((self.cfg.num_layers,) + s.shape,
+        return {"blocks": {k: TensorSpec((self.n_stacked,) + s.shape,
                                          s.dtype)
                            for k, s in self._layer_cache_spec(
                                batch, seq).items()}}
@@ -230,7 +236,7 @@ def unbind_layers(tree) -> List[PyTree]:
 
 def build_model(cfg: ModelConfig,
                 compute_dtype: torch.dtype = COMPUTE_DTYPE) -> BaseLM:
-    if cfg.family == "dense" and cfg.mla is None:
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models.transformer import DecoderLM
         return DecoderLM(cfg, compute_dtype)
     if cfg.family == "ssm":
@@ -241,4 +247,4 @@ def build_model(cfg: ModelConfig,
         return HybridLM(cfg, compute_dtype)
     raise NotImplementedError(
         f"model family {cfg.family!r} ({cfg.name}) is not ported to "
-        "repro_torch yet (ROADMAP A5: dense GQA, ssm and hybrid only)")
+        "repro_torch yet (ROADMAP A5: dense, moe, ssm and hybrid only)")

@@ -317,6 +317,63 @@ def test_flash_attention_launch_counts_one_per_call_on_each_route(dev,
                       k, k, True, route)
 
 
+@pytest.mark.parametrize("b,sq,sk,h,g,dqk,dv,causal,dtype,route", [
+    # MLA's latent-expanded prefill (192 / 128), ragged and at its edges
+    (2, 160, 160, 16, 16, 192, 128, True, torch.bfloat16, "prefill"),
+    (1, 77, 201, 16, 16, 192, 128, True, torch.bfloat16, "prefill"),
+    (1, _T, 300, 8, 2, 192, 128, False, torch.bfloat16, "prefill"),
+    (2, 70, 70, 16, 16, 192, 128, True, torch.float32, "f32"),
+    # the absorbed decode over the latent cache (576 / 512, one kv head)
+    (8, 1, 1032, 16, 1, 576, 512, False, torch.bfloat16, "decode"),
+    (2, 1, 1, 16, 1, 576, 512, False, torch.bfloat16, "decode"),
+    (1, _T - 1, 333, 16, 1, 576, 512, True, torch.bfloat16, "decode"),
+    (2, 1, 213, 16, 1, 576, 512, False, torch.float32, "f32"),
+])
+def test_flash_attention_split_head_dims_on_each_route(dev, b, sq, sk, h, g,
+                                                       dqk, dv, causal,
+                                                       dtype, route):
+    """MLA's shapes: v narrower than q and k.  The decode cases read K as
+    whole rows of a (B, S, 576) cache and V as their first 512 columns
+    (views), at the absorbed decode's scale 192 ** -0.5; prefill at the
+    default Dqk ** -0.5.  Against attention_plain on the same views."""
+    assert fa.ops.pick_route(dtype, sq) == route
+    gen = torch.Generator(device=dev).manual_seed(sq * 7 + sk + dqk)
+    q = torch.randn(b, sq, h, dqk, generator=gen, device=dev).to(dtype)
+    if route == "prefill" or (route == "f32" and dv == 128):
+        k = torch.randn(b, sk, g, dqk, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, sk, g, dv, generator=gen, device=dev).to(dtype)
+        scale = None
+    else:
+        rows = torch.randn(b, sk + 5, dqk, generator=gen, device=dev).to(
+            dtype)
+        k = rows[:, :sk, None, :]
+        v = k[..., :dv]
+        scale = 192 ** -0.5
+    before = fa.KERNEL.launches
+    got = fa.flash_attention(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 1
+    assert tuple(got.shape) == (b, sq, h, dv)
+    want = fa.attention_plain(q, k, v, causal=causal, scale=scale)
+    if dtype == torch.bfloat16:
+        g_, w_ = got.float(), want.float()
+        assert ((g_ - w_).abs() <= 2.0 ** -6 * w_.abs() + 1e-5).all()
+        assert (g_ != w_).float().mean().item() <= 0.01
+    else:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_attention_kernel_rejects_split_dims_off_its_routes(dev):
+    q = torch.zeros(1, 1, 16, 192, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 16, 192, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="decode route"):
+        fa.flash_attention(q, k, k[..., :128])
+    q = torch.zeros(1, 8, 16, 576, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 1, 576, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="prefill route"):
+        fa.flash_attention(q, k, k[..., :512])
+
+
 def test_flash_attention_kernel_rejects_what_it_does_not_take(dev):
     q = torch.zeros(1, 4, 2, 96, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):   # 64, 80, 128 only

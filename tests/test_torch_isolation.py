@@ -47,7 +47,8 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["yi-9b", "mamba2-370m",
+                                  "deepseek-v2-lite-16b"])
 def test_train_save_resume_loads_no_forbidden_module(tmp_path, arch):
     script = f"""
 import sys
